@@ -1,0 +1,619 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                # on a machine with an H100
+    python3 chip_smoke.py --device cpu   # rehearsal at a tiny size, no card
+
+Phases, each printing one JSON line:
+
+  1. device   -- the card's name and power limit (nvidia-smi, torch).
+  2. build    -- the four hand-written kernels built from
+                 src/repro_torch/kernels/csrc/ (one nvcc per source, all at
+                 once) into src/repro_torch/kernels/_build/; seconds and
+                 the ptxas register / shared-memory lines.
+  3. kernels  -- each kernel against its plain PyTorch version
+                 (kernels/ref.py) on the card, at the main path's shapes and
+                 around them, at the tolerances of the CPU tests; then each
+                 is timed beside its plain version with CUDA events.
+  4. main     -- a full-scale Marconi run (192,817 tasks, 972 hosts, 30 days
+                 at 15 minutes = 2880 steps) with every technique on, through
+                 both step executors; launch counts are reset just before
+                 and read just after each run and must be exact.
+  5. small    -- the same configuration at a small scale on the card and on
+                 the CPU (the plain versions, which the CPU tests hold to the
+                 reference package): counts exact, the rest within 1e-4.
+
+Then the `kernels` summary line, the nvidia-smi line, and as the last line
+`{"ok": true, "device": {...}}`.  Any failure raises: no phase is caught,
+and the script exits non-zero without the last line.  Without `--device
+cpu` it needs a card and fails without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.carbontraces import make_region_traces  # noqa: E402
+from repro_torch.core import config as C  # noqa: E402
+from repro_torch.core import (battery, pricing,  # noqa: E402
+                              result_to_numpy, simulate, summarize)
+from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import first_fit as ff_k  # noqa: E402
+from repro_torch.kernels import fused_step as fs_k  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import power_carbon as pc_k  # noqa: E402
+from repro_torch.workloads import make_workload  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) op/s
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+DT_H = 0.25
+MAIN_STEPS = 2880            # 30 days at 15 minutes
+MARCONI_ACTIVE = 750         # the published Marconi optimum (of 972 hosts)
+KWH_PER_HOST = 9.0           # Marconi battery sizing (benchmarks/common.py)
+CURVES = ("linear", "sqrt", "square", "cubic")
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# --------------------------------------------------------------------------
+# timing
+# --------------------------------------------------------------------------
+
+def time_ms(fn, budget_s: float = 0.5) -> float:
+    """Mean ms per call of `fn` over back-to-back calls, CUDA events around
+    the run, after warm-up: what one call costs the caller's stream."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    reps = int(min(max(budget_s / max(time.perf_counter() - t0, 1e-6), 3),
+                   500))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, kernel_name: str, reps: int = 50):
+    """Mean device time per launch of the kernel whose name contains
+    `kernel_name`, from the profiler's CUDA activity (no host gaps)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, calls = 0.0, 0
+    for e in prof.key_averages():
+        if kernel_name in e.key:
+            total_us += getattr(e, "device_time_total",
+                                getattr(e, "cuda_time_total", 0.0))
+            calls += e.count
+    return total_us / calls / 1000.0 if calls else None
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """Least time on the card (ms): bytes over HBM rate or f32 operations
+    over the peak f32 rate, whichever is larger."""
+    tb, to = nbytes / PEAK_BYTES_S, nops / PEAK_F32_OPS_S
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def _host_inputs(gen, b, h, dev):
+    u = lambda: torch.rand((b, h), generator=gen, device=dev)  # noqa: E731
+    ngpu = torch.randint(0, 5, (b, h), generator=gen, device=dev).float()
+    on = (u() < 0.8).float()
+    # utilizations slightly outside [0, 1] exercise the clamp
+    return u() * 1.1 - 0.05, u() * 1.1 - 0.05, ngpu, on
+
+
+def _err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def _close(got, want, rtol, atol, what) -> float:
+    ok = torch.allclose(got.double(), want.double(), rtol=rtol, atol=atol)
+    check(ok, f"{what}: max abs err {_err(got, want):.3e}")
+    return _err(got, want)
+
+
+def check_power_kernels(dev, results: dict) -> None:
+    """Kernels 1 and 2 at H in {7, 972, 1000, 2048}, every curve pair, one
+    and four scenario rows; per-host rtol 1e-5 atol 1e-6, sums rtol 1e-4."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    errs1, errs2 = [], []
+    cool = C.CoolingConfig(enabled=True)
+    for h in (7, 972, 1000, 2048):
+        for b in (1, 4):
+            cu, gu, ng, on = _host_inputs(gen, b, h, dev)
+            ci = torch.rand(b, generator=gen, device=dev) * 500 + 50
+            wb = torch.rand(b, generator=gen, device=dev) * 30 + 5
+            sp = torch.rand(b, generator=gen, device=dev) * 10 + 18
+            for cc in CURVES:
+                for gc in CURVES:
+                    cpu = C.PowerModelConfig(80.0, 250.0, cc)
+                    gpu = C.PowerModelConfig(40.0, 300.0, gc)
+                    got = pc_k.fused_power_carbon(cu, gu, ng, on, ci, 0.25,
+                                                  cpu, gpu)
+                    want = ref.fused_power_carbon(cu, gu, ng, on, ci, 0.25,
+                                                  cpu, gpu)
+                    what = f"fused_power_carbon h={h} b={b} {cc}/{gc}"
+                    errs1.append(_close(got[0], want[0], 1e-5, 1e-6, what))
+                    for g, w in zip(got[1:], want[1:]):
+                        errs1.append(_close(g, w, 1e-4, 0.0, what + " sums"))
+                    got = pc_k.fused_facility_power(cu, gu, ng, on, wb, sp,
+                                                    cpu, gpu, cool)
+                    want = ref.fused_facility_power(cu, gu, ng, on, wb, sp,
+                                                    cpu, gpu, cool)
+                    what = f"fused_facility_power h={h} b={b} {cc}/{gc}"
+                    errs2.append(_close(got[0], want[0], 1e-5, 1e-6, what))
+                    for g, w in zip(got[1:], want[1:]):
+                        errs2.append(_close(g, w, 1e-4, 1e-6, what + " tail"))
+    torch.cuda.synchronize()
+    results["fused_power_carbon"] = {"max_abs_err": max(errs1),
+                                     "cases": len(errs1)}
+    results["fused_facility_power"] = {"max_abs_err": max(errs2),
+                                       "cases": len(errs2)}
+
+
+def _ff_inputs(gen, k, h, dev, live=None):
+    cc = torch.randint(1, 8, (k,), generator=gen, device=dev).float()
+    cg = torch.randint(0, 2, (k,), generator=gen, device=dev).float()
+    fc = torch.randint(0, 16, (h,), generator=gen, device=dev).float()
+    fg = torch.randint(0, 4, (h,), generator=gen, device=dev).float()
+    if live is not None:  # the scheduler's inert tail and unusable hosts
+        cc[live:] = float("inf")
+        cg[live:] = float("inf")
+        down = torch.rand(h, generator=gen, device=dev) < 0.2
+        fc[down] = -float("inf")
+        fg[down] = -float("inf")
+        cg[:max(live // 4, 1)] = 0.0  # zero-footprint GPU demand
+    return cc, cg, fc, fg
+
+
+def check_first_fit(dev, results: dict) -> None:
+    """Kernel 4: assignments bit-equal, free vectors atol 1e-5."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    errs = []
+    for k, h in ((4, 3), (16, 64), (64, 300), (64, 972)):
+        for live in (None, k // 2):
+            args = _ff_inputs(gen, k, h, dev, live)
+            got = ff_k.first_fit_place(*args)
+            want = ref.first_fit_place(*args)
+            check(torch.equal(got[0], want[0]),
+                  f"first_fit_place k={k} h={h}: assignments differ")
+            for g, w in zip(got[1:], want[1:]):
+                fin = torch.isfinite(w)
+                check(torch.equal(torch.isfinite(g), fin),
+                      f"first_fit_place k={k} h={h}: inf pattern")
+                errs.append(_close(g[fin], w[fin], 0.0, 1e-5,
+                                   f"first_fit_place k={k} h={h}"))
+    # batched rows: one scenario per thread block
+    rows = [_ff_inputs(gen, 64, 972, dev, 40) for _ in range(3)]
+    args = [torch.stack(x) for x in zip(*rows)]
+    got = ff_k.first_fit_place(*args)
+    for i in range(3):
+        want = ref.first_fit_place(*(a[i] for a in args))
+        check(torch.equal(got[0][i], want[0]), "first_fit_place batched")
+    torch.cuda.synchronize()
+    results["first_fit_place"] = {"max_abs_err": max(errs),
+                                  "cases": len(errs)}
+
+
+def facility_traces(s: int, dev):
+    """The main path's exogenous traces: region 0 of the synthetic carbon
+    traces and the weather / price / PV sinusoids of the simulator bench."""
+    t = np.arange(s) * DT_H
+    ci = make_region_traces(s, DT_H, 8, seed=0)[0]
+    price = (0.1 * (1 + 0.5 * np.sin(2 * np.pi * t / 24))).astype(np.float32)
+    wb = (14.0 + 6.0 * np.sin(2 * np.pi * t / 24)).astype(np.float32)
+    cf = np.clip(np.sin(2 * np.pi * (t - 6.0) / 24.0), 0.0, 1.0).astype(
+        np.float32)
+    to = lambda x: torch.tensor(x, device=dev)  # noqa: E731
+    return to(ci), to(wb), to(price), to(cf)
+
+
+def main_config(n_steps: int, embodied, n_hosts: int = 972,
+                **kw) -> C.SimConfig:
+    return C.SimConfig(
+        dt_h=DT_H, n_steps=n_steps, embodied=embodied,
+        cooling=C.CoolingConfig(enabled=True, heat_reuse_fraction=0.3),
+        pricing=C.PricingConfig(enabled=True, billing_window_h=24.0),
+        renewables=C.RenewableConfig(enabled=True, pv_capacity_kw=500.0),
+        battery=C.BatteryConfig(enabled=True,
+                                capacity_kwh=KWH_PER_HOST * n_hosts, **kw),
+        shifting=C.ShiftingConfig(enabled=True))
+
+
+def facility_args(cfg, it_kw, traces):
+    ci, wb, price, cf = traces
+    bt, rising = battery.precompute_battery_signals(ci, cfg.dt_h, cfg.battery)
+    if cfg.battery.enabled and cfg.battery.policy != "carbon":
+        plo, phi = pricing.precompute_price_signals(price, cfg.dt_h,
+                                                    cfg.battery)
+    else:
+        plo = phi = torch.zeros_like(ci)
+    return (it_kw, ci, wb, price, plo, phi, cf, bt, rising)
+
+
+def _totals_close(got, want, rtol, atol, what) -> tuple[float, float]:
+    """(max abs, max rel) error over the totals, each within tolerance."""
+    check(set(got) == set(want), f"{what}: keys differ")
+    errs, rels = [], []
+    for key in want:
+        g, w = got[key].double(), want[key].double()
+        errs.append(_close(g, w, rtol, atol, f"{what} {key}"))
+        rels.append(errs[-1] / max(float(w.abs()), 1e-6))
+    return max(errs), max(rels)
+
+
+def check_facility_kernel(dev, results: dict) -> None:
+    """Kernel 3 at S = 2880: the 2^3 facility combos x {carbon, price,
+    blended} with f32 traces (rtol 1e-4, atol 1e-3), and the bf16 / int8
+    stores: tight against the plain version on the same stored traces, and
+    within 5e-3 / 1e-2 relative of the f32 chain on the decision-free
+    energy totals with the battery off."""
+    s = MAIN_STEPS
+    traces = facility_traces(s, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    it_kw = 700.0 + 300.0 * torch.rand(s, generator=gen, device=dev)
+    errs = []
+    for cool in (False, True):
+        for price in (False, True):
+            for renew in (False, True):
+                for policy in ("carbon", "price", "blended"):
+                    cfg = main_config(s, C.EmbodiedConfig(), policy=policy,
+                                      dispatch_lambda=0.5).replace(
+                        cooling=C.CoolingConfig(enabled=cool,
+                                                heat_reuse_fraction=0.3),
+                        pricing=C.PricingConfig(enabled=price,
+                                                billing_window_h=24.0),
+                        renewables=C.RenewableConfig(enabled=renew,
+                                                     pv_capacity_kw=500.0))
+                    args = facility_args(cfg, it_kw, traces)
+                    got = fs_k.fused_facility_totals(*args, cfg)
+                    want = ref.fused_facility_totals(*args, cfg)
+                    errs.append(_totals_close(
+                        got, want, 1e-4, 1e-3,
+                        f"fused_facility_totals {cool}/{price}/{renew}/"
+                        f"{policy}"))
+    cfg = main_config(s, C.EmbodiedConfig()).replace(
+        battery=C.BatteryConfig(enabled=False))
+    args = facility_args(cfg, it_kw, traces)
+    base = ref.fused_facility_totals(*args, cfg)
+    envelope = {}
+    for store, rel in (("bf16", 5e-3), ("int8", 1e-2)):
+        got = fs_k.fused_facility_totals(*args, cfg, trace_store=store)
+        want = ref.fused_facility_totals(*args, cfg, trace_store=store)
+        errs.append(_totals_close(got, want, 1e-4, 1e-3,
+                                  f"fused_facility_totals {store}"))
+        worst = 0.0
+        for key in ("grid_energy", "it_energy", "dc_energy", "op_carbon",
+                    "cooling_energy", "pv_energy", "energy_cost"):
+            b = float(base[key])
+            worst = max(worst, abs(float(got[key]) - b) / max(abs(b), 1e-6))
+        check(worst <= rel, f"{store} store: rel err {worst:.2e} > {rel}")
+        envelope[store] = worst
+    torch.cuda.synchronize()
+    results["fused_facility_totals"] = {
+        "max_abs_err": max(e for e, _ in errs),
+        "max_rel_err": max(r for _, r in errs), "cases": len(errs),
+        "store_rel_err": envelope}
+
+
+def time_kernels(dev, results: dict, main_cfg) -> None:
+    """Each kernel and its plain version at the main path's shapes: H = 972
+    hosts (750 on), K = 64 slots, S = 2880 steps."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    h, k, s = 972, 64, MAIN_STEPS
+    cu, gu, ng, on = (x[0] for x in _host_inputs(gen, 1, h, dev))
+    on[MARCONI_ACTIVE:] = 0.0
+    ng.fill_(4.0)
+    cpu, gpu = main_cfg.cpu_power, main_cfg.gpu_power
+    wb = torch.full((), 20.0, device=dev)
+    sp = torch.full((), main_cfg.cooling.setpoint_c, device=dev)
+
+    def row(name, fn, plain, nbytes, nops, kname):
+        b_ms, b_by = bound(nbytes, nops)
+        results[name].update(
+            ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=b_ms,
+            bound_by=b_by, device_ms=device_ms(fn, kname), library_ms=None)
+
+    # kernel 1 as the megakernel's demand step calls it (no carbon tail);
+    # per host: 4 inputs read, 1 output written; ~16 f32 ops
+    row("fused_power_carbon",
+        lambda: pc_k.fused_power_carbon(cu, gu, ng, on, None, 0.0, cpu, gpu),
+        lambda: ref.fused_power_carbon(cu, gu, ng, on, None, 0.0, cpu, gpu),
+        20 * h + 12, 16 * h, "power_carbon_kernel")
+    cool = main_cfg.cooling
+    row("fused_facility_power",
+        lambda: pc_k.fused_facility_power(cu, gu, ng, on, wb, sp, cpu, gpu,
+                                          cool),
+        lambda: ref.fused_facility_power(cu, gu, ng, on, wb, sp, cpu, gpu,
+                                         cool),
+        20 * h + 20, 16 * h + 20, "facility_power_kernel")
+    # kernel 4: all K slots live (the Marconi backlog fills them), 750
+    # usable hosts; each live slot compares every host's two free values
+    cc = torch.tensor([4, 8, 16, 32, 48], device=dev, dtype=torch.float32)[
+        torch.randint(0, 5, (k,), generator=gen, device=dev)]
+    cg = torch.randint(0, 5, (k,), generator=gen, device=dev).float()
+    fc = torch.randint(0, 49, (h,), generator=gen, device=dev).float()
+    fg = torch.randint(0, 5, (h,), generator=gen, device=dev).float()
+    fc[MARCONI_ACTIVE:] = -float("inf")
+    fg[MARCONI_ACTIVE:] = -float("inf")
+    row("first_fit_place",
+        lambda: ff_k.first_fit_place(cc, cg, fc, fg),
+        lambda: ref.first_fit_place(cc, cg, fc, fg),
+        8 * k + 8 * h + 4 * k + 8 * h, 2 * k * h, "first_fit_kernel")
+    # kernel 3 on the main path's configuration and traces; per step ~33
+    # bytes in (it, 4 f32 traces, threshold, rising, 2 price bands) and
+    # ~100 f32 ops
+    traces = facility_traces(s, dev)
+    it_kw = 700.0 + 300.0 * torch.rand(s, generator=gen, device=dev)
+    args = facility_args(main_cfg, it_kw, traces)
+    prepared = fs_k.prepare(*args, main_cfg)
+    row("fused_facility_totals",
+        lambda: fs_k.launch(*prepared),
+        lambda: ref.fused_facility_totals(*args, main_cfg),
+        33 * s + 8 * 8 + 18 * 4, 100 * s, "facility_totals_kernel")
+    torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# phase 4 / 5: the main path
+# --------------------------------------------------------------------------
+
+HEADLINE = ("total_carbon_kg", "op_carbon_kg", "emb_carbon_kg",
+            "grid_energy_kwh", "dc_energy_kwh", "it_energy_kwh",
+            "cooling_energy_kwh", "water_l", "pue", "energy_cost",
+            "demand_cost", "total_cost", "pv_energy_kwh", "grid_export_kwh",
+            "peak_power_kw", "batt_discharged_kwh", "sla_violation_frac",
+            "mean_delay_h", "done_frac", "n_done", "n_started", "n_decided",
+            "n_tasks")
+COUNTS = ("n_done", "n_started", "n_decided", "n_tasks", "class_n_violations",
+          "class_n_decided", "class_n_started")
+ENERGY_COST_CARBON = ("total_carbon_kg", "op_carbon_kg", "emb_carbon_kg",
+                      "grid_energy_kwh", "dc_energy_kwh", "it_energy_kwh",
+                      "cooling_energy_kwh", "energy_cost", "demand_cost",
+                      "total_cost", "pv_energy_kwh", "grid_export_kwh")
+
+
+def run_backend(tasks, hosts, ci, cfg, dyn, backend, dev):
+    cfg = cfg.replace(backend=backend)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    final, _ = simulate(tasks, hosts, ci, cfg, dyn=dyn, device=dev)
+    res = summarize(final, cfg)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    out = result_to_numpy(res)
+    years = cfg.n_steps * cfg.dt_h / C.HOURS_PER_YEAR
+    info = {"backend": backend, "wall_s": wall,
+            "sim_years_per_s": years / wall, "launches": counts,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if dev.type == "cuda" else None),
+            "headline": {k: out[k].tolist() for k in HEADLINE}}
+    return out, info
+
+
+def compare_backends(a: dict, b: dict, rtol: float, what: str) -> None:
+    for k in COUNTS:
+        check(np.array_equal(a[k], b[k]),
+              f"{what}: count {k} differs: {a[k]} vs {b[k]}")
+    for k in ENERGY_COST_CARBON:
+        check(np.allclose(a[k], b[k], rtol=rtol, atol=1e-6),
+              f"{what}: {k} differs: {a[k]} vs {b[k]}")
+
+
+def profile_window(tasks, hosts, cfg, dyn, ci, n_steps: int, dev) -> list:
+    """Where the time goes: each backend for the first `n_steps` steps of
+    the full-scale run under the profiler -- wall time, summed device time
+    (one stream, so it is the busy time), the idle share, and the kernels
+    that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = cfg.replace(n_steps=n_steps)
+    dyn = {k: (v[:n_steps] if isinstance(v, torch.Tensor) else v)
+           for k, v in dyn.items()}
+    rows = []
+    for backend in ("stage-pipeline", "megakernel"):
+        c = cfg.replace(backend=backend)
+        simulate(tasks, hosts, ci[:n_steps], c, dyn=dyn, device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            summarize(simulate(tasks, hosts, ci[:n_steps], c, dyn=dyn,
+                               device=dev)[0], c)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # the kernels themselves (device-side events); the host ops that
+        # launched them carry the same time again
+        events = [(e.key, e.self_device_time_total, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        busy_us = sum(t for _, t, _ in events)
+        top = sorted(events, key=lambda e: -e[1])
+        rows.append({"backend": backend, "n_steps": n_steps, "wall_s": wall,
+                     "device_busy_s": busy_us / 1e6,
+                     "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+                     "host_ms_per_step": wall / n_steps * 1e3,
+                     "top_kernels": [{"name": k[:80], "device_ms": t / 1e3,
+                                      "count": n} for k, t, n in top[:8]]})
+    return rows
+
+
+def main_path(dev, scale: float, n_steps: int, n_active: int,
+              check_counts: bool, profile_steps: int = 0):
+    tasks, hosts, _, meta = make_workload("marconi", scale=scale, seed=0,
+                                          dt_h=DT_H,
+                                          horizon_days=n_steps * DT_H / 24,
+                                          device=dev)
+    cfg = main_config(n_steps, meta["embodied"], meta["n_hosts"])
+    ci, wb, price, cf = facility_traces(n_steps, dev)
+    dyn = {"n_active_hosts": n_active, "price_trace": price,
+           "wet_bulb_trace": wb, "pv_cf_trace": cf}
+    results, infos = {}, []
+    for backend in ("stage-pipeline", "megakernel"):
+        res, info = run_backend(tasks, hosts, ci, cfg, dyn, backend, dev)
+        results[backend] = res
+        infos.append(info)
+        if check_counts:
+            want = {"first_fit_place": n_steps}
+            if backend == "stage-pipeline":
+                want["fused_facility_power"] = n_steps
+            else:
+                want.update(fused_power_carbon=n_steps,
+                            fused_facility_totals=1)
+            got = {k: v for k, v in info["launches"].items() if v}
+            check(got == want, f"{backend}: launches {got} != {want}")
+        for k in HEADLINE:
+            check(bool(np.all(np.isfinite(res[k]))), f"{backend}: {k} "
+                  "not finite")
+        check(float(res["n_done"]) > 0, f"{backend}: no task finished")
+        check(1.0 < float(res["pue"]) < 2.0, f"{backend}: pue {res['pue']}")
+    compare_backends(results["stage-pipeline"], results["megakernel"], 1e-4,
+                     "backends")
+    if profile_steps:
+        meta["profile"] = profile_window(tasks, hosts, cfg, dyn, ci,
+                                         profile_steps, dev)
+    return meta, results, infos
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cpu: a rehearsal at a tiny size with the plain "
+                         "versions (no card, no kernels, no timings)")
+    args = ap.parse_args()
+    if args.device == "cpu":
+        meta, _, infos = main_path(torch.device("cpu"), 0.02, 192, 15, False)
+        for info in infos:
+            emit({"phase": "main", "rehearsal": True, "n_tasks":
+                  meta["n_tasks"], **info})
+        emit({"rehearsal": True, "ok_on_cpu": True})
+        return 0
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false); this smoke test runs on the card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch_name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    report = build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": report})
+
+    kres = {name: {} for name in build.KERNELS}
+    t0 = time.perf_counter()
+    check_power_kernels(dev, kres)
+    check_first_fit(dev, kres)
+    check_facility_kernel(dev, kres)
+    emit({"phase": "kernels_vs_plain", "seconds": time.perf_counter() - t0,
+          "results": kres})
+
+    meta, results, infos = main_path(dev, 1.0, MAIN_STEPS, MARCONI_ACTIVE,
+                                     True, profile_steps=192)
+    check(meta["n_tasks"] == 192817 and meta["n_hosts"] == 972,
+          f"Marconi at full scale: {meta['n_tasks']} tasks, "
+          f"{meta['n_hosts']} hosts")
+    for info in infos:
+        emit({"phase": "main", "workload": "marconi", "n_tasks":
+              meta["n_tasks"], "n_hosts": meta["n_hosts"],
+              "n_steps": MAIN_STEPS, "n_active_hosts": MARCONI_ACTIVE,
+              **info})
+    for row in meta["profile"]:
+        emit({"phase": "profile", **row})
+
+    # the small run on the card against the plain versions on the CPU
+    small = {}
+    for d in (dev, torch.device("cpu")):
+        _, res, _ = main_path(d, 0.05, 192, 38, d.type == "cuda")
+        small[d.type] = res
+    for backend in ("stage-pipeline", "megakernel"):
+        compare_backends(small["cuda"][backend], small["cpu"][backend], 1e-4,
+                         f"card vs cpu ({backend})")
+    emit({"phase": "small_card_vs_cpu", "ok": True,
+          "n_done": float(small["cuda"]["stage-pipeline"]["n_done"])})
+
+    main_cfg = main_config(MAIN_STEPS, meta["embodied"])
+    time_kernels(dev, kres, main_cfg)
+    emit({"phase": "timing", "results": kres})
+    launches = {k: sum(i["launches"][k] for i in infos) for k in build.KERNELS}
+    sources = {"fused_power_carbon": ("power_carbon.cu",
+                                      "src/repro/kernels/power_carbon.py:198"),
+               "fused_facility_power": ("power_carbon.cu",
+                                        "src/repro/kernels/power_carbon.py:159"),
+               "fused_facility_totals": ("fused_step.cu",
+                                         "src/repro/kernels/fused_step.py:261"),
+               "first_fit_place": ("first_fit.cu",
+                                   "src/repro/kernels/first_fit.py:78")}
+    rows = []
+    for name in build.KERNELS:
+        r = kres[name]
+        check(launches[name] > 0, f"{name} never launched on the main path")
+        src, replaces = sources[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{src}",
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None,
+                     "device_ms": r["device_ms"], "kernel_ms": r["ms"],
+                     "bound_us": r["bound_ms"] * 1e3})
+        check(all(math.isfinite(v) for v in (r["ms"], r["plain_ms"],
+                                              r["bound_ms"])),
+              f"{name}: timing not finite")
+    emit({"kernels": rows})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

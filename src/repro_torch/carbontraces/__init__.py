@@ -1,0 +1,5 @@
+from .synthetic import (N_REGIONS, RegionParams, make_region_traces,
+                        sample_region_params)
+
+__all__ = ["N_REGIONS", "RegionParams", "make_region_traces",
+           "sample_region_params"]

@@ -1,0 +1,39 @@
+"""The simulation core of the PyTorch port (see `repro_torch`)."""
+from .battery import (battery_flow_step, dispatch_decision,
+                      precompute_battery_signals, surplus_aware_dispatch)
+from .config import (BatteryConfig, CoolingConfig, EmbodiedConfig,
+                     FailureConfig, PowerModelConfig, PricingConfig,
+                     ProbeConfig, RenewableConfig, ResilienceConfig,
+                     SchedulerConfig, ShiftingConfig, SimConfig, techniques)
+from .engine import (BACKENDS, EnergyFlow, StepInputs, build_step_fn,
+                     build_step_inputs, default_pipeline,
+                     facility_totals_from_flows, init_energy_flow, simulate)
+from .metrics import SimResult, result_to_numpy, summarize
+from .pricing import precompute_price_signals
+from .quant import STORES, QuantizedTrace, dequantize_trace, quantize_trace
+from .scaling import with_scale
+from .shifting import forward_window_quantile, forward_window_quantiles
+from .state import (DONE, INVALID, JOB_BATCH, JOB_CLASS_NAMES,
+                    JOB_INTERACTIVE, JOB_TRAINING, N_JOB_CLASSES, PENDING,
+                    RUNNING, BatteryState, HostTable, MetricsAcc, SimState,
+                    TaskTable, active_host_mask, init_sim_state,
+                    make_host_table, make_task_table, pad_task_table,
+                    retime_task_table, tables_from_numpy)
+
+__all__ = [
+    "battery_flow_step", "dispatch_decision", "precompute_battery_signals",
+    "surplus_aware_dispatch", "BatteryConfig", "CoolingConfig",
+    "EmbodiedConfig", "FailureConfig", "PowerModelConfig", "PricingConfig",
+    "ProbeConfig", "RenewableConfig", "ResilienceConfig", "SchedulerConfig",
+    "ShiftingConfig", "SimConfig", "techniques", "BACKENDS", "EnergyFlow",
+    "StepInputs", "build_step_fn", "build_step_inputs", "default_pipeline",
+    "facility_totals_from_flows", "init_energy_flow", "simulate",
+    "SimResult", "result_to_numpy", "summarize", "precompute_price_signals",
+    "STORES", "QuantizedTrace", "dequantize_trace", "quantize_trace",
+    "with_scale", "forward_window_quantile", "forward_window_quantiles",
+    "DONE", "INVALID", "JOB_BATCH", "JOB_CLASS_NAMES", "JOB_INTERACTIVE",
+    "JOB_TRAINING", "N_JOB_CLASSES", "PENDING", "RUNNING", "BatteryState",
+    "HostTable", "MetricsAcc", "SimState", "TaskTable", "active_host_mask",
+    "init_sim_state", "make_host_table", "make_task_table", "pad_task_table",
+    "retime_task_table", "tables_from_numpy",
+]

@@ -1,0 +1,791 @@
+"""The STEAM engine: a composable stage pipeline driven by a Python loop.
+
+A simulation step is a pipeline of plain stages `(state, ctx) -> (state,
+ctx)`; each sustainability technique is one stage, and the pipeline is
+composed in Python from the static config before the loop starts.  The
+default pipeline follows the reference's event cascade:
+
+  task_stopper -> scheduler -> progress -> power -> cooling -> renewables
+  -> battery -> pricing -> carbon
+
+Power flows between the facility stages travel on an explicit energy-flow
+ledger (`ctx["flow"]`, an `EnergyFlow`) that obeys, per step,
+
+    grid_import + pv + batt_discharge
+        == it + cooling + batt_charge + grid_export + curtailed
+
+(checked by the tests, not at run time).
+
+Step executors (`cfg.backend`)
+------------------------------
+  * ``stage-pipeline`` -- every stage runs every step, S times.
+  * ``megakernel`` -- the run split at its one sequential boundary: a demand
+    loop (stopper -> scheduler -> progress -> IT power) that writes `it_kw`
+    into an [S] tensor, then the whole facility half (cooling -> renewables
+    -> battery -> pricing -> carbon) over the horizon at once.
+
+Kernels.  Which code runs is picked by the device of the tables, never by
+a flag: on the card the scheduler's placement is the first-fit kernel, the
+power stage is the fused power kernel (with the cooling tail when cooling
+is on), and the megakernel's facility half is the fused facility kernel;
+on the CPU the same calls take the kernels' plain versions
+(kernels/ops.py).  `cfg.use_pallas` is kept for config parity and read by
+nothing.  Under `cfg.collect_series` the megakernel takes the plain
+facility chain on every device, because only that chain yields the
+per-step series.
+
+No stage reads a value back from the device: the loop enqueues work and
+never waits for it.
+
+Not ported yet, and refused with NotImplementedError: host failures,
+checkpointing and the resilience loop (they draw JAX threefry bits), the
+probe bus, and the dyn keys that need them.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels import ops, ref
+from . import battery as battery_mod
+from . import carbon as carbon_mod
+from . import pricing as pricing_mod
+from . import renewables as renewables_mod
+from . import scaling as scaling_mod
+from . import scheduler as scheduler_mod
+from . import shifting as shifting_mod
+from . import state as state_mod
+from . import thermal as thermal_mod
+from .config import HOURS_PER_YEAR, SimConfig
+from .state import (DONE, PENDING, RUNNING, BatteryState, HostTable,
+                    SimState, TaskTable, as_tensor, f32, init_sim_state)
+
+F32 = torch.float32
+BACKENDS = ("stage-pipeline", "megakernel")
+
+Stage = Callable[[SimState, dict], tuple[SimState, dict]]
+
+# what the port refuses, and the ROADMAP item that brings it
+_THREEFRY = "ROADMAP Queue 1, threefry PRNG + failures + resilience"
+_UNPORTED_DYN = {
+    "interactive_frac": _THREEFRY,
+    "failure_hazard_scale": _THREEFRY,
+    "throttle_inlet_c": _THREEFRY,
+    "pdu_cap_kw": _THREEFRY,
+    "seed": _THREEFRY,
+}
+
+
+class EnergyFlow(NamedTuple):
+    """Per-step facility power ledger (kW)."""
+    it_kw: torch.Tensor
+    cooling_kw: torch.Tensor
+    pv_kw: torch.Tensor
+    batt_charge_kw: torch.Tensor
+    batt_discharge_kw: torch.Tensor
+    grid_import_kw: torch.Tensor
+    grid_export_kw: torch.Tensor
+    curtailed_kw: torch.Tensor
+
+
+def init_energy_flow(device="cuda") -> EnergyFlow:
+    # one shared zero: ledger fields are only ever replaced, never mutated
+    z = torch.zeros((), dtype=F32, device=device)
+    return EnergyFlow(*([z] * len(EnergyFlow._fields)))
+
+
+class StepInputs(NamedTuple):
+    """Exogenous per-step inputs, all precomputed, each f32/bool[S]."""
+    ci: torch.Tensor
+    batt_threshold: torch.Tensor
+    ci_rising: torch.Tensor
+    shift_threshold: torch.Tensor
+    wet_bulb_c: torch.Tensor
+    price: torch.Tensor
+    price_lo: torch.Tensor
+    price_hi: torch.Tensor
+    pv_cf: torch.Tensor
+    chiller_derate: torch.Tensor  # ones: the resilience loop is not ported
+    pdu_cap_kw: torch.Tensor      # +inf: idem
+
+
+def _trace(x, n: int, what: str, device):
+    x = as_tensor(x, F32, device)
+    if x.shape[0] < n:
+        raise ValueError(f"{what} trace too short: {x.shape[0]} < {n}")
+    return x[:n]
+
+
+def build_step_inputs(ci_trace, cfg: SimConfig, dyn: dict | None = None,
+                      device="cuda") -> StepInputs:
+    dyn = dyn or {}
+    s = cfg.n_steps
+    ci = _trace(ci_trace, s, "carbon", device)
+    bt, rising = battery_mod.precompute_battery_signals(ci, cfg.dt_h,
+                                                        cfg.battery)
+    st = (shifting_mod.precompute_shift_threshold(
+              ci, cfg.dt_h, cfg.shifting,
+              quantile=dyn.get("shift_quantile_value"))
+          if cfg.shifting.enabled else torch.zeros_like(ci))
+    wb = dyn.get("wet_bulb_trace")
+    wb = (torch.full_like(ci, cfg.cooling.setpoint_c) if wb is None
+          else _trace(wb, s, "weather", device))
+    price_policy = cfg.battery.enabled and cfg.battery.policy != "carbon"
+    if price_policy and not cfg.pricing.enabled:
+        raise ValueError(
+            f"battery dispatch policy '{cfg.battery.policy}' arbitrages the "
+            "price trace but cfg.pricing.enabled is False: enable the "
+            "pricing subsystem (core/pricing.py)")
+    zeros = torch.zeros_like(ci)
+    if cfg.pricing.enabled:
+        pr = dyn.get("price_trace")
+        pr = (torch.full_like(ci, cfg.pricing.flat_price_per_kwh)
+              if pr is None else _trace(pr, s, "price", device))
+        plo, phi = (pricing_mod.precompute_price_signals(pr, cfg.dt_h,
+                                                         cfg.battery)
+                    if price_policy else (zeros, zeros))
+    else:
+        pr = plo = phi = zeros
+    cf = dyn.get("pv_cf_trace")
+    if cfg.renewables.enabled:
+        cf = zeros if cf is None else _trace(cf, s, "pv", device)
+    else:
+        if cf is not None:
+            raise ValueError(
+                "a pv_cf_trace was provided but cfg.renewables.enabled is "
+                "False: the PV trace would be silently ignored — enable the "
+                "renewables subsystem (core/renewables.py)")
+        cf = zeros
+    return StepInputs(ci=ci, batt_threshold=bt, ci_rising=rising,
+                      shift_threshold=st, wet_bulb_c=wb, price=pr,
+                      price_lo=plo, price_hi=phi, pv_cf=cf,
+                      chiller_derate=torch.ones_like(ci),
+                      pdu_cap_kw=torch.full_like(ci, float("inf")))
+
+
+# --------------------------------------------------------------------------
+# stages
+# --------------------------------------------------------------------------
+
+def stage_task_stopper(cfg: SimConfig) -> Stage:
+    def fn(state: SimState, ctx: dict):
+        tasks = state.tasks
+        stop = shifting_mod.should_stop(ctx["ci"], ctx["shift_threshold"],
+                                        state.t, tasks.arrival, cfg.shifting,
+                                        shiftable=tasks.shiftable)
+        stop = stop & (tasks.status == RUNNING)
+        n = stop.to(F32).sum()
+        tasks = tasks._replace(
+            status=torch.where(stop, PENDING, tasks.status).to(torch.int32),
+            host=torch.where(stop, -1, tasks.host).to(torch.int32))
+        # graceful pauses roll back no work: their own counter, not
+        # n_interrupts
+        metrics = state.metrics._replace(n_stops=state.metrics.n_stops + n)
+        return state._replace(tasks=tasks, metrics=metrics), ctx
+    return fn
+
+
+def _presort_enabled(cfg: SimConfig) -> bool:
+    """True when `simulate` permutes the task table into (priority desc,
+    arrival) row order before the loop, and the scheduler stage runs its
+    presorted FIFO-prefix path."""
+    return (cfg.scheduler.priority_levels > 1
+            and cfg.scheduler.mode == "first_fit")
+
+
+def stage_scheduler(cfg: SimConfig) -> Stage:
+    presorted = _presort_enabled(cfg)
+
+    def fn(state: SimState, ctx: dict):
+        tasks = state.tasks
+        shift_ok = shifting_mod.start_allowed(
+            ctx["ci"], ctx["shift_threshold"], state.t, tasks.arrival,
+            cfg.shifting, shiftable=tasks.shiftable)
+        n_delayed = ((tasks.status == PENDING) & (tasks.arrival <= state.t)
+                     & ~shift_ok).to(F32).sum()
+        tasks = scheduler_mod.schedule_step(
+            tasks, state.hosts, state.t, shift_ok, cfg.scheduler,
+            slots=ctx.get("slots_per_step"), presorted=presorted)
+        metrics = state.metrics._replace(
+            n_shift_delays=state.metrics.n_shift_delays + n_delayed)
+        return state._replace(tasks=tasks, metrics=metrics), ctx
+    return fn
+
+
+def stage_progress(cfg: SimConfig) -> Stage:
+    def fn(state: SimState, ctx: dict):
+        tasks = state.tasks
+        running = tasks.status == RUNNING
+        h = state.hosts.speed.shape[0]
+        speed = state.hosts.speed[torch.clamp(tasks.host, 0, h - 1).long()]
+        advance = cfg.dt_h * torch.where(running, speed, 1.0)
+        done_now = running & (tasks.remaining <= advance)
+        finish = torch.where(
+            done_now, state.t + tasks.remaining / torch.clamp(speed,
+                                                              min=1e-6),
+            tasks.finish)
+        remaining = torch.where(
+            running, torch.clamp(tasks.remaining - advance, min=0.0),
+            tasks.remaining)
+        tasks = tasks._replace(
+            remaining=remaining, finish=finish,
+            status=torch.where(done_now, DONE, tasks.status).to(torch.int32),
+            host=torch.where(done_now, -1, tasks.host).to(torch.int32))
+        return state._replace(tasks=tasks), ctx
+    return fn
+
+
+def _device_scalar(cache: dict, key: str, value, like: torch.Tensor):
+    """`value` as a 0-d f32 tensor on `like`'s device, made once per run
+    (a per-step host-to-device copy would wait for the device)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    if key not in cache:
+        cache[key] = torch.full((), float(np.float32(value)), dtype=F32,
+                                device=like.device)
+    return cache[key]
+
+
+def stage_power(cfg: SimConfig) -> Stage:
+    """Writes `flow.it_kw` (and provisionally `flow.grid_import_kw`).
+
+    With cooling on, one fused call yields per-host power, the IT sum and
+    the cooling tail, which `stage_cooling` then reads from ctx."""
+    cache: dict = {}
+
+    def fn(state: SimState, ctx: dict):
+        hosts = state.hosts
+        cpu_u, gpu_u = scheduler_mod.host_utilization(state.tasks, hosts)
+        on = (hosts.active & hosts.up).to(F32)
+        if cfg.collect_series:  # capacity-invariant probe for tests
+            free_c, free_g = scheduler_mod.free_capacity(state.tasks, hosts)
+            ctx["max_overcommit"] = torch.maximum((-free_c).amax(),
+                                                  (-free_g).amax())
+        if cfg.cooling.enabled:
+            sp = _device_scalar(cache, "setpoint", ctx.get(
+                "cooling_setpoint", cfg.cooling.setpoint_c), cpu_u)
+            p, it_kw, cool_kw, water = ops.facility_power(
+                cpu_u, gpu_u, hosts.n_gpus, on, ctx["wet_bulb_c"], sp,
+                cfg.cpu_power, cfg.gpu_power, cfg.cooling)
+            ctx = dict(ctx, fused_cooling_kw=cool_kw,
+                       fused_water_l_per_h=water)
+        else:
+            p, it_kw = ops.host_power(cpu_u, gpu_u, hosts.n_gpus, on,
+                                      cfg.cpu_power, cfg.gpu_power)
+        flow = ctx["flow"]._replace(it_kw=it_kw, grid_import_kw=it_kw)
+        return state, dict(ctx, flow=flow, host_power_kw=p,
+                           host_cpu_util=cpu_u, host_gpu_util=gpu_u)
+    return fn
+
+
+def stage_cooling(cfg: SimConfig) -> Stage:
+    """IT power -> facility power: writes `flow.cooling_kw` and lifts
+    `flow.grid_import_kw` to the facility draw.  With heat reuse, that
+    share of the chiller-path heat is reclaimed and stops evaporating."""
+    reuse = cfg.cooling.heat_reuse_fraction
+
+    def fn(state: SimState, ctx: dict):
+        flow = ctx["flow"]
+        it_kw = flow.it_kw
+        if "fused_cooling_kw" in ctx:   # computed by stage_power
+            cooling_kw = ctx["fused_cooling_kw"]
+            water_l_per_h = ctx["fused_water_l_per_h"]
+        else:
+            cooling_kw, water_l_per_h = thermal_mod.cooling_step(
+                it_kw, ctx["wet_bulb_c"], cfg.cooling,
+                setpoint_c=ctx.get("cooling_setpoint"))
+        m = state.metrics
+        if reuse > 0.0:
+            heat_kw = thermal_mod.reclaimable_heat_kw(
+                it_kw, cooling_kw, ctx["wet_bulb_c"], cfg.cooling,
+                setpoint_c=ctx.get("cooling_setpoint"))
+            water_l_per_h = water_l_per_h * (1.0 - reuse)
+            m = m._replace(heat_reuse=m.heat_reuse
+                           + reuse * heat_kw * cfg.dt_h)
+        metrics = m._replace(
+            cooling_energy=m.cooling_energy + cooling_kw * cfg.dt_h,
+            water_l=m.water_l + water_l_per_h * cfg.dt_h)
+        flow = flow._replace(cooling_kw=cooling_kw,
+                             grid_import_kw=it_kw + cooling_kw)
+        return state._replace(metrics=metrics), dict(ctx, flow=flow)
+    return fn
+
+
+def stage_renewables(cfg: SimConfig) -> Stage:
+    """On-site PV supply: writes `flow.pv_kw`."""
+    def fn(state: SimState, ctx: dict):
+        cap = ctx.get("pv_capacity_kw")
+        cap = np.float32(cfg.renewables.pv_capacity_kw) if cap is None \
+            else f32(cap)
+        pv_kw = renewables_mod.pv_power_kw(cap, ctx["pv_cf"])
+        return state, dict(ctx, flow=ctx["flow"]._replace(pv_kw=pv_kw))
+    return fn
+
+
+def stage_net_meter(cfg: SimConfig) -> Stage:
+    """Settle the ledger when renewables run without a battery."""
+    def fn(state: SimState, ctx: dict):
+        flow = ctx["flow"]
+        load = flow.it_kw + flow.cooling_kw
+        net_load, surplus = renewables_mod.net_load_split(load, flow.pv_kw)
+        _, export_kw, curtailed_kw = renewables_mod.split_surplus(
+            surplus, torch.zeros_like(surplus), cfg.renewables)
+        flow = flow._replace(grid_import_kw=net_load,
+                             grid_export_kw=export_kw,
+                             curtailed_kw=curtailed_kw)
+        return state, dict(ctx, flow=flow)
+    return fn
+
+
+def stage_battery(cfg: SimConfig) -> Stage:
+    """Storage dispatch in ledger terms: charge/discharge and the settled
+    grid import (surplus PV charges the battery before export)."""
+    renew = cfg.renewables.enabled
+
+    def fn(state: SimState, ctx: dict):
+        flow = ctx["flow"]
+        load = flow.it_kw + flow.cooling_kw
+        if renew:
+            net_load, surplus = renewables_mod.net_load_split(load, flow.pv_kw)
+        else:
+            net_load, surplus = load, None
+        batt, charge_kw, discharge_kw = battery_mod.battery_flow_step(
+            state.battery, net_load, ctx["ci"], ctx["batt_threshold"],
+            ctx["ci_rising"], cfg.dt_h, cfg.battery,
+            capacity_kwh=ctx.get("batt_capacity_kwh"),
+            rate_kw=ctx.get("batt_rate_kw"),
+            price=ctx.get("price"), price_lo=ctx.get("price_lo"),
+            price_hi=ctx.get("price_hi"),
+            dispatch_lambda=ctx.get("dispatch_lambda"),
+            pv_surplus_kw=surplus)
+        if renew:
+            pv_to_batt, export_kw, curtailed_kw = renewables_mod.split_surplus(
+                surplus, charge_kw, cfg.renewables)
+            flow = flow._replace(
+                batt_charge_kw=charge_kw, batt_discharge_kw=discharge_kw,
+                grid_import_kw=net_load + (charge_kw - pv_to_batt)
+                - discharge_kw,
+                grid_export_kw=export_kw, curtailed_kw=curtailed_kw)
+        else:
+            flow = flow._replace(
+                batt_charge_kw=charge_kw, batt_discharge_kw=discharge_kw,
+                grid_import_kw=load + charge_kw - discharge_kw)
+        metrics = state.metrics._replace(
+            batt_discharged=state.metrics.batt_discharged
+            + discharge_kw * cfg.dt_h)
+        return (state._replace(battery=batt, metrics=metrics),
+                dict(ctx, flow=flow))
+    return fn
+
+
+def stage_pricing(cfg: SimConfig) -> Stage:
+    """Grid flows -> money: energy charge + billing-window demand charge on
+    `flow.grid_import_kw`, minus the export-tariff revenue."""
+    wsteps = pricing_mod.billing_window_steps(cfg.pricing, cfg.dt_h)
+    renew = cfg.renewables.enabled
+
+    def fn(state: SimState, ctx: dict):
+        flow = ctx["flow"]
+        m = state.metrics
+        ec, dc, wp = pricing_mod.pricing_step(
+            m.energy_cost, m.demand_cost, m.window_peak_kw,
+            flow.grid_import_kw, ctx["price"], state.step, cfg.dt_h, wsteps,
+            cfg.pricing.demand_charge_per_kw)
+        metrics = m._replace(energy_cost=ec, demand_cost=dc,
+                             window_peak_kw=wp)
+        if renew:
+            metrics = metrics._replace(
+                export_revenue=pricing_mod.export_revenue_step(
+                    m.export_revenue, flow.grid_export_kw, ctx["price"],
+                    cfg.dt_h, cfg.pricing))
+        return state._replace(metrics=metrics), ctx
+    return fn
+
+
+def _battery_embodied_rate(cfg: SimConfig, dyn_capacity):
+    """Battery embodied kg/h: from the dyn capacity when one is swept."""
+    if dyn_capacity is not None and cfg.battery.enabled:
+        return (f32(dyn_capacity) * cfg.battery.embodied_kg_per_kwh
+                / (cfg.battery.lifetime_years * HOURS_PER_YEAR))
+    return battery_mod.battery_embodied_rate_kg_per_h(cfg.battery)
+
+
+def stage_carbon(cfg: SimConfig) -> Stage:
+    """Carbon + energy accounting off the settled ledger; operational
+    carbon, grid energy and the peak all meter `flow.grid_import_kw`."""
+    renew = cfg.renewables.enabled
+
+    def fn(state: SimState, ctx: dict):
+        flow = ctx["flow"]
+        grid_kw = flow.grid_import_kw
+        n_active = state.hosts.active.to(F32).sum()
+        batt_rate = _battery_embodied_rate(cfg, ctx.get("batt_capacity_kwh"))
+        op, emb = carbon_mod.carbon_delta(grid_kw, ctx["ci"], cfg.dt_h,
+                                          n_active, cfg.embodied, batt_rate)
+        m = state.metrics
+        metrics = m._replace(
+            op_carbon=m.op_carbon + op,
+            emb_carbon=m.emb_carbon + emb,
+            grid_energy=m.grid_energy + grid_kw * cfg.dt_h,
+            dc_energy=m.dc_energy + (flow.it_kw + flow.cooling_kw) * cfg.dt_h,
+            it_energy=m.it_energy + flow.it_kw * cfg.dt_h,
+            peak_power=torch.maximum(m.peak_power, grid_kw))
+        if renew:
+            metrics = metrics._replace(
+                pv_energy=metrics.pv_energy + flow.pv_kw * cfg.dt_h,
+                export_energy=(metrics.export_energy
+                               + flow.grid_export_kw * cfg.dt_h),
+                curtailed_energy=(metrics.curtailed_energy
+                                  + flow.curtailed_kw * cfg.dt_h))
+        return state._replace(metrics=metrics), ctx
+    return fn
+
+
+def default_pipeline(cfg: SimConfig) -> list[Stage]:
+    """Technique composition: each enabled technique contributes its stage."""
+    stages: list[Stage] = []
+    if cfg.shifting.enabled and cfg.shifting.stop_running:
+        stages.append(stage_task_stopper(cfg))
+    stages += [stage_scheduler(cfg), stage_progress(cfg), stage_power(cfg)]
+    if cfg.cooling.enabled:
+        stages.append(stage_cooling(cfg))
+    if cfg.renewables.enabled:
+        stages.append(stage_renewables(cfg))
+    if cfg.battery.enabled:
+        stages.append(stage_battery(cfg))
+    elif cfg.renewables.enabled:
+        stages.append(stage_net_meter(cfg))
+    if cfg.pricing.enabled:
+        stages.append(stage_pricing(cfg))
+    stages.append(stage_carbon(cfg))
+    return stages
+
+
+# --------------------------------------------------------------------------
+# executors
+# --------------------------------------------------------------------------
+
+def _advance_clock(state: SimState, cfg: SimConfig) -> SimState:
+    """End-of-step clock tick: t = (step + 1) * f32(dt_h), one f32 product,
+    never an accumulated sum (which drifts over long horizons)."""
+    step1 = state.step + 1
+    return state._replace(t=step1.to(F32) * np.float32(cfg.dt_h), step=step1)
+
+
+def _n_running(state: SimState):
+    return (state.tasks.status == RUNNING).to(torch.int32).sum()
+
+
+def _per_step(inputs: StepInputs):
+    """Per-step views of the [S] inputs (indexing once, not per stage)."""
+    cols = [x.unbind(0) for x in inputs]
+    return [StepInputs(*row) for row in zip(*cols)]
+
+
+def _stack_series(ys: list[dict]) -> dict:
+    out = {}
+    for k, v in ys[0].items():
+        if isinstance(v, EnergyFlow):
+            out[k] = EnergyFlow(*(torch.stack([y[k][i] for y in ys])
+                                  for i in range(len(EnergyFlow._fields))))
+        else:
+            out[k] = torch.stack([y[k] for y in ys])
+    return out
+
+
+def build_step_fn(cfg: SimConfig, stages: Sequence[Stage] | None = None,
+                  dyn: dict | None = None):
+    stages = default_pipeline(cfg) if stages is None else list(stages)
+    dyn = dyn or {}
+
+    def step(state: SimState, inputs: StepInputs, flow0: EnergyFlow):
+        ctx = {"ci": inputs.ci, "batt_threshold": inputs.batt_threshold,
+               "ci_rising": inputs.ci_rising,
+               "shift_threshold": inputs.shift_threshold,
+               "wet_bulb_c": inputs.wet_bulb_c, "price": inputs.price,
+               "price_lo": inputs.price_lo, "price_hi": inputs.price_hi,
+               "pv_cf": inputs.pv_cf,
+               "chiller_derate": inputs.chiller_derate,
+               "pdu_cap_kw": inputs.pdu_cap_kw,
+               "flow": flow0, **dyn}
+        for stage in stages:
+            state, ctx = stage(state, ctx)
+        state = _advance_clock(state, cfg)
+        if not cfg.collect_series:
+            return state, None
+        flow: EnergyFlow = ctx["flow"]
+        ys = {"grid_power_kw": flow.grid_import_kw,
+              "dc_power_kw": flow.it_kw + flow.cooling_kw,
+              "ci": ctx["ci"], "n_running": _n_running(state),
+              "battery_charge": state.battery.charge,
+              "max_overcommit": ctx.get("max_overcommit",
+                                        torch.zeros_like(flow.it_kw)),
+              "flow": flow}
+        if cfg.cooling.enabled:
+            ys["cooling_power_kw"] = flow.cooling_kw
+            ys["wet_bulb_c"] = ctx["wet_bulb_c"]
+        if cfg.pricing.enabled:
+            ys["price_per_kwh"] = ctx["price"]
+        return state, ys
+
+    return step
+
+
+def _simulate_stage_pipeline(state0: SimState, inputs: StepInputs,
+                             cfg: SimConfig, stages, dyn: dict):
+    step = build_step_fn(cfg, stages, dyn)
+    flow0 = init_energy_flow(inputs.ci.device)
+    state, ys = state0, []
+    for x in _per_step(inputs):
+        state, y = step(state, x, flow0)
+        ys.append(y)
+    return state, (_stack_series(ys) if cfg.collect_series else None)
+
+
+def _build_demand_step(cfg: SimConfig, dyn: dict):
+    """Loop step of the megakernel's demand phase: the recurrent stages
+    (stopper -> scheduler -> progress) plus the IT power of the step."""
+    stages: list[Stage] = []
+    if cfg.shifting.enabled and cfg.shifting.stop_running:
+        stages.append(stage_task_stopper(cfg))
+    stages += [stage_scheduler(cfg), stage_progress(cfg)]
+
+    def step(state: SimState, xs: dict):
+        ctx = {**xs, **dyn}
+        for stage in stages:
+            state, ctx = stage(state, ctx)
+        hosts = state.hosts
+        cpu_u, gpu_u = scheduler_mod.host_utilization(state.tasks, hosts)
+        on = (hosts.active & hosts.up).to(F32)
+        _, it_kw = ops.host_power(cpu_u, gpu_u, hosts.n_gpus, on,
+                                  cfg.cpu_power, cfg.gpu_power)
+        state = _advance_clock(state, cfg)
+        ys = {"it_kw": it_kw}
+        if cfg.collect_series:
+            free_c, free_g = scheduler_mod.free_capacity(state.tasks, hosts)
+            ys["max_overcommit"] = torch.maximum((-free_c).amax(),
+                                                 (-free_g).amax())
+            ys["n_running"] = _n_running(state)
+        return state, ys
+
+    return step
+
+
+def facility_totals_from_flows(flows: dict, ci, price,
+                               cfg: SimConfig) -> dict:
+    """Reduce the [S] flow series of `ref.fused_facility_chain` to the run
+    totals the metrics need; the fused facility kernel produces this same
+    dict from its accumulator row."""
+    dt = np.float32(cfg.dt_h)
+    grid = flows["grid_import_kw"]
+    load = flows["it_kw"] + flows["cooling_kw"]
+    totals = {
+        "op_carbon": (grid * ci).sum() * dt / 1000.0,
+        "grid_energy": grid.sum() * dt,
+        "dc_energy": load.sum() * dt,
+        "it_energy": flows["it_kw"].sum() * dt,
+        "peak_power": grid.amax(),
+        "batt_discharged": flows["batt_discharge_kw"].sum() * dt,
+        "cooling_energy": flows["cooling_kw"].sum() * dt,
+        "water_l": flows["water_l_per_h"].sum() * dt,
+        "heat_reuse": flows["heat_reuse_kw"].sum() * dt,
+        "pv_energy": flows["pv_kw"].sum() * dt,
+        "export_energy": flows["grid_export_kw"].sum() * dt,
+        "curtailed_energy": flows["curtailed_kw"].sum() * dt,
+        "soc_final": flows["soc"][-1],
+        "was_charging": flows["want_charge"][-1],
+    }
+    if cfg.pricing.enabled:
+        wsteps = pricing_mod.billing_window_steps(cfg.pricing, cfg.dt_h)
+        s = grid.shape[0]
+        n_win = -(-s // wsteps)
+        padded = torch.cat([grid, grid.new_zeros(n_win * wsteps - s)])
+        # windows [0,w), [w,2w), ...: closed windows bill here, the last
+        # (open) one is settled by `summarize`
+        peaks = padded.reshape(n_win, wsteps).amax(1)
+        totals["energy_cost"] = (grid * price).sum() * dt
+        totals["demand_cost"] = (peaks[:-1].sum()
+                                 * np.float32(cfg.pricing.demand_charge_per_kw))
+        totals["window_peak_kw"] = peaks[-1]
+        if cfg.renewables.enabled:
+            totals["export_revenue"] = (
+                (flows["grid_export_kw"] * price).sum() * dt
+                * np.float32(cfg.pricing.export_price_fraction))
+    return totals
+
+
+def _merge_facility_totals(state: SimState, totals: dict, cfg: SimConfig,
+                           dyn: dict) -> SimState:
+    """Fold the facility totals (+ the closed-form embodied integral) into
+    the demand phase's final state."""
+    m = state.metrics
+    # embodied carbon is load-independent and `hosts.active` is fixed for
+    # the run: the per-step accumulation is a closed-form product
+    n_active = state.hosts.active.to(F32).sum()
+    batt_rate = _battery_embodied_rate(cfg, dyn.get("batt_capacity_kwh"))
+    host_rate = carbon_mod.host_embodied_rate_kg_per_h(cfg.embodied)
+    emb = (n_active * host_rate + batt_rate) * cfg.dt_h * cfg.n_steps
+    m = m._replace(
+        op_carbon=m.op_carbon + totals["op_carbon"],
+        emb_carbon=m.emb_carbon + emb,
+        grid_energy=m.grid_energy + totals["grid_energy"],
+        dc_energy=m.dc_energy + totals["dc_energy"],
+        it_energy=m.it_energy + totals["it_energy"],
+        peak_power=torch.maximum(m.peak_power, totals["peak_power"]),
+        batt_discharged=m.batt_discharged + totals["batt_discharged"])
+    if cfg.cooling.enabled:
+        m = m._replace(
+            cooling_energy=m.cooling_energy + totals["cooling_energy"],
+            water_l=m.water_l + totals["water_l"],
+            heat_reuse=m.heat_reuse + totals["heat_reuse"])
+    if cfg.renewables.enabled:
+        m = m._replace(
+            pv_energy=m.pv_energy + totals["pv_energy"],
+            export_energy=m.export_energy + totals["export_energy"],
+            curtailed_energy=m.curtailed_energy + totals["curtailed_energy"])
+    if cfg.pricing.enabled:
+        m = m._replace(
+            energy_cost=m.energy_cost + totals["energy_cost"],
+            demand_cost=m.demand_cost + totals["demand_cost"],
+            window_peak_kw=torch.maximum(m.window_peak_kw,
+                                         totals["window_peak_kw"]))
+        if cfg.renewables.enabled:
+            m = m._replace(export_revenue=m.export_revenue
+                           + totals["export_revenue"])
+    battery = BatteryState(charge=totals["soc_final"],
+                           was_charging=totals["was_charging"])
+    return state._replace(metrics=m, battery=battery)
+
+
+def _simulate_megakernel(state0: SimState, inputs: StepInputs,
+                         cfg: SimConfig, dyn: dict):
+    step = _build_demand_step(cfg, dyn)
+    dev = inputs.ci.device
+    zero = torch.zeros((), dtype=F32, device=dev)
+    # shifting off: the gate never reads the carbon intensity or threshold
+    xs = ({"ci": ci, "shift_threshold": th} for ci, th in zip(
+        inputs.ci.unbind(0), inputs.shift_threshold.unbind(0))) \
+        if cfg.shifting.enabled else ({"ci": zero, "shift_threshold": zero}
+                                      for _ in range(cfg.n_steps))
+    # written one step at a time: a fresh buffer nobody else holds
+    it_series = torch.empty(cfg.n_steps, dtype=F32, device=dev)
+    state, demand_ys = state0, []
+    for i, x in enumerate(xs):
+        state, y = step(state, x)
+        it_series[i] = y.pop("it_kw")
+        demand_ys.append(y)
+    final = state
+
+    chain_kwargs = dict(
+        soc0=0.0, setpoint_c=dyn.get("cooling_setpoint"),
+        batt_capacity_kwh=dyn.get("batt_capacity_kwh"),
+        batt_rate_kw=dyn.get("batt_rate_kw"),
+        dispatch_lambda=dyn.get("dispatch_lambda"),
+        pv_capacity_kw=dyn.get("pv_capacity_kw"))
+    trace_args = (inputs.ci, inputs.wet_bulb_c, inputs.price, inputs.price_lo,
+                  inputs.price_hi, inputs.pv_cf, inputs.batt_threshold,
+                  inputs.ci_rising)
+    if not cfg.collect_series:
+        totals = ops.fused_facility_totals(it_series, *trace_args, cfg,
+                                           trace_store=cfg.trace_store,
+                                           **chain_kwargs)
+        return _merge_facility_totals(final, totals, cfg, dyn), None
+    # the per-step series exist only in the plain chain
+    flows = ref.fused_facility_chain(it_series, *trace_args, cfg.dt_h, cfg,
+                                     **chain_kwargs)
+    totals = facility_totals_from_flows(flows, inputs.ci, inputs.price, cfg)
+    final = _merge_facility_totals(final, totals, cfg, dyn)
+    demand = _stack_series(demand_ys)
+    flow = EnergyFlow(*(flows[f] for f in EnergyFlow._fields))
+    ys = {"grid_power_kw": flow.grid_import_kw,
+          "dc_power_kw": flow.it_kw + flow.cooling_kw,
+          "ci": inputs.ci,
+          "n_running": demand["n_running"],
+          "battery_charge": flows["soc"],
+          "max_overcommit": demand["max_overcommit"],
+          "flow": flow}
+    if cfg.cooling.enabled:
+        ys["cooling_power_kw"] = flow.cooling_kw
+        ys["wet_bulb_c"] = inputs.wet_bulb_c
+    if cfg.pricing.enabled:
+        ys["price_per_kwh"] = inputs.price
+    return final, ys
+
+
+def _refuse_unported(cfg: SimConfig, dyn: dict) -> None:
+    for on, what in ((cfg.failures.enabled, "cfg.failures.enabled"),
+                     (cfg.resilience.enabled, "cfg.resilience.enabled")):
+        if on:
+            raise NotImplementedError(
+                f"{what}: failures and the resilience loop draw JAX threefry "
+                f"bits and are not ported yet ({_THREEFRY})")
+    if cfg.probes.enabled:
+        raise NotImplementedError(
+            "cfg.probes.enabled: the probe bus is not ported yet (ROADMAP "
+            "Queue 1, telemetry)")
+    for key, item in _UNPORTED_DYN.items():
+        if key in dyn:
+            raise NotImplementedError(
+                f"dyn key '{key}' is not ported yet ({item})")
+
+
+def _to_device(table, device):
+    return type(table)(*(col.to(device) for col in table))
+
+
+def simulate(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
+             stages: Sequence[Stage] | None = None, dyn: dict | None = None,
+             weather_trace=None, device="cuda"):
+    """Run one simulation on `device`.  Returns (final SimState, per-step
+    series or None).
+
+    The tables move to `device` (a no-op where they already are) and the
+    traces are made there; the device decides whether the kernels or their
+    plain versions run.  `dyn` holds the scenario parameters of the
+    reference's dyn dict: `batt_capacity_kwh`, `batt_rate_kw`,
+    `shift_quantile_value`, `n_active_hosts`, `cooling_setpoint`,
+    `wet_bulb_trace` (also `weather_trace`), `price_trace`,
+    `dispatch_lambda`, `pv_cf_trace`, `pv_capacity_kw`, `slots_per_step`
+    and `arrival_trace`; each scalar is a host number or a 0-d tensor on
+    `device`.
+    """
+    if cfg.backend not in BACKENDS:
+        raise ValueError(
+            f"unknown backend '{cfg.backend}'; pick one of {BACKENDS}")
+    if stages is not None and cfg.backend != "stage-pipeline":
+        raise ValueError(
+            "custom stages compose only with backend='stage-pipeline'; the "
+            "megakernel fuses the default facility chain and cannot honour "
+            "a replacement pipeline")
+    dyn = dict(dyn) if dyn else {}
+    _refuse_unported(cfg, dyn)
+    if weather_trace is not None:
+        dyn["wet_bulb_trace"] = weather_trace
+    tasks, hosts = _to_device(tasks, device), _to_device(hosts, device)
+    if "n_active_hosts" in dyn:
+        hosts = scaling_mod.with_scale(hosts, dyn["n_active_hosts"])
+    arrival = dyn.pop("arrival_trace", None)
+    if arrival is not None:
+        tasks = state_mod.retime_task_table(tasks, arrival)
+    # priority scheduling: permute rows into (priority desc, arrival) order
+    # once, before the loop; the final table is un-permuted below
+    inv = None
+    if _presort_enabled(cfg):
+        order = state_mod.priority_schedule_order(
+            tasks, cfg.scheduler.priority_levels)
+        tasks = state_mod.permute_task_table(tasks, order)
+        inv = state_mod.inverse_permutation(order)
+    inputs = build_step_inputs(ci_trace, cfg, dyn=dyn, device=device)
+    for k in ("wet_bulb_trace", "price_trace", "pv_cf_trace"):
+        dyn.pop(k, None)  # consumed by the inputs, not ctx keys
+    state0 = init_sim_state(tasks, hosts, cfg.seed)
+    if cfg.backend == "megakernel":
+        final, ys = _simulate_megakernel(state0, inputs, cfg, dyn)
+    else:
+        final, ys = _simulate_stage_pipeline(state0, inputs, cfg, stages, dyn)
+    if inv is not None:
+        final = final._replace(
+            tasks=state_mod.permute_task_table(final.tasks, inv))
+    return final, ys

@@ -1,0 +1,14 @@
+"""Horizontal scaling (paper §VI-A).
+
+Scaling is the host table's `active` mask: a scale of N provisions the first
+N hosts and powers the rest off entirely (no idle draw, no embodied share).
+"""
+from __future__ import annotations
+
+from .state import HostTable, active_host_mask
+
+
+def with_scale(hosts: HostTable, n_active) -> HostTable:
+    """Provision the first `n_active` hosts (dyn key `n_active_hosts`)."""
+    return hosts._replace(active=active_host_mask(
+        hosts.cores.shape[0], n_active, hosts.cores.device))

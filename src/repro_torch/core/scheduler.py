@@ -1,0 +1,164 @@
+"""Tensorized FIFO scheduling (paper §IV-A resource managers).
+
+FIFO priority is arrival order and the task table is pre-sorted by arrival,
+so "the next tasks to schedule" are the first K eligible rows, selected with
+a cumsum and K binary searches.  Placement is exact greedy first-fit: each
+of the K candidates takes the lowest-index usable host whose free cores and
+GPUs cover it, through `kernels/ops.first_fit_place` -- one launch of the
+hand-written kernel per step on the card, its plain version on the CPU.
+
+Only mode 'first_fit' is ported; 'aggregate' raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import ops
+from .config import SchedulerConfig
+from .state import PENDING, RUNNING, HostTable, TaskTable
+
+F32 = torch.float32
+I32 = torch.int32
+
+
+def _per_host_sum(vals, seg, h: int):
+    """Per-host sum of `vals` over the bins `seg` of `_running_seg`."""
+    out = torch.zeros(h + vals.shape[0], dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, seg, vals)[:h]
+
+
+def _running_seg(tasks: TaskTable, h: int):
+    """(running-and-placed mask, bin of each row for `_per_host_sum`).
+
+    A running task's bin is its host (clipped into range; host >= 0, so a
+    RUNNING task carrying host == -1 is not billed to host 0).  Every other
+    row adds nothing, into a spare bin of its own past the H host bins: on
+    the card, sending all of them to one bin would make ~T atomic adds to
+    the same address, which took 0.34 ms a call at T = 192,817."""
+    running = (tasks.status == RUNNING) & (tasks.host >= 0)
+    spare = torch.arange(h, h + tasks.host.shape[0], device=tasks.host.device)
+    return running, torch.where(running, torch.clamp(tasks.host, 0, h - 1),
+                                spare)
+
+
+def free_capacity(tasks: TaskTable, hosts: HostTable):
+    """Per-host free CPU cores and GPUs, recomputed from the task table."""
+    h = hosts.cores.shape[0]
+    running, seg = _running_seg(tasks, h)
+    used_c = _per_host_sum(torch.where(running, tasks.cores, 0.0), seg, h)
+    used_g = _per_host_sum(torch.where(running, tasks.gpus, 0.0), seg, h)
+    avail = (hosts.active & hosts.up).to(F32)
+    return hosts.cores * avail - used_c, hosts.n_gpus * avail - used_g
+
+
+def host_utilization(tasks: TaskTable, hosts: HostTable):
+    """Per-host CPU/GPU utilization in [0, 1] from running tasks."""
+    h = hosts.cores.shape[0]
+    running, seg = _running_seg(tasks, h)
+    cpu = _per_host_sum(
+        torch.where(running, tasks.cores * tasks.cpu_util, 0.0), seg, h)
+    gpu = _per_host_sum(
+        torch.where(running, tasks.gpus * tasks.gpu_util, 0.0), seg, h)
+    cpu_u = torch.where(hosts.cores > 0,
+                        cpu / torch.clamp(hosts.cores, min=1e-6), 0.0)
+    gpu_u = torch.where(hosts.n_gpus > 0,
+                        gpu / torch.clamp(hosts.n_gpus, min=1e-6), 0.0)
+    return torch.clamp(cpu_u, 0.0, 1.0), torch.clamp(gpu_u, 0.0, 1.0)
+
+
+def _eligible(tasks: TaskTable, now, shift_ok):
+    return (tasks.status == PENDING) & (tasks.arrival <= now) & shift_ok
+
+
+def _first_k_indices(mask, k: int):
+    """Indices of the first k True rows of mask (padded with -1).
+
+    csum[i] counts True rows in [0..i], so the s-th True index is the first
+    i with csum[i] == s + 1.  `torch.cumsum` of an int32 tensor returns
+    int64, and so do the indices."""
+    csum = torch.cumsum(mask.to(I32), 0)
+    wanted = torch.arange(1, k + 1, device=mask.device)
+    idx = torch.searchsorted(csum, wanted, side="left")
+    return torch.where(wanted <= csum[-1], idx, -1)
+
+
+def schedule_first_fit(tasks: TaskTable, hosts: HostTable, now, shift_ok,
+                       cfg: SchedulerConfig, slots=None,
+                       presorted: bool = False):
+    """Exact bounded first-fit.  Returns the updated task table.
+
+    `cfg.slots_per_step` bounds the candidates per step; `slots` (dyn
+    `slots_per_step`, a host int or 0-d tensor) masks the slots past it.
+    `presorted=True` asserts the rows are already in (priority desc,
+    arrival) order (`state.priority_schedule_order`), so admission is the
+    plain FIFO prefix; otherwise priority levels > 1 select from the
+    level-major flattened [L*T] mask.
+
+    The reference places with a `while_loop` that stops early once no
+    remaining candidate fits any usable host, or at the first -1 slot;
+    both stops skip only iterations that place nothing, so one pass of the
+    greedy first-fit over all K slots gives the same placement.  Unusable
+    hosts enter with -inf free capacity and -1 slots with +inf needs, so
+    neither ever fits, not even a zero-footprint task.
+    """
+    k = cfg.slots_per_step
+    t = tasks.arrival.shape[0]
+    dev = tasks.arrival.device
+    elig = _eligible(tasks, now, shift_ok)
+    multi = cfg.priority_levels > 1 and not presorted
+    if multi:
+        # level-major flattened mask: merged (priority desc, arrival) order
+        lvl = torch.arange(cfg.priority_levels - 1, -1, -1, device=dev,
+                           dtype=tasks.priority.dtype)
+        m = (elig[None, :] & (tasks.priority[None, :] == lvl[:, None])
+             ).reshape(-1)
+    else:
+        m = elig
+    # one cumsum maps slots to rows (k binary searches) and rows to slots
+    # (a row's rank is its cumsum - 1)
+    csum = torch.cumsum(m.to(I32), 0)
+    wanted = torch.arange(1, k + 1, device=dev)
+    idx = torch.searchsorted(csum, wanted, side="left")
+    cand = torch.where(wanted <= csum[-1], idx % t if multi else idx, -1)
+    if slots is not None:  # the masked tail of a swept slot count
+        cand = torch.where(wanted <= slots, cand, -1)
+    free_c, free_g = free_capacity(tasks, hosts)
+    usable = hosts.active & hosts.up
+    cj = torch.clamp(cand, min=0)
+    inf = float("inf")
+    need_c = torch.where(cand >= 0, tasks.cores[cj], inf)
+    need_g = torch.where(cand >= 0, tasks.gpus[cj], inf)
+    sel_host, _, _ = ops.first_fit_place(
+        need_c, need_g, torch.where(usable, free_c, -inf),
+        torch.where(usable, free_g, -inf))
+    # deferred table writes through the inverse candidate map
+    if multi:
+        lvl_t = (cfg.priority_levels - 1
+                 - torch.clamp(tasks.priority, 0, cfg.priority_levels - 1))
+        pos_t = lvl_t.to(torch.int64) * t + torch.arange(t, device=dev)
+        rank = csum[pos_t] - 1
+        in_k = m[pos_t] & (rank < k)
+    else:
+        rank = csum - 1
+        in_k = elig & (rank < k)
+    host_t = sel_host[torch.clamp(rank, 0, k - 1)]
+    placed = in_k & (host_t >= 0)
+    return tasks._replace(
+        status=torch.where(placed, RUNNING, tasks.status).to(I32),
+        host=torch.where(placed, torch.clamp(host_t, min=0),
+                         tasks.host).to(I32),
+        first_start=torch.where(placed, torch.clamp(tasks.first_start,
+                                                    max=now),
+                                tasks.first_start))
+
+
+def schedule_step(tasks: TaskTable, hosts: HostTable, now, shift_ok,
+                  cfg: SchedulerConfig, slots=None, presorted: bool = False):
+    if cfg.mode == "first_fit":
+        return schedule_first_fit(tasks, hosts, now, shift_ok, cfg,
+                                  slots=slots, presorted=presorted)
+    if cfg.mode == "aggregate":
+        raise NotImplementedError(
+            "scheduler mode 'aggregate' is not ported yet (ROADMAP Queue 1, "
+            "'Demand side': schedule_aggregate)")
+    raise ValueError(f"unknown scheduler mode '{cfg.mode}'")

@@ -1,0 +1,320 @@
+"""Dense simulation state for the PyTorch port of the STEAM engine.
+
+The same struct-of-arrays layout as the reference package: a padded task
+table, a host table, and scalar battery/accumulator state, each a NamedTuple
+of tensors with the reference's field names and order.  Every stage of the
+engine is a plain function over these tuples; a Python loop drives the
+timeline.  All times are hours (f32), energy kWh, power kW, carbon kgCO2-eq.
+
+Tables live on the device the caller names.  Entry points default to
+`device="cuda"`; the CPU runs only when it is asked for.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+# Task status codes (i32).  PENDING covers never-started, shifted and stopped
+# tasks alike: the scheduler only looks at eligibility.
+PENDING = 0
+RUNNING = 1
+DONE = 2
+INVALID = 3  # padding rows
+
+# Job-class codes (i32), ordered by default scheduling priority (low to
+# high).  Tables built without class columns are all-batch / all-shiftable /
+# config-grace.  INTERACTIVE is top priority, non-shiftable, tight SLA grace.
+JOB_BATCH = 0
+JOB_TRAINING = 1
+JOB_INTERACTIVE = 2
+N_JOB_CLASSES = 3
+JOB_CLASS_NAMES = ("batch", "training", "interactive")
+
+F32 = torch.float32
+I32 = torch.int32
+
+
+def as_tensor(x, dtype, device) -> torch.Tensor:
+    """`x` (tensor, numpy array or sequence) as a tensor of `dtype` on
+    `device`; float64 inputs round to nearest f32 like `jnp.asarray`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    # a copy: the source may be a read-only view (e.g. of a JAX array)
+    return torch.tensor(np.asarray(x), device=device).to(dtype)
+
+
+def f32(x):
+    """An f32 scalar as the reference holds it: a 0-d tensor stays as it
+    is, a host number becomes `np.float32`.  Arithmetic between two such
+    host scalars then rounds to f32 at every step, as the reference's f32
+    scalar arrays do (a Python float would round once, at the end)."""
+    return x if isinstance(x, torch.Tensor) else np.float32(x)
+
+
+def active_host_mask(n_hosts: int, n_active, device="cuda") -> torch.Tensor:
+    """bool[n_hosts] marking the first `n_active` hosts as provisioned."""
+    return torch.arange(n_hosts, device=device) < n_active
+
+
+class TaskTable(NamedTuple):
+    """Padded struct-of-arrays task table, pre-sorted by arrival time, so
+    FIFO priority is the row order (see core/scheduler.py)."""
+
+    arrival: torch.Tensor        # f32[T] hours; +inf for padding rows
+    duration: torch.Tensor       # f32[T] nominal runtime at full speed
+    remaining: torch.Tensor      # f32[T] remaining runtime
+    ckpt_remaining: torch.Tensor # f32[T] remaining at the last checkpoint
+    cores: torch.Tensor          # f32[T] CPU cores required
+    gpus: torch.Tensor           # f32[T] GPUs required
+    cpu_util: torch.Tensor       # f32[T] utilization of allocated cores
+    gpu_util: torch.Tensor       # f32[T] utilization of allocated GPUs
+    status: torch.Tensor         # i32[T]
+    host: torch.Tensor           # i32[T]; -1 when not placed
+    first_start: torch.Tensor    # f32[T]; +inf until first scheduled
+    finish: torch.Tensor         # f32[T]; +inf until done
+    lost_work: torch.Tensor      # f32[T] hours of work redone after failures
+    job_class: torch.Tensor      # i32[T] JOB_* code
+    priority: torch.Tensor       # i32[T] scheduling priority, higher first
+    shiftable: torch.Tensor      # bool[T] may temporal shifting delay it?
+    sla_grace: torch.Tensor      # f32[T] per-task SLA grace; <0 = cfg default
+
+    @property
+    def n(self) -> int:
+        return self.arrival.shape[0]
+
+
+class HostTable(NamedTuple):
+    """Host inventory.  `active` is the horizontal-scaling mask (fixed during
+    a run); `up` tracks failures (always True in this port so far)."""
+
+    cores: torch.Tensor      # f32[H] total CPU cores per host
+    n_gpus: torch.Tensor     # f32[H] GPUs per host
+    active: torch.Tensor     # bool[H] provisioned by horizontal scaling
+    up: torch.Tensor         # bool[H] not currently failed
+    repair_at: torch.Tensor  # f32[H] absolute hour when a failed host recovers
+    speed: torch.Tensor      # f32[H] execution-speed factor
+
+
+class BatteryState(NamedTuple):
+    charge: torch.Tensor        # f32[] kWh currently stored
+    was_charging: torch.Tensor  # bool[] hysteresis memory
+
+
+class MetricsAcc(NamedTuple):
+    op_carbon: torch.Tensor
+    emb_carbon: torch.Tensor
+    grid_energy: torch.Tensor
+    dc_energy: torch.Tensor
+    it_energy: torch.Tensor
+    cooling_energy: torch.Tensor
+    water_l: torch.Tensor
+    peak_power: torch.Tensor
+    batt_discharged: torch.Tensor
+    n_interrupts: torch.Tensor
+    n_shift_delays: torch.Tensor
+    energy_cost: torch.Tensor
+    demand_cost: torch.Tensor
+    window_peak_kw: torch.Tensor
+    pv_energy: torch.Tensor
+    export_energy: torch.Tensor
+    curtailed_energy: torch.Tensor
+    export_revenue: torch.Tensor
+    heat_reuse: torch.Tensor
+    n_stops: torch.Tensor
+    throttled_h: torch.Tensor
+    derate_h: torch.Tensor
+    n_spills: torch.Tensor
+
+
+class SimState(NamedTuple):
+    t: torch.Tensor       # f32[] current time in hours
+    step: torch.Tensor    # i32[] current step index
+    tasks: TaskTable
+    hosts: HostTable
+    battery: BatteryState
+    metrics: MetricsAcc
+    # the run seed (an int).  The reference carries a PRNG key here; no
+    # stage of this port draws random bits yet (failures wait for a
+    # bit-exact threefry port), so the seed travels as a plain integer.
+    rng: int
+    probes: Any = None
+    throttle: Any = None
+
+
+def make_task_table(arrival, duration, cores, gpus=None, cpu_util=None,
+                    gpu_util=None, job_class=None, priority=None,
+                    shiftable=None, sla_grace=None,
+                    device="cuda") -> TaskTable:
+    """Build a task table from per-task arrays; sorts by arrival (stable,
+    so equal arrivals keep their given order).  Column defaults as in the
+    reference: all-batch, priority = class code, shiftable unless
+    interactive, `sla_grace` -1 (use cfg.sla_grace_h)."""
+    arrival = as_tensor(arrival, F32, device)
+    duration = as_tensor(duration, F32, device)
+    cores = as_tensor(cores, F32, device)
+    t = arrival.shape[0]
+    gpus = (torch.zeros(t, dtype=F32, device=device) if gpus is None
+            else as_tensor(gpus, F32, device))
+    cpu_util = (torch.ones(t, dtype=F32, device=device) if cpu_util is None
+                else as_tensor(cpu_util, F32, device))
+    gpu_util = ((gpus > 0).to(F32) if gpu_util is None
+                else as_tensor(gpu_util, F32, device))
+    job_class = (torch.zeros(t, dtype=I32, device=device) if job_class is None
+                 else as_tensor(job_class, I32, device))
+    priority = job_class if priority is None else as_tensor(priority, I32,
+                                                            device)
+    shiftable = (job_class != JOB_INTERACTIVE if shiftable is None
+                 else as_tensor(shiftable, torch.bool, device))
+    sla_grace = (torch.full((t,), -1.0, dtype=F32, device=device)
+                 if sla_grace is None else as_tensor(sla_grace, F32, device))
+    order = torch.argsort(arrival, stable=True)
+    arrival, duration, cores = arrival[order], duration[order], cores[order]
+    gpus, cpu_util, gpu_util = gpus[order], cpu_util[order], gpu_util[order]
+    job_class, priority = job_class[order], priority[order]
+    shiftable, sla_grace = shiftable[order], sla_grace[order]
+    inf = torch.full((t,), float("inf"), dtype=F32, device=device)
+    status = torch.where(torch.isfinite(arrival), PENDING, INVALID).to(I32)
+    return TaskTable(
+        arrival=arrival, duration=duration, remaining=duration.clone(),
+        ckpt_remaining=duration.clone(), cores=cores, gpus=gpus,
+        cpu_util=cpu_util, gpu_util=gpu_util, status=status,
+        host=torch.full((t,), -1, dtype=I32, device=device),
+        first_start=inf, finish=inf.clone(),
+        lost_work=torch.zeros(t, dtype=F32, device=device),
+        job_class=job_class, priority=priority, shiftable=shiftable,
+        sla_grace=sla_grace)
+
+
+def retime_task_table(tasks: TaskTable, arrival) -> TaskTable:
+    """Replace the arrival column with a pre-sorted one (dyn key
+    `arrival_trace`); non-finite arrivals mark the row INVALID."""
+    arrival = as_tensor(arrival, F32, tasks.arrival.device)
+    status = torch.where(torch.isfinite(arrival), PENDING, INVALID).to(I32)
+    return tasks._replace(arrival=arrival, status=status)
+
+
+def priority_schedule_order(tasks: TaskTable, levels: int) -> torch.Tensor:
+    """Stable permutation sorting rows into (priority desc, arrival) order.
+
+    Rows are already arrival-sorted, so the unique composite key
+    `(levels-1-priority) * T + row` makes the merged admission order the
+    row order; computed once per simulation, outside the step loop."""
+    t = tasks.n
+    dev = tasks.priority.device
+    prio = torch.clamp(tasks.priority.to(torch.int64), 0, levels - 1)
+    key = (levels - 1 - prio) * t + torch.arange(t, device=dev)
+    return torch.argsort(key).to(I32)
+
+
+def permute_task_table(tasks: TaskTable, order) -> TaskTable:
+    """Reorder every column of the table by `order` (i32[T] permutation)."""
+    idx = order.to(torch.int64)
+    return TaskTable(*(col[idx] for col in tasks))
+
+
+def inverse_permutation(order) -> torch.Tensor:
+    """Inverse of a permutation vector: inv[order[i]] = i."""
+    return torch.argsort(order.to(torch.int64)).to(I32)
+
+
+def pad_task_table(tasks: TaskTable, n: int) -> TaskTable:
+    """Pad a task table to n rows with INVALID entries."""
+    t = tasks.n
+    if t == n:
+        return tasks
+    if t > n:
+        raise ValueError(f"cannot shrink task table {t} -> {n}")
+    k = n - t
+
+    def _pad(x, fill):
+        return torch.cat([x, torch.full((k,), fill, dtype=x.dtype,
+                                        device=x.device)])
+
+    inf = float("inf")
+    return TaskTable(
+        arrival=_pad(tasks.arrival, inf), duration=_pad(tasks.duration, 0),
+        remaining=_pad(tasks.remaining, 0),
+        ckpt_remaining=_pad(tasks.ckpt_remaining, 0),
+        cores=_pad(tasks.cores, 0), gpus=_pad(tasks.gpus, 0),
+        cpu_util=_pad(tasks.cpu_util, 0), gpu_util=_pad(tasks.gpu_util, 0),
+        status=_pad(tasks.status, INVALID), host=_pad(tasks.host, -1),
+        first_start=_pad(tasks.first_start, inf),
+        finish=_pad(tasks.finish, inf), lost_work=_pad(tasks.lost_work, 0),
+        job_class=_pad(tasks.job_class, JOB_BATCH),
+        priority=_pad(tasks.priority, 0),
+        shiftable=_pad(tasks.shiftable, True),
+        sla_grace=_pad(tasks.sla_grace, -1.0))
+
+
+def make_host_table(n_hosts: int, cores_per_host: float,
+                    gpus_per_host: float = 0.0, n_active: int | None = None,
+                    straggler_frac: float = 0.0,
+                    straggler_speed: float = 0.5, seed: int = 0,
+                    device="cuda") -> HostTable:
+    """Homogeneous host inventory; `n_active` < n_hosts powers the rest off.
+
+    Straggler hosts draw their mask from the reference's JAX random bits,
+    which this port cannot reproduce yet (ROADMAP Queue 1, threefry PRNG)."""
+    if straggler_frac > 0.0:
+        raise NotImplementedError(
+            "straggler_frac > 0 draws hosts from jax.random bits; the port "
+            "needs the bit-exact threefry PRNG first (ROADMAP Queue 1 item 1)")
+    n_active = n_hosts if n_active is None else n_active
+    return HostTable(
+        cores=torch.full((n_hosts,), float(cores_per_host), dtype=F32,
+                         device=device),
+        n_gpus=torch.full((n_hosts,), float(gpus_per_host), dtype=F32,
+                          device=device),
+        active=active_host_mask(n_hosts, n_active, device),
+        up=torch.ones(n_hosts, dtype=torch.bool, device=device),
+        repair_at=torch.zeros(n_hosts, dtype=F32, device=device),
+        speed=torch.ones(n_hosts, dtype=F32, device=device))
+
+
+_TABLE_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
+                 torch.bool: np.bool_}
+
+
+def _table_from(cls, src, dtypes: dict, device):
+    d = src._asdict() if hasattr(src, "_asdict") else dict(src)
+    return cls(**{f: as_tensor(np.asarray(d[f], _TABLE_DTYPES[dtypes[f]]),
+                               dtypes[f], device) for f in cls._fields})
+
+
+_TASK_DTYPES = dict.fromkeys(TaskTable._fields, F32)
+_TASK_DTYPES.update(status=I32, host=I32, job_class=I32, priority=I32,
+                    shiftable=torch.bool)
+_HOST_DTYPES = dict.fromkeys(HostTable._fields, F32)
+_HOST_DTYPES.update(active=torch.bool, up=torch.bool)
+
+
+def tables_from_numpy(tasks, hosts, device="cuda"):
+    """(TaskTable, HostTable) of this port from the reference package's
+    tables: any object with `_asdict()` (the reference NamedTuples, after
+    `np.asarray` on each leaf) or a dict keyed by its field names.  Values
+    and dtypes carry over unchanged, so both packages see the same rows."""
+    return (_table_from(TaskTable, tasks, _TASK_DTYPES, device),
+            _table_from(HostTable, hosts, _HOST_DTYPES, device))
+
+
+def init_battery(device="cuda") -> BatteryState:
+    return BatteryState(charge=torch.zeros((), dtype=F32, device=device),
+                        was_charging=torch.zeros((), dtype=torch.bool,
+                                                 device=device))
+
+
+def init_metrics(device="cuda") -> MetricsAcc:
+    z = torch.zeros((), dtype=F32, device=device)
+    # one shared zero: accumulators are only ever replaced, never mutated
+    return MetricsAcc(*([z] * len(MetricsAcc._fields)))
+
+
+def init_sim_state(tasks: TaskTable, hosts: HostTable,
+                   seed: int = 0) -> SimState:
+    dev = tasks.arrival.device
+    return SimState(t=torch.zeros((), dtype=F32, device=dev),
+                    step=torch.zeros((), dtype=I32, device=dev),
+                    tasks=tasks, hosts=hosts, battery=init_battery(dev),
+                    metrics=init_metrics(dev), rng=int(seed))

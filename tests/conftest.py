@@ -105,3 +105,9 @@ def golden(request):
         _compare(data, want, rtol, atol, name)
 
     return check
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; the test skips itself when "
+        "torch.cuda.is_available() is false")

@@ -1,0 +1,193 @@
+"""The port's hand-written kernels and its main path on the card.
+
+Every test here needs an NVIDIA GPU: it carries the `cuda` marker and skips
+itself (inside the `cuda_device` fixture) where `torch.cuda.is_available()`
+is false.  The file imports neither JAX nor the reference package, so it
+runs on a machine that has only the port's dependencies (`--noconftest`:
+tests/conftest.py imports JAX):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_card.py
+
+Each kernel meets its plain version (repro_torch/kernels/ref.py, held to the
+reference package by the CPU tests) on the same CUDA inputs, at the CPU
+tests' tolerances; a whole simulation on the card meets the same one on the
+CPU, with exact launch counts.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as P
+import repro_torch.core.config as C
+from repro_torch.kernels import ops, ref
+
+S = 96
+DT = 0.25
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+    return torch.device("cuda")
+
+
+def _host_inputs(h, seed, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(x, device=dev) for x in (
+        rng.uniform(0, 1, h).astype(np.float32),
+        rng.uniform(0, 1, h).astype(np.float32),
+        rng.integers(0, 4, h).astype(np.float32),
+        (rng.uniform(size=h) < 0.8).astype(np.float32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [7, 972, 2048])
+def test_power_kernels_match_plain(cuda_device, h):
+    from repro_torch.kernels import power_carbon as pc
+    d = cuda_device
+    cpu_u, gpu_u, ngpu, on = _host_inputs(h, h, d)
+    cpu = C.PowerModelConfig(80.0, 250.0, "sqrt")
+    gpu = C.PowerModelConfig(40.0, 300.0, "linear")
+    ci = torch.tensor(350.0, device=d)
+    got = pc.fused_power_carbon(cpu_u, gpu_u, ngpu, on, ci, 0.25, cpu, gpu)
+    want = ref.fused_power_carbon(cpu_u, gpu_u, ngpu, on, ci, 0.25, cpu, gpu)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=0.0)
+    wb, sp = torch.tensor(27.0, device=d), torch.tensor(24.0, device=d)
+    cool = C.CoolingConfig(enabled=True)
+    got = pc.fused_facility_power(cpu_u, gpu_u, ngpu, on, wb, sp, cpu, gpu,
+                                  cool)
+    want = ref.fused_facility_power(cpu_u, gpu_u, ngpu, on, wb, sp, cpu, gpu,
+                                    cool)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,h", [(4, 3), (64, 972)])
+def test_first_fit_kernel_matches_plain(cuda_device, k, h):
+    from repro_torch.kernels import first_fit as ff
+    rng = np.random.default_rng(k * h)
+    cc = rng.integers(1, 8, k).astype(np.float32)
+    cg = rng.integers(0, 2, k).astype(np.float32)
+    fc = rng.integers(0, 16, h).astype(np.float32)
+    fg = rng.integers(0, 4, h).astype(np.float32)
+    cc[k // 2:] = cg[k // 2:] = np.inf       # the scheduler's inert tail
+    down = rng.uniform(size=h) < 0.2         # unusable hosts
+    fc[down] = fg[down] = -np.inf
+    args = [torch.tensor(x, device=cuda_device) for x in (cc, cg, fc, fg)]
+    got = ff.first_fit_place(*args)
+    want = ref.first_fit_place(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _traces(seed: int):
+    rng = np.random.default_rng(seed)
+    t = np.arange(S) * DT
+    ci = (rng.uniform(50, 600)
+          * (1 + 0.5 * np.sin(2 * np.pi * t / 24 + rng.uniform(0, 6)))
+          + rng.normal(0, 10, S)).clip(5.0).astype(np.float32)
+    price = (0.1 * (1 + 0.5 * np.sin(2 * np.pi * t / 24))).astype(np.float32)
+    wb = (14.0 + 6.0 * np.sin(2 * np.pi * t / 24)).astype(np.float32)
+    cf = np.clip(np.sin(2 * np.pi * (t - 6.0) / 24.0), 0.0, 1.0).astype(
+        np.float32)
+    return ci, {"price_trace": price, "wet_bulb_trace": wb,
+                "pv_cf_trace": cf}
+
+
+def _cfg(**kw):
+    return C.SimConfig(
+        n_steps=S,
+        cooling=C.CoolingConfig(enabled=True, heat_reuse_fraction=0.3),
+        pricing=C.PricingConfig(enabled=True, billing_window_h=12.0),
+        renewables=C.RenewableConfig(enabled=True, pv_capacity_kw=25.0),
+        battery=C.BatteryConfig(enabled=True, capacity_kwh=6.0,
+                                policy="blended", price_window_h=24.0),
+        shifting=C.ShiftingConfig(enabled=True), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["f32", "bf16", "int8"])
+def test_facility_kernel_matches_plain(cuda_device, store):
+    from repro_torch.kernels import fused_step as fs
+    ci, dyn = _traces(7)
+    cfg = _cfg()
+    x = P.build_step_inputs(ci, cfg, dyn, device=cuda_device)
+    it_kw = torch.tensor(np.random.default_rng(3).uniform(20.0, 80.0, S),
+                         dtype=torch.float32, device=cuda_device)
+    args = (it_kw, x.ci, x.wet_bulb_c, x.price, x.price_lo, x.price_hi,
+            x.pv_cf, x.batt_threshold, x.ci_rising)
+    got = fs.fused_facility_totals(*args, cfg, trace_store=store)
+    want = ref.fused_facility_totals(*args, cfg, trace_store=store)
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k].double(), want[k].double(),
+                                   rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", P.BACKENDS)
+def test_simulation_on_card_matches_cpu(cuda_device, backend):
+    """A whole run through the kernels == the same run through the plain
+    versions on the CPU: counts exact, the rest within rtol 1e-4."""
+    from repro_torch.workloads import make_workload
+    ci, dyn = _traces(11)
+    cfg = _cfg(backend=backend)
+    results = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tasks, hosts, _, _ = make_workload("marconi", scale=0.03, seed=1,
+                                           horizon_days=S * DT / 24,
+                                           device=dev)
+        ops.reset_launch_counts()
+        final, _ = P.simulate(tasks, hosts, ci, cfg,
+                              dyn={**dyn, "n_active_hosts": 20}, device=dev)
+        results[dev.type] = P.result_to_numpy(P.summarize(final, cfg))
+        counts = ops.launch_counts()
+    want = {"first_fit_place": S}
+    if backend == "megakernel":
+        want.update(fused_power_carbon=S, fused_facility_totals=1)
+    else:
+        want["fused_facility_power"] = S
+    assert {k: v for k, v in counts.items() if v} == want
+    got, ref_res = results["cuda"], results["cpu"]
+    assert ref_res["n_done"] > 0
+    for k, v in ref_res.items():
+        if k.startswith("n_") or k.startswith("class_n_"):
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-4,
+                                       err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", P.BACKENDS)
+def test_step_loop_never_waits_for_the_card(cuda_device, backend):
+    """With inputs already on the card, `simulate` enqueues work and never
+    reads a value back: PyTorch's sync debug mode raises on any operation
+    that would make the host wait for the device."""
+    from repro_torch.workloads import make_workload
+    ci, dyn = _traces(5)
+    to = lambda x: torch.tensor(x, device=cuda_device)  # noqa: E731
+    dyn = {k: to(v) for k, v in dyn.items()}
+    tasks, hosts, _, _ = make_workload("marconi", scale=0.03, seed=2,
+                                       horizon_days=S * DT / 24,
+                                       device=cuda_device)
+    ci = to(ci)
+    cfg = _cfg(backend=backend)
+    from repro_torch.kernels import build
+    build.build_all()  # the first use builds and loads: not a device wait
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        final, _ = P.simulate(tasks, hosts, ci, cfg,
+                              dyn={**dyn, "n_active_hosts": 20},
+                              device=cuda_device)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(P.summarize(final, cfg).n_done) > 0
