@@ -7,14 +7,13 @@
 Phases, each printing one JSON line:
 
   1. device   -- the card's name and power limit (nvidia-smi, torch).
-  2. build    -- the four hand-written kernels built from
+  2. build    -- the six hand-written kernels built from
                  src/repro_torch/kernels/csrc/ (one nvcc per source, all at
                  once) into src/repro_torch/kernels/_build/; seconds and
                  the ptxas register / shared-memory lines.
   3. kernels  -- each kernel against its plain PyTorch version
-                 (kernels/ref.py) on the card, at the main path's shapes and
-                 around them, at the tolerances of the CPU tests; then each
-                 is timed beside its plain version with CUDA events.
+                 (kernels/ref.py) on the card, at the main paths' shapes and
+                 around them, at the tolerances of the CPU tests.
   4. main     -- a full-scale Marconi run (192,817 tasks, 972 hosts, 30 days
                  at 15 minutes = 2880 steps) with every technique on, through
                  both step executors; launch counts are reset just before
@@ -22,6 +21,20 @@ Phases, each printing one JSON line:
   5. small    -- the same configuration at a small scale on the card and on
                  the CPU (the plain versions, which the CPU tests hold to the
                  reference package): counts exact, the rest within 1e-4.
+  6. serve    -- zamba2-7b as configured (81 layers, d 3584, f32 params,
+                 bf16 compute, random weights from a seed): the
+                 decode-vs-prefill contract over 2 x 512 tokens in f32 on
+                 its first 13 layers (CONTRACT_LAYERS says why), a
+                 warm-up and two timed prefills of 2 x 4096 tokens with
+                 exactly 81 SSD and 13 flash launches, a profile of one
+                 prefill, and 32 greedy decode tokens; then mamba2-2.7b's
+                 prefill of 2 x 4096 tokens with exactly 64 SSD launches.
+  7. small models -- reduced zamba2 and mamba2 on the card and on the CPU:
+                 prefill logits and 16 decode steps within 1e-4.
+  8. timing   -- each kernel beside its plain version (CUDA events) at the
+                 main paths' shapes, its device time (profiler), its bound,
+                 and for flash attention one call of PyTorch's
+                 scaled_dot_product_attention as a yardstick.
 
 Then the `kernels` summary line, the nvidia-smi line, and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises: no phase is caught,
@@ -45,19 +58,26 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.carbontraces import make_region_traces  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import config as C  # noqa: E402
 from repro_torch.core import (battery, pricing,  # noqa: E402
                               result_to_numpy, simulate, summarize)
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import first_fit as ff_k  # noqa: E402
+from repro_torch.kernels import flash_attn as fa_k  # noqa: E402
 from repro_torch.kernels import fused_step as fs_k  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import power_carbon as pc_k  # noqa: E402
+from repro_torch.kernels import ssd_chunk as ssd_k  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models.layers import flatten, tree_map  # noqa: E402
 from repro_torch.workloads import make_workload  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) op/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) op/s
+# and bf16 tensor-core op/s (dense)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_OPS_S = 989e12
 DT_H = 0.25
 MAIN_STEPS = 2880            # 30 days at 15 minutes
 MARCONI_ACTIVE = 750         # the published Marconi optimum (of 972 hosts)
@@ -118,10 +138,11 @@ def device_ms(fn, kernel_name: str, reps: int = 50):
     return total_us / calls / 1000.0 if calls else None
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
-    """Least time on the card (ms): bytes over HBM rate or f32 operations
-    over the peak f32 rate, whichever is larger."""
-    tb, to = nbytes / PEAK_BYTES_S, nops / PEAK_F32_OPS_S
+def bound(nbytes: float, nops: float,
+          peak_ops: float = PEAK_F32_OPS_S) -> tuple[float, str]:
+    """Least time on the card (ms): bytes over HBM rate or operations over
+    the peak rate of their type (f32 unless said), whichever is larger."""
+    tb, to = nbytes / PEAK_BYTES_S, nops / peak_ops
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
@@ -331,6 +352,80 @@ def check_facility_kernel(dev, results: dict) -> None:
         "store_rel_err": envelope}
 
 
+def _ssd_inputs(gen, shape, dev, decay=0.2):
+    """xdt, da, b, c of the SSD kernel; shape (B, C, Q, H, P, G, N)."""
+    bt, nc, q, h, p, g, n = shape
+    rn = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    return (rn(bt, nc, q, h, p) * 0.3, -rn(bt, nc, h, q).abs() * decay,
+            rn(bt, nc, q, g, n) * 0.3, rn(bt, nc, q, g, n) * 0.3)
+
+
+def check_ssd_kernel(dev, results: dict) -> None:
+    """Kernel 5 against its plain version: the reference tests' shapes
+    (B and C per head, G = H, and per group), ragged tiles, and the main
+    path's shapes at B = 1, S = 1024 (zamba2: H 112, P 64, G 2, N 64;
+    mamba2: H 80, P 64, G 1, N 128; Q 256), there with a slow decay
+    (|da| ~ 0.04) so every position sums all earlier ones of its chunk.
+    rtol / atol 1e-4 throughout: the two sum the same f32 products in
+    another order, over at most Q x N terms."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs = []
+    cases = [((1, 2, 16, 4, 8, 4, 8), 0.2), ((2, 4, 32, 8, 16, 8, 16), 0.2),
+             ((1, 1, 64, 16, 32, 16, 32), 0.2), ((2, 4, 32, 8, 16, 2, 16), 0.2),
+             ((2, 1, 48, 6, 80, 3, 40), 0.2),
+             ((1, 4, 256, 112, 64, 2, 64), 0.05),
+             ((1, 4, 256, 80, 64, 1, 128), 0.05)]
+    for shape, decay in cases:
+        args = _ssd_inputs(gen, shape, dev, decay)
+        got = ssd_k.ssd_intra_chunk(*args)
+        want = ref.ssd_intra_chunk(*args)
+        errs.append(_close(got, want, 1e-4, 1e-4, f"ssd_intra_chunk {shape}"))
+    torch.cuda.synchronize()
+    results["ssd_intra_chunk"] = {"max_abs_err": max(errs),
+                                  "cases": len(errs)}
+
+
+def check_flash_kernel(dev, results: dict) -> None:
+    """Kernel 6 against its plain version: the reference tests' shapes in
+    f32 (2e-5) and bf16 (2e-2); causal with Sq != Sk both ways, ragged
+    lengths, GQA, D = 112 and 256; and zamba2's shape at B = 1, S = 1024
+    (H = KV = 32, D = 112, causal), in f32 with 1e-4 (1024-long sums
+    rescaled through 16 online-softmax steps) and in bf16 element by element
+    within one bf16 ulp (2^-7 of the value; both sides round an f32 result
+    once) plus that f32 1e-4, since late rows average hundreds of values
+    and come out far below the 2e-2 of the small shapes."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [  # (b, sq, sk, h, kv, d, causal, dtype, rtol, atol)
+        (2, 64, 64, 4, 2, 16, True, torch.float32, 2e-5, 2e-5),
+        (1, 128, 128, 8, 8, 32, True, torch.float32, 2e-5, 2e-5),
+        (2, 32, 96, 4, 1, 16, False, torch.float32, 2e-5, 2e-5),
+        (1, 48, 48, 2, 2, 8, True, torch.float32, 2e-5, 2e-5),
+        (1, 64, 64, 4, 2, 16, True, torch.bfloat16, 2e-2, 2e-2),
+        (1, 48, 80, 4, 2, 16, True, torch.float32, 2e-5, 2e-5),
+        (1, 100, 36, 4, 4, 16, True, torch.float32, 2e-5, 2e-5),
+        (1, 130, 130, 4, 2, 112, True, torch.float32, 2e-5, 2e-5),
+        (1, 70, 70, 2, 1, 256, False, torch.float32, 2e-5, 2e-5),
+        (1, 1024, 1024, 32, 32, 112, True, torch.float32, 1e-4, 1e-4),
+        (1, 1024, 1024, 32, 32, 112, True, torch.bfloat16, 2.0 ** -7, 1e-4)]
+    errs = {torch.float32: [], torch.bfloat16: []}
+    for b, sq, sk, h, kv, d, causal, dt, rtol, atol in cases:
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dt)
+                   for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+        scale = 1.0 / math.sqrt(d)
+        got = fa_k.flash_attention(q, k, v, scale=scale, causal=causal)
+        want = ref.flash_attention(q, k, v, scale=scale, causal=causal)
+        check(got.dtype == dt, "flash_attention keeps q's type")
+        errs[dt].append(_close(got, want, rtol, atol,
+                               f"flash_attention {(b, sq, sk, h, kv, d)} "
+                               f"causal={causal} {dt}"))
+    torch.cuda.synchronize()
+    results["flash_attention"] = {
+        "max_abs_err": max(errs[torch.float32] + errs[torch.bfloat16]),
+        "max_abs_err_f32": max(errs[torch.float32]),
+        "max_abs_err_bf16": max(errs[torch.bfloat16]),
+        "cases": len(cases)}
+
+
 def time_kernels(dev, results: dict, main_cfg) -> None:
     """Each kernel and its plain version at the main path's shapes: H = 972
     hosts (750 on), K = 64 slots, S = 2880 steps."""
@@ -440,41 +535,48 @@ def compare_backends(a: dict, b: dict, rtol: float, what: str) -> None:
               f"{what}: {k} differs: {a[k]} vs {b[k]}")
 
 
-def profile_window(tasks, hosts, cfg, dyn, ci, n_steps: int, dev) -> list:
-    """Where the time goes: each backend for the first `n_steps` steps of
-    the full-scale run under the profiler -- wall time, summed device time
+def profiled(fn, top_n: int = 8) -> dict:
+    """One call of `fn` under the profiler: wall time, summed device time
     (one stream, so it is the busy time), the idle share, and the kernels
     that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the kernels themselves (device-side events); the host ops that
+    # launched them carry the same time again
+    events = [(e.key, e.self_device_time_total, e.count)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_us = sum(t for _, t, _ in events)
+    top = sorted(events, key=lambda e: -e[1])
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "top_kernels": [{"name": k[:80], "device_ms": t / 1e3,
+                             "count": n} for k, t, n in top[:top_n]]}
+
+
+def profile_window(tasks, hosts, cfg, dyn, ci, n_steps: int, dev) -> list:
+    """Where the time goes: each backend for the first `n_steps` steps of
+    the full-scale run under the profiler (after one unprofiled run)."""
     cfg = cfg.replace(n_steps=n_steps)
     dyn = {k: (v[:n_steps] if isinstance(v, torch.Tensor) else v)
            for k, v in dyn.items()}
     rows = []
     for backend in ("stage-pipeline", "megakernel"):
         c = cfg.replace(backend=backend)
-        simulate(tasks, hosts, ci[:n_steps], c, dyn=dyn, device=dev)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            summarize(simulate(tasks, hosts, ci[:n_steps], c, dyn=dyn,
-                               device=dev)[0], c)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # the kernels themselves (device-side events); the host ops that
-        # launched them carry the same time again
-        events = [(e.key, e.self_device_time_total, e.count)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        busy_us = sum(t for _, t, _ in events)
-        top = sorted(events, key=lambda e: -e[1])
-        rows.append({"backend": backend, "n_steps": n_steps, "wall_s": wall,
-                     "device_busy_s": busy_us / 1e6,
-                     "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-                     "host_ms_per_step": wall / n_steps * 1e3,
-                     "top_kernels": [{"name": k[:80], "device_ms": t / 1e3,
-                                      "count": n} for k, t, n in top[:8]]})
+        run = lambda: summarize(simulate(  # noqa: E731
+            tasks, hosts, ci[:n_steps], c, dyn=dyn, device=dev)[0], c)
+        run()
+        row = profiled(run)
+        rows.append({"backend": backend, "n_steps": n_steps,
+                     "host_ms_per_step": row["wall_s"] / n_steps * 1e3,
+                     **row})
     return rows
 
 
@@ -515,6 +617,284 @@ def main_path(dev, scale: float, n_steps: int, n_active: int,
     return meta, results, infos
 
 
+# --------------------------------------------------------------------------
+# the serving path: zamba2-7b and mamba2-2.7b
+# --------------------------------------------------------------------------
+
+SERVE_BATCH = 2
+PREFILL_LEN = 4096           # the train_4k length
+CONTRACT_LEN = 512           # two SSD chunks
+GREEDY_TOKENS = 32
+# The decode-vs-prefill contract runs at full width in f32 with the depth
+# cut to 13 layers (two groups of six mamba layers, two shared-attention
+# sites, one trailing layer: every module and both KV caches' reuse of the
+# shared weights).  The contract holds only up to f32 rounding, which
+# random weights amplify: at all 81 layers (CONTRACT_LAYERS = 81) the last
+# logits moved by their own size, so there it cannot tell a fault from
+# rounding.  At 13 layers the limit is relative to the logits' largest
+# magnitude.  tests/test_torch_decode_contract.py measures the reference's
+# own decode-vs-prefill error and one-ulp sensitivity beside the port's, on
+# one set of weights (on the CPU; at full width when run as a script): the
+# reference's own rounding reaches a few 1e-3 of the logits' scale, below
+# this limit.
+CONTRACT_LAYERS = 13
+CONTRACT_RTOL = 5e-3
+
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one prefill: one SSD per mamba layer, one flash
+    per shared-attention site."""
+    want = {"ssd_intra_chunk": cfg.n_layers}
+    if cfg.family == "hybrid":
+        want["flash_attention"] = cfg.n_layers // cfg.attn_every
+    return want
+
+
+def check_launches(counts: dict, cfg, dev, what: str) -> None:
+    """On the card a prefill launches exactly `expected_launches`; on the
+    CPU (plain versions) nothing."""
+    want = expected_launches(cfg) if dev.type == "cuda" else {}
+    check(counts == want, f"{what}: launches {counts} != {want}")
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tokens(gen, cfg, b, s, dev):
+    return torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+
+
+def timed_prefill(model, params, tokens, dev) -> tuple:
+    """(logits, wall s, launch counts) of one prefill, counts reset just
+    before and read just after."""
+    _sync(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = model.prefill(params, {"tokens": tokens})
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    return logits, wall, counts
+
+
+def decode_contract(model, params, tokens, dev) -> dict:
+    """The serving contract: the prefill's last logits (kernels) against
+    those after one decode step per token from an empty cache (plain
+    recurrences)."""
+    full, _, counts = timed_prefill(model, params, tokens, dev)
+    check_launches(counts, model.cfg, dev, "contract prefill")
+    b, s = tokens.shape
+    cache = model.init_cache(b, s, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(s):
+        logits, cache = model.decode_step(params, cache, tokens[:, t:t + 1],
+                                          t)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    check(not any(ops.launch_counts().values()), "decode launched a kernel")
+    err = float((logits - full).abs().max())
+    tol = CONTRACT_RTOL * float(full.abs().max())
+    # argmax must agree wherever the prefill's top two are further apart
+    # than the error allowed
+    top2 = full[:, -1].topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    agree = full[:, -1].argmax(-1) == logits[:, -1].argmax(-1)
+    return {"positions": s, "max_abs_err": err, "tol": tol,
+            "max_abs_logit": float(full.abs().max()),
+            "argmax_agree": agree.tolist(), "top2_gap_decided":
+            decided.tolist(), "ok": err <= tol
+            and bool((agree | ~decided).all()),
+            "decode_ms_per_token": wall / s * 1e3}
+
+
+def cut_depth(cfg, params: dict, n_layers: int) -> tuple:
+    """(config, params) of the first `n_layers` mamba layers of the same
+    weights (views): the leading groups, their adapters and sites, and the
+    leading trailing layers for the hybrid."""
+    cut = cfg.replace(n_layers=n_layers)
+    if cfg.family == "ssm":
+        return cut, dict(params, layers=tree_map(lambda t: t[:n_layers],
+                                                  params["layers"]))
+    n_groups = n_layers // cfg.attn_every
+    trailing = n_layers - n_groups * cfg.attn_every
+    out = dict(params, groups=tree_map(lambda t: t[:n_groups],
+                                       params["groups"]),
+               adapters=tree_map(lambda t: t[:n_groups], params["adapters"]))
+    out.pop("trailing", None)
+    if trailing:
+        out["trailing"] = tree_map(lambda t: t[:trailing], params["trailing"])
+    return cut, out
+
+
+def greedy_decode(model, params, first, n: int, cache_len: int, dev) -> dict:
+    """n greedy tokens from `first` [B,1] on a cache of `cache_len`
+    positions; the tokens stay on the device (argmax feeds the next step)."""
+    cache = model.init_cache(first.shape[0], cache_len, device=dev)
+    tok, out = first, []
+    _sync(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(n):
+        logits, cache = model.decode_step(params, cache, tok, t)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    check(not any(ops.launch_counts().values()), "decode launched a kernel")
+    toks = torch.cat(out, dim=1)
+    check(toks.shape == (first.shape[0], n) and
+          bool(((toks >= 0) & (toks < model.cfg.vocab)).all()),
+          "greedy tokens out of range")
+    return {"tokens": n, "cache_len": cache_len, "wall_s": wall,
+            "ms_per_token": wall / n * 1e3}
+
+
+def serve(dev, cfg, prefill_len: int, contract_len: int, greedy: int,
+          profile: bool = False) -> tuple[dict, dict]:
+    """One model as configured: params from a seeded generator on `dev`;
+    the decode-vs-prefill contract in f32 (`contract_len` tokens on the
+    first CONTRACT_LAYERS layers, skipped at 0 tokens); a warm-up and two
+    timed prefills of SERVE_BATCH x `prefill_len` at the config's types
+    with exact launch counts; `greedy` greedy decode tokens.  Returns
+    (info, launches of the last timed prefill)."""
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(gen, device=dev)
+    _sync(dev)
+    info = {"model": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype,
+            "n_params": sum(t.numel() for t in flatten(params).values()),
+            "init_s": time.perf_counter() - t0}
+    if contract_len:
+        cfg32 = cfg.replace(compute_dtype="float32")
+        tokens = _tokens(gen, cfg, SERVE_BATCH, contract_len, dev)
+        ccfg, cut_params = cut_depth(cfg32, params, min(CONTRACT_LAYERS,
+                                                        cfg.n_layers))
+        info["contract_f32"] = dict(n_layers=ccfg.n_layers, **decode_contract(
+            get_model(ccfg), cut_params, tokens, dev))
+        check(info["contract_f32"]["ok"],
+              f"decode vs prefill: {info}")
+    cparams = model.compute_params(params)
+    tokens = _tokens(gen, cfg, SERVE_BATCH, prefill_len, dev)
+    timed_prefill(model, cparams, tokens, dev)             # warm-up
+    walls = []
+    for _ in range(2):
+        logits, wall, counts = timed_prefill(model, cparams, tokens, dev)
+        walls.append(wall)
+        check_launches(counts, cfg, dev, f"{cfg.name} prefill")
+    check(tuple(logits.shape) == (SERVE_BATCH, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"{cfg.name} prefill logits")
+    n_tok = SERVE_BATCH * prefill_len
+    info.update(prefill={"batch": SERVE_BATCH, "seq": prefill_len,
+                         "wall_s": walls,
+                         "tokens_per_s": [n_tok / w for w in walls],
+                         "launches": counts})
+    if profile:
+        info["prefill_profile"] = profiled(
+            lambda: model.prefill(cparams, {"tokens": tokens}), top_n=10)
+    if greedy:
+        info["greedy_decode"] = greedy_decode(
+            model, cparams, tokens[:, -1:], greedy, prefill_len + greedy, dev)
+    if dev.type == "cuda":
+        info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return info, counts
+
+
+def small_models_card_vs_cpu(dev) -> dict:
+    """Reduced zamba2 and mamba2 (f32) with the same weights on the card
+    (the kernels) and on the CPU (their plain versions): prefill logits of
+    2 x 64 tokens and 16 decode steps, within 1e-4; prefill launch counts
+    exact on the card."""
+    out = {}
+    for arch in ("zamba2-7b", "mamba2-2.7b"):
+        cfg = reduced(arch)
+        model = get_model(cfg)
+        p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (2, 64),
+                               generator=torch.Generator().manual_seed(1))
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            params = tree_map(lambda t: t.to(d), p_cpu)  # noqa: B023
+            tk = tokens.to(d)
+            full, _, counts = timed_prefill(model, params, tk, d)
+            check_launches(counts, cfg, d, f"small {arch}")
+            cache = model.init_cache(2, 64, device=d)
+            steps = []
+            for t in range(16):
+                lg, cache = model.decode_step(params, cache, tk[:, t:t + 1],
+                                              t)
+                steps.append(lg)
+            res[d.type] = (full.cpu(), torch.cat(steps, 1).cpu())
+        errs = [_close(g, w, 1e-4, 1e-4, f"small {arch} card vs cpu")
+                for g, w in zip(res["cuda"], res["cpu"])]
+        out[arch] = {"prefill_max_abs_err": errs[0],
+                     "decode_max_abs_err": errs[1]}
+    return out
+
+
+def time_model_kernels(dev, results: dict) -> None:
+    """Kernels 5 and 6 and their plain versions at zamba2-7b's prefill
+    shapes (B = 2, S = 4096): SSD with Q 256, H 112, P 64, G 2, N 64 in
+    f32; flash causal with H = KV = 32, D = 112 in bf16, beside one call of
+    PyTorch's scaled_dot_product_attention on the same inputs (a yardstick;
+    the port never calls it).  Bounds count what the causal triangle needs.
+    SSD: per (row, column) pair and head 2P + 3 f32 operations (the decay's
+    difference and exp, its product with the score, the output's 2P), and
+    per pair and group 2N for the score C_q . B_k, which every head of the
+    group shares.  Flash: per pair and head 4D bf16 operations.  Bytes are
+    every input read once and the output written once."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cfg = get_config("zamba2-7b")
+    s_cfg = cfg.ssm
+    b, s = SERVE_BATCH, PREFILL_LEN
+    q_len = s_cfg.chunk
+    h = s_cfg.expand * cfg.d_model // s_cfg.head_dim
+    shape = (b, s // q_len, q_len, h, s_cfg.head_dim, s_cfg.n_groups,
+             s_cfg.d_state)
+    args = _ssd_inputs(gen, shape, dev)
+    pairs = b * (s // q_len) * q_len * (q_len + 1) // 2
+    nbytes = 4 * sum(t.numel() for t in args) + 4 * args[0].numel()
+    b_ms, b_by = bound(nbytes, pairs * (h * (2 * s_cfg.head_dim + 3)
+                                        + s_cfg.n_groups * 2 * s_cfg.d_state))
+    results["ssd_intra_chunk"].update(
+        ms=time_ms(lambda: ssd_k.ssd_intra_chunk(*args)),
+        plain_ms=time_ms(lambda: ref.ssd_intra_chunk(*args)),
+        device_ms=device_ms(lambda: ssd_k.ssd_intra_chunk(*args),
+                            "ssd_intra_kernel", reps=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape={"xdt": list(args[0].shape), "b": list(args[2].shape)})
+    del args
+
+    nh, hd = cfg.n_heads, cfg.hd
+    q, k, v = (torch.randn((b, s, nh, hd), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    scale = 1.0 / math.sqrt(hd)
+    pairs = b * nh * s * (s + 1) // 2
+    b_ms, b_by = bound(4 * q.numel() * 2, pairs * 4 * hd, PEAK_BF16_OPS_S)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results["flash_attention"].update(
+        ms=time_ms(lambda: fa_k.flash_attention(q, k, v, scale=scale)),
+        plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, scale=scale)),
+        device_ms=device_ms(lambda: fa_k.flash_attention(q, k, v,
+                                                         scale=scale),
+                            "flash_kernel", reps=10),
+        library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        scale=scale, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        shape={"q": list(q.shape), "dtype": "bfloat16"})
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -522,10 +902,14 @@ def main() -> int:
                          "versions (no card, no kernels, no timings)")
     args = ap.parse_args()
     if args.device == "cpu":
-        meta, _, infos = main_path(torch.device("cpu"), 0.02, 192, 15, False)
+        cpu = torch.device("cpu")
+        meta, _, infos = main_path(cpu, 0.02, 192, 15, False)
         for info in infos:
             emit({"phase": "main", "rehearsal": True, "n_tasks":
                   meta["n_tasks"], **info})
+        for arch, contract in (("zamba2-7b", 64), ("mamba2-2.7b", 0)):
+            info, _ = serve(cpu, reduced(arch), 64, contract, 4)
+            emit({"phase": "serve", "rehearsal": True, **info})
         emit({"rehearsal": True, "ok_on_cpu": True})
         return 0
     if not torch.cuda.is_available():
@@ -552,6 +936,8 @@ def main() -> int:
     check_power_kernels(dev, kres)
     check_first_fit(dev, kres)
     check_facility_kernel(dev, kres)
+    check_ssd_kernel(dev, kres)
+    check_flash_kernel(dev, kres)
     emit({"phase": "kernels_vs_plain", "seconds": time.perf_counter() - t0,
           "results": kres})
 
@@ -579,10 +965,25 @@ def main() -> int:
     emit({"phase": "small_card_vs_cpu", "ok": True,
           "n_done": float(small["cuda"]["stage-pipeline"]["n_done"])})
 
+    # the serving path: zamba2-7b as configured (contract, prefill, greedy
+    # decode), then mamba2-2.7b's prefill; each timed prefill's launch
+    # counts are reset just before it and read just after
+    launches = {k: sum(i["launches"][k] for i in infos) for k in build.KERNELS}
+    for cfg, contract, greedy in ((get_config("zamba2-7b"), CONTRACT_LEN,
+                                   GREEDY_TOKENS),
+                                  (get_config("mamba2-2.7b"), 0, 0)):
+        info, counts = serve(dev, cfg, PREFILL_LEN, contract, greedy,
+                             profile=cfg.family == "hybrid")
+        emit({"phase": "serve", **info})
+        for k, n in counts.items():
+            launches[k] += n
+    emit({"phase": "small_models_card_vs_cpu",
+          **small_models_card_vs_cpu(dev)})
+
     main_cfg = main_config(MAIN_STEPS, meta["embodied"])
     time_kernels(dev, kres, main_cfg)
+    time_model_kernels(dev, kres)
     emit({"phase": "timing", "results": kres})
-    launches = {k: sum(i["launches"][k] for i in infos) for k in build.KERNELS}
     sources = {"fused_power_carbon": ("power_carbon.cu",
                                       "src/repro/kernels/power_carbon.py:198"),
                "fused_facility_power": ("power_carbon.cu",
@@ -590,7 +991,11 @@ def main() -> int:
                "fused_facility_totals": ("fused_step.cu",
                                          "src/repro/kernels/fused_step.py:261"),
                "first_fit_place": ("first_fit.cu",
-                                   "src/repro/kernels/first_fit.py:78")}
+                                   "src/repro/kernels/first_fit.py:78"),
+               "ssd_intra_chunk": ("ssd_chunk.cu",
+                                   "src/repro/kernels/ssd_chunk.py:64"),
+               "flash_attention": ("flash_attn.cu",
+                                   "src/repro/kernels/flash_attn.py:97")}
     rows = []
     for name in build.KERNELS:
         r = kres[name]
@@ -601,7 +1006,8 @@ def main() -> int:
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None,
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"],
                      "device_ms": r["device_ms"], "kernel_ms": r["ms"],
                      "bound_us": r["bound_ms"] * 1e3})
         check(all(math.isfinite(v) for v in (r["ms"], r["plain_ms"],

@@ -22,17 +22,20 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("power_carbon", "first_fit", "fused_step")
+SOURCES = ("power_carbon", "first_fit", "fused_step", "ssd_chunk",
+           "flash_attn")
 
 # IEEE division and sqrt (no --use_fast_math) and no contracted multiply-add,
 # so the kernels repeat their plain versions' f32 arithmetic operation for
-# operation.
+# operation; the model kernels' inner products call fmaf() where they mean
+# a fused multiply-add.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 KERNELS = ("fused_power_carbon", "fused_facility_power",
-           "fused_facility_totals", "first_fit_place")
+           "fused_facility_totals", "first_fit_place", "ssd_intra_chunk",
+           "flash_attention")
 _launches = dict.fromkeys(KERNELS, 0)
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, object] = {}

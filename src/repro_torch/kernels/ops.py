@@ -13,8 +13,10 @@ from __future__ import annotations
 
 from . import build, ref
 from . import first_fit as _first_fit
+from . import flash_attn as _flash_attn
 from . import fused_step as _fused_step
 from . import power_carbon as _power_carbon
+from . import ssd_chunk as _ssd_chunk
 
 launch_counts = build.launch_counts
 reset_launch_counts = build.reset_launch_counts
@@ -66,3 +68,17 @@ def fused_facility_totals(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
     return impl.fused_facility_totals(it_kw, ci, wet_bulb_c, price, price_lo,
                                       price_hi, pv_cf, batt_threshold,
                                       ci_rising, cfg, **kwargs)
+
+
+def ssd_intra_chunk(xdt, da, b, c):
+    """Mamba-2 SSD intra-chunk quadratic form: xdt [B,C,Q,H,P], da
+    [B,C,H,Q], b / c [B,C,Q,G,N] (H % G == 0) -> y f32 [B,C,Q,H,P]."""
+    impl = _ssd_chunk if xdt.is_cuda else ref
+    return impl.ssd_intra_chunk(xdt, da, b, c)
+
+
+def flash_attention(q, k, v, *, scale: float, causal: bool = True):
+    """Online-softmax attention: q [B,Sq,H,D], k / v [B,Sk,KV,D] -> like q
+    (causal mask top-left aligned, f32 accumulation)."""
+    impl = _flash_attn if q.is_cuda else ref
+    return impl.flash_attention(q, k, v, scale=scale, causal=causal)

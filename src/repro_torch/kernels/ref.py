@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four hand-written kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Each function computes what its kernel computes, in eager tensor ops, on
 tensors of any device: the CPU path of `kernels/ops.py` runs them, and the
@@ -9,9 +9,13 @@ card's smoke test holds each kernel against them on the same inputs.
   first_fit_place        <- csrc/first_fit.cu     steam_first_fit
   fused_facility_chain   <- csrc/fused_step.cu    steam_facility_totals
     (+ engine.facility_totals_from_flows; `fused_facility_totals` below)
+  ssd_intra_chunk        <- csrc/ssd_chunk.cu     steam_ssd_intra_chunk
+  flash_attention        <- csrc/flash_attn.cu    steam_flash_attention
+  ssd_chunk              the sequential SSD recurrence (an oracle, no kernel)
 
 Host inputs are [H] or [B, H] (one scenario per row); the per-row scalars
 (carbon intensity, wet-bulb, setpoint) are host numbers, 0-d or [B] tensors.
+The model kernels take the layouts of the reference's Pallas wrappers.
 The arithmetic is that of the reference package's oracles
 (src/repro/kernels/ref.py) and Pallas kernels, term for term in f32.
 """
@@ -198,3 +202,69 @@ def fused_facility_totals(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
                                  price_hi, pv_cf, batt_threshold, ci_rising,
                                  cfg.dt_h, cfg, **chain_kwargs)
     return facility_totals_from_flows(flows, ci, price, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the model substrate's kernels: SSD intra-chunk and flash attention
+# ---------------------------------------------------------------------------
+
+def segsum(a):
+    """a [..., Q] -> [..., Q, Q]: sums of a over (k, q] on and below the
+    diagonal (cum[q] - cum[k]), -inf above it."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_intra_chunk(xdt, da, b, c):
+    """y[q, p] = sum_{k <= q} exp(cum[q] - cum[k]) (C_q . B_k) xdt[k, p] per
+    (batch, chunk, head), in the segsum form of the reference's
+    `ssm.ssd_scan`.  xdt [B,C,Q,H,P], da [B,C,H,Q], b / c [B,C,Q,G,N]
+    with H % G == 0 -> y f32 [B,C,Q,H,P]."""
+    h, g = xdt.shape[3], b.shape[3]
+    bh = b.to(F32).repeat_interleave(h // g, dim=3)
+    ch = c.to(F32).repeat_interleave(h // g, dim=3)
+    decay = torch.exp(segsum(da.to(F32)))                    # [b,c,h,q,k]
+    cb = torch.einsum("bcqhs,bckhs->bchqk", ch, bh)
+    return torch.einsum("bchqk,bckhp->bcqhp", cb * decay, xdt.to(F32))
+
+
+def flash_attention(q, k, v, *, scale: float, causal: bool = True):
+    """Attention with the kernel's conventions: q [B,Sq,H,D], k / v
+    [B,Sk,KV,D], query head h on kv head h // (H // KV), causal mask top-left
+    aligned (column <= row), masked scores -1e30, softmax and the product
+    with v in f32, output in q's type."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.to(F32).reshape(b, sq, kvh, h // kvh, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(F32)) * scale
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        mask = torch.arange(sk, device=q.device)[None, :] <= rows
+        logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(F32))
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def ssd_chunk(x, dt, a, b, c):
+    """Mamba-2 SSD as the exact sequential state-space recurrence (the
+    reference's oracle `kernels/ref.ssd_chunk`).
+
+    x f32[T, H, P], dt f32[T, H] (> 0), a f32[H] (< 0), b / c f32[T, G, N]
+    (G groups over H heads) -> y f32[T, H, P] with y_t = C_t^T h_t,
+    h_t = exp(dt_t a) h_{t-1} + dt_t B_t x_t^T per head (state [N, P])."""
+    t, h, p = x.shape
+    rep = h // b.shape[1]
+    bh = b.repeat_interleave(rep, dim=1)                     # [T, H, N]
+    ch = c.repeat_interleave(rep, dim=1)
+    state = torch.zeros((h, b.shape[2], p), dtype=F32, device=x.device)
+    ys = []
+    for i in range(t):
+        decay = torch.exp(dt[i] * a)[:, None, None]
+        upd = (dt[i][:, None] * bh[i])[..., None] * x[i][:, None, :]
+        state = state * decay + upd
+        ys.append(torch.einsum("hn,hnp->hp", ch[i], state))
+    return torch.stack(ys)

@@ -1,0 +1,262 @@
+"""Mamba-2 (SSD: state-space duality) blocks, for mamba2-2.7b and the
+zamba2-7b hybrid backbone (the port of the reference's `models/ssm.py`).
+
+The SSD forward is the chunked dual form of the selective-state recurrence
+(Dao & Gu, arXiv:2405.21060): within a chunk the output is a masked
+quadratic ("attention-like") form, `kernels.ops.ssd_intra_chunk` (the
+kernel on the card, its segsum plain version on the CPU); across chunks a
+small recurrence carries the [H, N, P] state.  Decode is the O(1)
+recurrent form over the same parameters, in plain tensor ops.
+
+Einsum letters: b=batch, c=chunk, q/k=position-in-chunk, h=head,
+g=group, r=head-in-group, p=head-channel, s=ssm-state.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from . import layers as L
+from .config import ArchConfig
+
+F32 = torch.float32
+STATE_KEYS = ("h", "conv_x", "conv_b", "conv_c")
+
+
+def _dims(cfg: ArchConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return d_in, d_in // s.head_dim
+
+
+def ssm_block_defs(cfg: ArchConfig) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in, n_heads = _dims(cfg)
+    gn = s.n_groups * s.d_state
+    P = L.ParamDef
+    return {
+        "in_z": P((d, d_in)), "in_x": P((d, d_in)),
+        "in_b": P((d, gn)), "in_c": P((d, gn)),
+        "in_dt": P((d, n_heads)),
+        "conv_x": P((s.d_conv, d_in), scale=0.5),
+        "conv_b": P((s.d_conv, gn), scale=0.5),
+        "conv_c": P((s.d_conv, gn), scale=0.5),
+        "a_log": P((n_heads,), "zeros"),
+        "dt_bias": P((n_heads,), "zeros"),
+        "d_skip": P((n_heads,), "ones"),
+        "gate_norm": P((d_in,), "ones"),
+        "out": P((d_in, d)),
+    }
+
+
+def causal_conv(x, w):
+    """Depthwise causal conv: x [B,S,C], w [K,C] -> [B,S,C]."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i: i + x.shape[1], :] * L._c(w[i], x.dtype)
+    return out
+
+
+def conv_step(state, xt, w):
+    """Decode-time conv: state [B,K-1,C] holds the last K-1 inputs."""
+    window = torch.cat([state, xt[:, None, :]], dim=1)          # [B,K,C]
+    out = torch.einsum("bkc,kc->bc", window, L._c(w, xt.dtype))
+    return window[:, 1:], out
+
+
+# --------------------------------------------------------------------------
+# SSD chunked scan (prefill)
+# --------------------------------------------------------------------------
+
+def ssd_scan(x, dt, a, b, c, chunk: int):
+    """Chunked SSD.  x:[B,S,H,P] dt:[B,S,H] a:[H] b,c:[B,S,G,N].
+
+    Returns (y [B,S,H,P], final_state [B,H,N,P]) in x's type; the math is
+    f32.  B and C stay in their G groups (head h reads group h // (H // G))
+    and are never repeated per head.
+    """
+    bt, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} not divisible by chunk {q}")
+    nc, r = s // q, h // g
+
+    xf = x.to(F32).reshape(bt, nc, q, h, p)
+    dtf = dt.to(F32).reshape(bt, nc, q, h)
+    bg = b.to(F32).reshape(bt, nc, q, g, n)
+    cg = c.to(F32).reshape(bt, nc, q, g, n)
+
+    da_h = (dtf * a).permute(0, 1, 3, 2)          # [b,c,h,q], a < 0
+    cum = torch.cumsum(da_h, dim=-1)              # [b,c,h,q]
+    total = cum[..., -1]                          # [b,c,h]
+    xdt = xf * dtf[..., None]                     # [b,c,q,h,p]
+
+    y_intra = ops.ssd_intra_chunk(xdt, da_h, bg, cg)
+
+    # per-chunk input->state summaries
+    decay_out = torch.exp(total[..., None] - cum)                # [b,c,h,q]
+    xw = (xdt * decay_out.permute(0, 1, 3, 2)[..., None]).reshape(
+        bt, nc, q, g, r, p)
+    z_states = torch.einsum("bcqgs,bcqgrp->bcgrsp", bg, xw).reshape(
+        bt, nc, h, n, p)
+
+    # inter-chunk recurrence + state broadcast back into each chunk
+    hstate = torch.zeros((bt, h, n, p), dtype=F32, device=x.device)
+    y_inter = []
+    for i in range(nc):
+        yc = torch.einsum("bqgs,bgrsp->bqgrp", cg[:, i],
+                          hstate.reshape(bt, g, r, n, p)).reshape(bt, q, h, p)
+        y_inter.append(yc * torch.exp(cum[:, i]).permute(0, 2, 1)[..., None])
+        hstate = (hstate * torch.exp(total[:, i])[..., None, None]
+                  + z_states[:, i])
+    y = y_intra + torch.stack(y_inter, dim=1)
+    return y.reshape(bt, s, h, p).to(x.dtype), hstate.to(x.dtype)
+
+
+def ssd_step(hstate, xt, dtt, a, bt_, ct):
+    """O(1) decode recurrence.  hstate:[B,H,N,P] xt:[B,H,P] dtt:[B,H]
+    bt_/ct:[B,G,N] -> (new_state, y [B,H,P])."""
+    h, g = xt.shape[1], bt_.shape[1]
+    bh = bt_.repeat_interleave(h // g, dim=1).to(F32)             # [B,H,N]
+    chh = ct.repeat_interleave(h // g, dim=1).to(F32)
+    dtf = dtt.to(F32)
+    decay = torch.exp(dtf * a)[..., None, None]                   # [B,H,1,1]
+    upd = (dtf[..., None] * bh)[..., None] * xt.to(F32)[:, :, None, :]
+    hstate = hstate.to(F32) * decay + upd
+    y = torch.einsum("bhs,bhsp->bhp", chh, hstate)
+    return hstate.to(xt.dtype), y.to(xt.dtype)
+
+
+# --------------------------------------------------------------------------
+# mamba2 block
+# --------------------------------------------------------------------------
+
+def _block_inputs(cfg: ArchConfig, p: dict, u):
+    """Shared projections for prefill and decode."""
+    cdt = L.dtype_of(cfg.compute_dtype)
+    return tuple(u @ L._c(p[k], cdt)
+                 for k in ("in_z", "in_x", "in_b", "in_c", "in_dt"))
+
+
+def _gated_out(cfg: ArchConfig, p: dict, y, z):
+    y = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    return y @ L._c(p["out"], y.dtype)
+
+
+def mamba2_block(cfg: ArchConfig, p: dict, u):
+    """u: [B,S,D] -> [B,S,D] (prefill path)."""
+    s_cfg = cfg.ssm
+    d_in, n_heads = _dims(cfg)
+    z, x, braw, craw, dtraw = _block_inputs(cfg, p, u)
+    x = F.silu(causal_conv(x, p["conv_x"]))
+    braw = F.silu(causal_conv(braw, p["conv_b"]))
+    craw = F.silu(causal_conv(craw, p["conv_c"]))
+
+    bsz, s, _ = u.shape
+    xh = x.reshape(bsz, s, n_heads, s_cfg.head_dim)
+    bmat = braw.reshape(bsz, s, s_cfg.n_groups, s_cfg.d_state)
+    cmat = craw.reshape(bsz, s, s_cfg.n_groups, s_cfg.d_state)
+    dt = F.softplus(dtraw.to(F32) + p["dt_bias"].to(F32))
+    a = -torch.exp(p["a_log"].to(F32))
+
+    y, _ = ssd_scan(xh, dt, a, bmat, cmat, s_cfg.chunk)
+    y = y + xh * L._c(p["d_skip"], xh.dtype)[None, None, :, None]
+    return _gated_out(cfg, p, y.reshape(bsz, s, d_in), z)
+
+
+def mamba2_block_decode(cfg: ArchConfig, p: dict, u, state: dict):
+    """u: [B,1,D]; state = {"h":[B,H,N,P], "conv_x/b/c": [B,K-1,*]}.
+    Returns (out, new state) without touching `state`."""
+    s_cfg = cfg.ssm
+    d_in, n_heads = _dims(cfg)
+    z, x, braw, craw, dtraw = _block_inputs(cfg, p, u)
+    cx, x1 = conv_step(state["conv_x"], x[:, 0], p["conv_x"])
+    cb, b1 = conv_step(state["conv_b"], braw[:, 0], p["conv_b"])
+    cc, c1 = conv_step(state["conv_c"], craw[:, 0], p["conv_c"])
+    x1, b1, c1 = F.silu(x1), F.silu(b1), F.silu(c1)
+
+    bsz = u.shape[0]
+    xh = x1.reshape(bsz, n_heads, s_cfg.head_dim)
+    bmat = b1.reshape(bsz, s_cfg.n_groups, s_cfg.d_state)
+    cmat = c1.reshape(bsz, s_cfg.n_groups, s_cfg.d_state)
+    dt = F.softplus(dtraw[:, 0].to(F32) + p["dt_bias"].to(F32))
+    a = -torch.exp(p["a_log"].to(F32))
+    hstate, y = ssd_step(state["h"], xh, dt, a, bmat, cmat)
+    y = y + xh * L._c(p["d_skip"], xh.dtype)[None, :, None]
+    out = _gated_out(cfg, p, y.reshape(bsz, 1, d_in), z)
+    return out, {"h": hstate, "conv_x": cx, "conv_b": cb, "conv_c": cc}
+
+
+def mamba_layer_decode(cfg: ArchConfig, lp: dict, x, cache: dict, i: int):
+    """One residual mamba layer of a decode step; writes layer i of the
+    stacked `cache` leaves in place."""
+    h = L.apply_norm(cfg, lp["ln"], x)
+    out, st = mamba2_block_decode(cfg, lp["mix"], h,
+                                  {k: cache[k][i] for k in STATE_KEYS})
+    for k in STATE_KEYS:
+        cache[k][i].copy_(st[k])
+    return x + out
+
+
+# --------------------------------------------------------------------------
+# full mamba2 LM
+# --------------------------------------------------------------------------
+
+def ssm_model_defs(cfg: ArchConfig) -> dict:
+    return {"embed": L.embed_defs(cfg),
+            "layers": L.stack_defs(
+                {"ln": L.norm_defs(cfg), "mix": ssm_block_defs(cfg)},
+                cfg.n_layers),
+            "ln_f": L.norm_defs(cfg)}
+
+
+def mamba_stack(cfg: ArchConfig, lps: dict, x, n: int):
+    """n residual mamba layers, stacked on the leading axis of `lps`."""
+    for i in range(n):
+        lp = L.layer(lps, i)
+        x = x + mamba2_block(cfg, lp["mix"], L.apply_norm(cfg, lp["ln"], x))
+    return x
+
+
+def ssm_logits(cfg: ArchConfig, params: dict, tokens,
+               last_only: bool = False):
+    x = L.embed(cfg, params["embed"], tokens)
+    x = mamba_stack(cfg, params["layers"], x, cfg.n_layers)
+    x = L.apply_norm(cfg, params["ln_f"], x)
+    if last_only:
+        x = x[:, -1:]
+    return L.logits_out(cfg, params["embed"], x)
+
+
+def ssm_state_shape(cfg: ArchConfig, batch: int, seq: int) -> dict:
+    """Decode state: O(1) in seq.  seq is unused but kept in the signature
+    so all families share the cache API."""
+    s = cfg.ssm
+    d_in, n_heads = _dims(cfg)
+    dt = L.dtype_of(cfg.compute_dtype)
+    gn = s.n_groups * s.d_state
+    nl = cfg.n_layers
+    T = L.TensorSpec
+    return {
+        "h": T((nl, batch, n_heads, s.d_state, s.head_dim), dt),
+        "conv_x": T((nl, batch, s.d_conv - 1, d_in), dt),
+        "conv_b": T((nl, batch, s.d_conv - 1, gn), dt),
+        "conv_c": T((nl, batch, s.d_conv - 1, gn), dt),
+    }
+
+
+def ssm_decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens,
+                    pos: int):
+    """One token per row: (logits [B,1,V], cache), the cache written in
+    place.  The recurrent state is position-free, so `pos` is unused."""
+    del pos
+    x = L.embed(cfg, params["embed"], tokens)
+    for i in range(cfg.n_layers):
+        x = mamba_layer_decode(cfg, L.layer(params["layers"], i), x, cache, i)
+    x = L.apply_norm(cfg, params["ln_f"], x)
+    return L.logits_out(cfg, params["embed"], x), cache

@@ -11,7 +11,8 @@ tests/conftest.py imports JAX):
 Each kernel meets its plain version (repro_torch/kernels/ref.py, held to the
 reference package by the CPU tests) on the same CUDA inputs, at the CPU
 tests' tolerances; a whole simulation on the card meets the same one on the
-CPU, with exact launch counts.
+CPU, with exact launch counts; a reduced zamba2 / mamba2 prefill launches
+exactly its SSD and flash kernels, and serving never waits for the card.
 """
 from __future__ import annotations
 
@@ -191,3 +192,107 @@ def test_step_loop_never_waits_for_the_card(cuda_device, backend):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert float(P.summarize(final, cfg).n_done) > 0
+
+
+# ---------------------------------------------------------------------------
+# the model substrate: SSD intra-chunk and flash attention kernels, serving
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(shape, seed, dev):
+    bt, nc, q, h, p, g, n = shape
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32),  # noqa: E731
+                                 device=dev)
+    return (mk(bt, nc, q, h, p) * 0.3, -mk(bt, nc, h, q).abs() * 0.2,
+            mk(bt, nc, q, g, n) * 0.3, mk(bt, nc, q, g, n) * 0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 2, 16, 4, 8, 1, 8), (2, 4, 32, 8, 16, 2, 16),    # reference tests
+    (1, 1, 64, 16, 32, 4, 32), (1, 2, 256, 8, 64, 2, 64),  # zamba2-like
+    (1, 1, 256, 4, 64, 1, 128),                           # mamba2-like
+    (2, 1, 48, 6, 80, 3, 40)])                 # ragged q, p and n tiles
+def test_ssd_kernel_matches_plain(cuda_device, shape):
+    from repro_torch.kernels import ssd_chunk
+    args = _ssd_inputs(shape, sum(shape), cuda_device)
+    got = ssd_chunk.ssd_intra_chunk(*args)
+    want = ref.ssd_intra_chunk(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    # no later position reaches an earlier one: masked terms are exact zeros
+    xdt = args[0].clone()
+    xdt[:, :, shape[2] // 2:] = 1e30
+    late = ssd_chunk.ssd_intra_chunk(xdt, *args[1:])
+    assert torch.equal(late[:, :, :shape[2] // 2], got[:, :, :shape[2] // 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (2, 64, 64, 4, 2, 16, True), (1, 128, 128, 8, 8, 32, True),
+    (2, 32, 96, 4, 1, 16, False), (1, 48, 48, 2, 2, 8, True),
+    (1, 48, 80, 4, 2, 16, True), (1, 100, 36, 4, 4, 16, True),
+    (1, 130, 130, 2, 2, 112, True), (1, 70, 70, 2, 1, 256, False)])
+def test_flash_kernel_matches_plain(cuda_device, dtype, tol, b, sq, sk, h,
+                                    kv, d, causal):
+    from repro_torch.kernels import flash_attn
+    g = torch.Generator(device=cuda_device).manual_seed(sq * sk + d)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(dtype)
+               for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    got = flash_attn.flash_attention(q, k, v, scale=0.35, causal=causal)
+    want = ref.flash_attention(q, k, v, scale=0.35, causal=causal)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _reduced_model(arch_id, dev):
+    from repro_torch.configs import reduced
+    from repro_torch.models import get_model
+    model = get_model(reduced(arch_id))
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    tokens = torch.tensor(np.random.default_rng(1).integers(
+        0, model.cfg.vocab, (2, 64)), device=dev)
+    return model, params, tokens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id,want", [
+    ("zamba2-7b", {"ssd_intra_chunk": 7, "flash_attention": 2}),
+    ("mamba2-2.7b", {"ssd_intra_chunk": 2})])
+def test_prefill_launch_counts_are_exact(cuda_device, arch_id, want):
+    """One SSD launch per mamba layer and one flash launch per shared
+    attention site; decode launches none (plain recurrences)."""
+    model, params, tokens = _reduced_model(arch_id, cuda_device)
+    ops.reset_launch_counts()
+    logits = model.prefill(params, {"tokens": tokens})
+    assert {k: v for k, v in ops.launch_counts().items() if v} == want
+    assert bool(torch.isfinite(logits).all())
+    cache = model.init_cache(2, 64, device=cuda_device)
+    ops.reset_launch_counts()
+    model.decode_step(params, cache, tokens[:, :1], 0)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["zamba2-7b", "mamba2-2.7b"])
+def test_serving_never_waits_for_the_card(cuda_device, arch_id):
+    """Prefill and greedy decode enqueue work and never read a value back:
+    PyTorch's sync debug mode raises on any operation that would make the
+    host wait for the device.  Greedy tokens stay on the card."""
+    from repro_torch.kernels import build
+    model, params, tokens = _reduced_model(arch_id, cuda_device)
+    cache = model.init_cache(2, 64, device=cuda_device)
+    build.build_all()  # the first use builds and loads: not a device wait
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = model.prefill(params, {"tokens": tokens})
+        tok = tokens[:, :1]
+        for t in range(8):
+            step, cache = model.decode_step(params, cache, tok, t)
+            tok = step[:, -1].argmax(-1, keepdim=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all()) and tok.shape == (2, 1)
