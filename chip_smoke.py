@@ -28,13 +28,17 @@ Phases, each printing one JSON line:
                  warm-up and two timed prefills of 2 x 4096 tokens with
                  exactly 81 SSD and 13 flash launches, a profile of one
                  prefill, and 32 greedy decode tokens; then mamba2-2.7b's
-                 prefill of 2 x 4096 tokens with exactly 64 SSD launches.
+                 prefill of 2 x 4096 tokens with exactly 64 SSD launches
+                 and a profile of it.
   7. small models -- reduced zamba2 and mamba2 on the card and on the CPU:
                  prefill logits and 16 decode steps within 1e-4.
   8. timing   -- each kernel beside its plain version (CUDA events) at the
                  main paths' shapes, its device time (profiler), its bound,
                  and for flash attention one call of PyTorch's
-                 scaled_dot_product_attention as a yardstick.
+                 scaled_dot_product_attention as a yardstick; first-fit's
+                 latency bound (the least dependent chain of its K
+                 placements) and the model kernels' bounds at their
+                 tensor-core rates.
 
 Then the `kernels` summary line, the nvidia-smi line, and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises: no phase is caught,
@@ -74,10 +78,16 @@ from repro_torch.models.layers import flatten, tree_map  # noqa: E402
 from repro_torch.workloads import make_workload  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) op/s
-# and bf16 tensor-core op/s (dense)
+# and bf16 and TF32 tensor-core op/s (dense)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_BF16_OPS_S = 989e12
+PEAK_TF32_OPS_S = 495e12
+# the least latency of one dependent arithmetic instruction (the CUDA C++
+# Programming Guide's "about 4 clock cycles", compute capability 7.x on)
+# and the H100 SXM's highest SM clock (NVIDIA data sheet: 1980 MHz)
+DEP_CYCLES = 4
+MAX_SM_HZ = 1.98e9
 DT_H = 0.25
 MAIN_STEPS = 2880            # 30 days at 15 minutes
 MARCONI_ACTIVE = 750         # the published Marconi optimum (of 972 hosts)
@@ -365,21 +375,33 @@ def check_ssd_kernel(dev, results: dict) -> None:
     (B and C per head, G = H, and per group), ragged tiles, and the main
     path's shapes at B = 1, S = 1024 (zamba2: H 112, P 64, G 2, N 64;
     mamba2: H 80, P 64, G 1, N 128; Q 256), there with a slow decay
-    (|da| ~ 0.04) so every position sums all earlier ones of its chunk.
-    rtol / atol 1e-4 throughout: the two sum the same f32 products in
-    another order, over at most Q x N terms."""
+    (|da| ~ 0.04) so every position sums all earlier ones of its chunk;
+    slabs of R heads sharing a group's scores where R does not divide the
+    group (66 rows of 7 heads a group: R 6, slabs of 6 and 1; zamba2's
+    widths at B = 1, S = 4096: R 6, slabs of 6 and a last 2), a chunk
+    longer than the four shared score tiles (Q 320), P and N off the
+    16-byte rows (padded by the wrapper), and zamba2's whole prefill shape
+    (B 2, S 4096, R 8).  rtol / atol 1e-4 throughout: the two sum the same
+    f32 products (3xTF32 on the card) in another order, over at most Q x N
+    terms."""
     gen = torch.Generator(device=dev).manual_seed(5)
     errs = []
     cases = [((1, 2, 16, 4, 8, 4, 8), 0.2), ((2, 4, 32, 8, 16, 8, 16), 0.2),
              ((1, 1, 64, 16, 32, 16, 32), 0.2), ((2, 4, 32, 8, 16, 2, 16), 0.2),
              ((2, 1, 48, 6, 80, 3, 40), 0.2),
              ((1, 4, 256, 112, 64, 2, 64), 0.05),
-             ((1, 4, 256, 80, 64, 1, 128), 0.05)]
+             ((1, 4, 256, 80, 64, 1, 128), 0.05),
+             ((1, 66, 32, 14, 16, 2, 16), 0.2),
+             ((1, 16, 256, 112, 64, 2, 64), 0.05),
+             ((2, 1, 320, 6, 32, 2, 16), 0.05),
+             ((1, 2, 40, 4, 6, 2, 10), 0.2),
+             ((2, 16, 256, 112, 64, 2, 64), 0.2)]
     for shape, decay in cases:
         args = _ssd_inputs(gen, shape, dev, decay)
         got = ssd_k.ssd_intra_chunk(*args)
         want = ref.ssd_intra_chunk(*args)
         errs.append(_close(got, want, 1e-4, 1e-4, f"ssd_intra_chunk {shape}"))
+        del args, got, want
     torch.cuda.synchronize()
     results["ssd_intra_chunk"] = {"max_abs_err": max(errs),
                                   "cases": len(errs)}
@@ -393,7 +415,11 @@ def check_flash_kernel(dev, results: dict) -> None:
     rescaled through 16 online-softmax steps) and in bf16 element by element
     within one bf16 ulp (2^-7 of the value; both sides round an f32 result
     once) plus that f32 1e-4, since late rows average hundreds of values
-    and come out far below the 2e-2 of the small shapes."""
+    and come out far below the 2e-2 of the small shapes.  bf16 runs on the
+    tensor-core kernel, f32 on the CUDA-core one: bf16 also at D = 8, 64,
+    128 and 256 (GQA, Sq != Sk, ragged), a head dim off the 16-byte rows
+    (D 36, padded by the wrapper), and zamba2's whole prefill shape (B 2,
+    S 4096) under the S = 1024 rule."""
     gen = torch.Generator(device=dev).manual_seed(6)
     cases = [  # (b, sq, sk, h, kv, d, causal, dtype, rtol, atol)
         (2, 64, 64, 4, 2, 16, True, torch.float32, 2e-5, 2e-5),
@@ -406,7 +432,17 @@ def check_flash_kernel(dev, results: dict) -> None:
         (1, 130, 130, 4, 2, 112, True, torch.float32, 2e-5, 2e-5),
         (1, 70, 70, 2, 1, 256, False, torch.float32, 2e-5, 2e-5),
         (1, 1024, 1024, 32, 32, 112, True, torch.float32, 1e-4, 1e-4),
-        (1, 1024, 1024, 32, 32, 112, True, torch.bfloat16, 2.0 ** -7, 1e-4)]
+        (1, 1024, 1024, 32, 32, 112, True, torch.bfloat16, 2.0 ** -7, 1e-4),
+        (2, 32, 96, 4, 1, 16, False, torch.bfloat16, 2e-2, 2e-2),
+        (1, 48, 80, 4, 2, 16, True, torch.bfloat16, 2e-2, 2e-2),
+        (1, 100, 36, 4, 4, 16, True, torch.bfloat16, 2e-2, 2e-2),
+        (1, 48, 72, 4, 2, 8, True, torch.bfloat16, 2e-2, 2e-2),
+        (2, 200, 130, 8, 2, 64, True, torch.bfloat16, 2e-2, 2e-2),
+        (1, 130, 300, 4, 1, 128, False, torch.bfloat16, 2e-2, 2e-2),
+        (1, 130, 130, 2, 2, 112, True, torch.bfloat16, 2e-2, 2e-2),
+        (1, 90, 150, 4, 2, 256, True, torch.bfloat16, 2e-2, 2e-2),
+        (1, 70, 70, 2, 1, 36, True, torch.bfloat16, 2e-2, 2e-2),
+        (2, 4096, 4096, 32, 32, 112, True, torch.bfloat16, 2.0 ** -7, 1e-4)]
     errs = {torch.float32: [], torch.bfloat16: []}
     for b, sq, sk, h, kv, d, causal, dt, rtol, atol in cases:
         q, k, v = (torch.randn(s, generator=gen, device=dev).to(dt)
@@ -418,6 +454,8 @@ def check_flash_kernel(dev, results: dict) -> None:
         errs[dt].append(_close(got, want, rtol, atol,
                                f"flash_attention {(b, sq, sk, h, kv, d)} "
                                f"causal={causal} {dt}"))
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     results["flash_attention"] = {
         "max_abs_err": max(errs[torch.float32] + errs[torch.bfloat16]),
@@ -470,6 +508,18 @@ def time_kernels(dev, results: dict, main_cfg) -> None:
         lambda: ff_k.first_fit_place(cc, cg, fc, fg),
         lambda: ref.first_fit_place(cc, cg, fc, fg),
         8 * k + 8 * h + 4 * k + 8 * h, 2 * k * h, "first_fit_kernel")
+    # its latency bound, for any design: the K live placements are a chain
+    # (each reads the free capacity the last one wrote).  Even with the H
+    # hosts' free values in the registers of one warp, a placement needs a
+    # subtraction (the last placement's update), a fused two-sided compare,
+    # a min over the ceil(H / 32) hosts a lane holds (a tree of
+    # ceil(log2) levels), one warp-wide min (`redux.sync`, one instruction)
+    # and a select, each waiting on the one before
+    levels = 1 + 1 + math.ceil(math.log2(math.ceil(h / 32))) + 1 + 1
+    chain_cycles = k * levels * DEP_CYCLES
+    results["first_fit_place"].update(
+        latency_levels=k * levels, latency_cycles=chain_cycles,
+        latency_bound_ms=chain_cycles / MAX_SM_HZ * 1e3)
     # kernel 3 on the main path's configuration and traces; per step ~33
     # bytes in (it, 4 f32 traces, threshold, rising, 2 price bands) and
     # ~100 f32 ops
@@ -535,10 +585,11 @@ def compare_backends(a: dict, b: dict, rtol: float, what: str) -> None:
               f"{what}: {k} differs: {a[k]} vs {b[k]}")
 
 
-def profiled(fn, top_n: int = 8) -> dict:
+def profiled(fn, top_n: int = 8, watch: tuple = ()) -> dict:
     """One call of `fn` under the profiler: wall time, summed device time
-    (one stream, so it is the busy time), the idle share, and the kernels
-    that took the most device time."""
+    (one stream, so it is the busy time), the idle share, the kernels that
+    took the most device time, and every kernel whose name holds one of
+    `watch`, wherever it ranks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -558,7 +609,10 @@ def profiled(fn, top_n: int = 8) -> dict:
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "top_kernels": [{"name": k[:80], "device_ms": t / 1e3,
-                             "count": n} for k, t, n in top[:top_n]]}
+                             "count": n} for k, t, n in top[:top_n]],
+            "watched_kernels": [{"name": k[:80], "device_ms": t / 1e3,
+                                 "count": n} for k, t, n in top
+                                if any(w in k for w in watch)]}
 
 
 def profile_window(tasks, hosts, cfg, dyn, ci, n_steps: int, dev) -> list:
@@ -800,7 +854,8 @@ def serve(dev, cfg, prefill_len: int, contract_len: int, greedy: int,
                          "launches": counts})
     if profile:
         info["prefill_profile"] = profiled(
-            lambda: model.prefill(cparams, {"tokens": tokens}), top_n=10)
+            lambda: model.prefill(cparams, {"tokens": tokens}), top_n=10,
+            watch=("ssd_intra_kernel", "flash_tc_kernel"))
     if greedy:
         info["greedy_decode"] = greedy_decode(
             model, cparams, tokens[:, -1:], greedy, prefill_len + greedy, dev)
@@ -863,9 +918,14 @@ def time_model_kernels(dev, results: dict) -> None:
     args = _ssd_inputs(gen, shape, dev)
     pairs = b * (s // q_len) * q_len * (q_len + 1) // 2
     nbytes = 4 * sum(t.numel() for t in args) + 4 * args[0].numel()
-    b_ms, b_by = bound(nbytes, pairs * (h * (2 * s_cfg.head_dim + 3)
-                                        + s_cfg.n_groups * 2 * s_cfg.d_state))
+    products = pairs * (h * 2 * s_cfg.head_dim
+                        + s_cfg.n_groups * 2 * s_cfg.d_state)
+    b_ms, b_by = bound(nbytes, products + pairs * h * 3)
+    tc_ms, tc_by = bound(nbytes, 3 * products, PEAK_TF32_OPS_S)
     results["ssd_intra_chunk"].update(
+        bound_tf32_ms=tc_ms, bound_tf32_by=tc_by,
+        slab=ssd_k.slab_heads(shape[0] * shape[1], shape[5],
+                              shape[3] // shape[5]),
         ms=time_ms(lambda: ssd_k.ssd_intra_chunk(*args)),
         plain_ms=time_ms(lambda: ref.ssd_intra_chunk(*args)),
         device_ms=device_ms(lambda: ssd_k.ssd_intra_chunk(*args),
@@ -880,6 +940,9 @@ def time_model_kernels(dev, results: dict) -> None:
     scale = 1.0 / math.sqrt(hd)
     pairs = b * nh * s * (s + 1) // 2
     b_ms, b_by = bound(4 * q.numel() * 2, pairs * 4 * hd, PEAK_BF16_OPS_S)
+    hl_ms, hl_by = bound(4 * q.numel() * 2, pairs * 6 * hd, PEAK_BF16_OPS_S)
+    results["flash_attention"].update(bound_hilo_ms=hl_ms,
+                                      bound_hilo_by=hl_by)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results["flash_attention"].update(
@@ -887,7 +950,7 @@ def time_model_kernels(dev, results: dict) -> None:
         plain_ms=time_ms(lambda: ref.flash_attention(q, k, v, scale=scale)),
         device_ms=device_ms(lambda: fa_k.flash_attention(q, k, v,
                                                          scale=scale),
-                            "flash_kernel", reps=10),
+                            "flash_tc_kernel", reps=10),
         library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                         scale=scale, enable_gqa=True)),
         bound_ms=b_ms, bound_by=b_by,
@@ -973,7 +1036,7 @@ def main() -> int:
                                    GREEDY_TOKENS),
                                   (get_config("mamba2-2.7b"), 0, 0)):
         info, counts = serve(dev, cfg, PREFILL_LEN, contract, greedy,
-                             profile=cfg.family == "hybrid")
+                             profile=True)
         emit({"phase": "serve", **info})
         for k, n in counts.items():
             launches[k] += n

@@ -95,8 +95,10 @@ def build_all(names=SOURCES) -> dict[str, dict]:
         os.replace(tmp, out)  # atomic: a concurrent build sees whole files
         report[n] = {"seconds": time.perf_counter() - t0, "path": str(out),
                      "ptxas": [ln.strip() for ln in log.splitlines()
-                               if "ptxas" in ln and ("Used" in ln
-                                                     or "Compiling" in ln)]}
+                               if "ptxas" in ln and any(
+                                   w in ln for w in ("Used", "Compiling",
+                                                     "spill", "Performance",
+                                                     "warning"))]}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report
@@ -138,6 +140,12 @@ def check(name: str, what: str, code: int) -> None:
 def ptr(t) -> ctypes.c_void_p:
     """Device pointer of a tensor as a ctypes argument."""
     return ctypes.c_void_p(t.data_ptr())
+
+
+def aligned(t):
+    """t, or a fresh copy of it if its data does not start on 16 bytes (the
+    model kernels copy 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -227,6 +227,27 @@ def test_ssd_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 66, 16, 14, 16, 2, 16),    # R 6 of 7 heads a group: slabs 6, 1
+    (2, 1, 320, 6, 32, 2, 16),     # Q > 256: two score segments
+    (1, 2, 40, 4, 6, 2, 10),       # P, N off 16-byte rows (padded)
+    (2, 66, 16, 16, 16, 2, 16)])   # R 8: one slab a group
+def test_ssd_kernel_slabs_match_plain(cuda_device, shape):
+    """Slabs of R heads (the wrapper's `slab_heads`) share a group's score
+    tiles: a last slab with fewer heads, chunks longer than the shared
+    tiles, padded rows; masked terms stay exact zeros."""
+    from repro_torch.kernels import ssd_chunk
+    args = _ssd_inputs(shape, sum(shape), cuda_device)
+    got = ssd_chunk.ssd_intra_chunk(*args)
+    want = ref.ssd_intra_chunk(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    xdt = args[0].clone()
+    xdt[:, :, shape[2] // 2:] = 1e30
+    late = ssd_chunk.ssd_intra_chunk(xdt, *args[1:])
+    assert torch.equal(late[:, :, :shape[2] // 2], got[:, :, :shape[2] // 2])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
@@ -244,6 +265,29 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, tol, b, sq, sk, h,
     want = ref.flash_attention(q, k, v, scale=0.35, causal=causal)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (1, 48, 72, 4, 2, 8, True), (2, 200, 130, 8, 2, 64, True),
+    (1, 130, 300, 4, 1, 128, False), (1, 90, 150, 4, 2, 256, True),
+    (2, 150, 90, 4, 2, 64, True), (1, 70, 70, 2, 1, 36, True)])
+def test_flash_tensor_core_kernel_matches_plain(cuda_device, b, sq, sk, h,
+                                                kv, d, causal):
+    """bf16 runs on the wgmma kernel: head dims 8 to 256 (36 padded by the
+    wrapper), GQA with Sq != Sk both ways, ragged tiles; one launch."""
+    from repro_torch.kernels import flash_attn
+    g = torch.Generator(device=cuda_device).manual_seed(sq * sk + d)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(
+        torch.bfloat16) for s in ((b, sq, h, d), (b, sk, kv, d),
+                                  (b, sk, kv, d)))
+    ops.reset_launch_counts()
+    got = flash_attn.flash_attention(q, k, v, scale=0.35, causal=causal)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention(q, k, v, scale=0.35, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 def _reduced_model(arch_id, dev):

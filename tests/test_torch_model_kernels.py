@@ -12,7 +12,9 @@ shapes of tests/test_kernels.py:
   * the sequential SSD oracle `ssd_chunk`: 1e-5 against the reference's.
 
 tests/test_torch_card.py and chip_smoke.py hold each hand-written kernel to
-its plain version on the card.
+its plain version on the card.  The shape choices the kernels' wrappers make
+in Python (the SSD kernel's slab of heads per block, the flash kernel's
+padded head dim) are checked here, on the CPU.
 """
 from __future__ import annotations
 
@@ -141,3 +143,38 @@ def test_model_kernels_take_the_plain_path_on_the_cpu():
     q = torch.zeros((1, 8, 2, 8))
     ops.flash_attention(q, q, q, scale=1.0)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+@pytest.mark.parametrize("rows,groups,rep,want", [
+    (32, 2, 56, 8),     # zamba2-7b, 2 x 4096 tokens: 448 blocks
+    (32, 1, 80, 8),     # mamba2-2.7b: 320 blocks
+    (4, 2, 56, 1),      # 1 x 1024 tokens: no slab fills 264 blocks
+    (16, 2, 56, 6),     # 16 x 2 x 10 = 320 >= 264; R = 7 gives 256
+    (1000, 1, 3, 3),    # never more than a group holds
+    (1, 1, 1, 1)])
+def test_ssd_slab_heads(rows, groups, rep, want):
+    from repro_torch.kernels.ssd_chunk import MAX_SLAB, slab_heads
+    r = slab_heads(rows, groups, rep)
+    assert r == want
+
+    def blocks(x):
+        return rows * groups * -(-rep // x)
+    # the most heads, up to MAX_SLAB, that still give 132 SMs two blocks
+    assert 1 <= r <= min(MAX_SLAB, rep)
+    assert r == 1 or blocks(r) >= 2 * 132
+    assert r == min(MAX_SLAB, rep) or blocks(r + 1) < 2 * 132
+
+
+@pytest.mark.parametrize("d,want", [(8, (8, 16)), (16, (16, 16)),
+                                    (36, (40, 48)), (64, (64, 64)),
+                                    (112, (112, 112)), (120, (120, 128)),
+                                    (250, (256, 256)), (256, (256, 256))])
+def test_flash_padded_head_dim(d, want):
+    """The bf16 kernel reads rows of d8 (a multiple of 8: 16-byte copies)
+    and tiles dp (a multiple of 16: wgmma's reduction depth) columns;
+    zamba2's 112 needs no padding at all."""
+    from repro_torch.kernels.flash_attn import padded_head_dim
+    d8, dp = padded_head_dim(d)
+    assert (d8, dp) == want
+    assert d8 % 8 == 0 and d <= d8 < d + 8
+    assert dp % 16 == 0 and d8 <= dp < d + 16
