@@ -9,8 +9,11 @@ Phases, each printing one JSON line:
   1. device   -- the card's name and power limit (nvidia-smi, torch).
   2. build    -- the six hand-written kernels built from
                  src/repro_torch/kernels/csrc/ (one nvcc per source, all at
-                 once) into src/repro_torch/kernels/_build/; seconds and
-                 the ptxas register / shared-memory lines.
+                 once) into src/repro_torch/kernels/_build/; seconds, the
+                 ptxas register / shared-memory / spill lines, and the
+                 registers, stack and spill bytes of first-fit's warp
+                 variant (which must keep its arrays in registers) and of
+                 facility power.
   3. kernels  -- each kernel against its plain PyTorch version
                  (kernels/ref.py) on the card, at the main paths' shapes and
                  around them, at the tolerances of the CPU tests.
@@ -37,8 +40,10 @@ Phases, each printing one JSON line:
                  and for flash attention one call of PyTorch's
                  scaled_dot_product_attention as a yardstick; first-fit's
                  latency bound (the least dependent chain of its K
-                 placements) and the model kernels' bounds at their
-                 tensor-core rates.
+                 placements), the model kernels' bounds at their
+                 tensor-core rates, and the launch floor: the device time
+                 of an empty kernel on first-fit's and facility power's
+                 grids, launched through the same ctypes path.
 
 Then the `kernels` summary line, the nvidia-smi line, and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises: no phase is caught,
@@ -131,21 +136,26 @@ def time_ms(fn, budget_s: float = 0.5) -> float:
 
 def device_ms(fn, kernel_name: str, reps: int = 50):
     """Mean device time per launch of the kernel whose name contains
-    `kernel_name`, from the profiler's CUDA activity (no host gaps)."""
+    `kernel_name`, from the profiler's CUDA activity (no host gaps).  A
+    profile that recorded none of its launches (it happens to very short
+    kernels now and then) is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, calls = 0.0, 0
-    for e in prof.key_averages():
-        if kernel_name in e.key:
-            total_us += getattr(e, "device_time_total",
-                                getattr(e, "cuda_time_total", 0.0))
-            calls += e.count
-    return total_us / calls / 1000.0 if calls else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, calls = 0.0, 0
+        for e in prof.key_averages():
+            if kernel_name in e.key:
+                total_us += getattr(e, "device_time_total",
+                                    getattr(e, "cuda_time_total", 0.0))
+                calls += e.count
+        if calls:
+            return total_us / calls / 1000.0
+    return None
 
 
 def bound(nbytes: float, nops: float,
@@ -179,12 +189,14 @@ def _close(got, want, rtol, atol, what) -> float:
 
 
 def check_power_kernels(dev, results: dict) -> None:
-    """Kernels 1 and 2 at H in {7, 972, 1000, 2048}, every curve pair, one
-    and four scenario rows; per-host rtol 1e-5 atol 1e-6, sums rtol 1e-4."""
+    """Kernels 1 and 2 at H in {7, 972, 1000, 1024, 1025, 2048, 4096, 5000}
+    (kernel 2: one host a thread up to 1024, four beyond, and a second pass
+    of the block past 4096), every curve pair, one and four scenario rows;
+    per-host rtol 1e-5 atol 1e-6, sums rtol 1e-4."""
     gen = torch.Generator(device=dev).manual_seed(1)
     errs1, errs2 = [], []
     cool = C.CoolingConfig(enabled=True)
-    for h in (7, 972, 1000, 2048):
+    for h in (7, 972, 1000, 1024, 1025, 2048, 4096, 5000):
         for b in (1, 4):
             cu, gu, ng, on = _host_inputs(gen, b, h, dev)
             ci = torch.rand(b, generator=gen, device=dev) * 500 + 50
@@ -217,7 +229,7 @@ def check_power_kernels(dev, results: dict) -> None:
                                        "cases": len(errs2)}
 
 
-def _ff_inputs(gen, k, h, dev, live=None):
+def _ff_inputs(gen, k, h, dev, live=None, all_down=False):
     cc = torch.randint(1, 8, (k,), generator=gen, device=dev).float()
     cg = torch.randint(0, 2, (k,), generator=gen, device=dev).float()
     fc = torch.randint(0, 16, (h,), generator=gen, device=dev).float()
@@ -229,36 +241,64 @@ def _ff_inputs(gen, k, h, dev, live=None):
         fc[down] = -float("inf")
         fg[down] = -float("inf")
         cg[:max(live // 4, 1)] = 0.0  # zero-footprint GPU demand
+    if all_down:
+        fc.fill_(-float("inf"))
+        fg.fill_(-float("inf"))
     return cc, cg, fc, fg
 
 
+def _ff_same(got, want, what: str) -> float:
+    """Assignments equal and free vectors bit-equal (so their inf patterns
+    match); returns the free vectors' max abs error over finite entries."""
+    check(torch.equal(got[0], want[0]), f"{what}: assignments differ")
+    err = 0.0
+    for g, w in zip(got[1:], want[1:]):
+        check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+              f"{what}: free vectors not bit-equal")
+        fin = torch.isfinite(w)
+        if bool(fin.any()):
+            err = max(err, _err(g[fin], w[fin]))
+    return err
+
+
 def check_first_fit(dev, results: dict) -> None:
-    """Kernel 4: assignments bit-equal, free vectors atol 1e-5."""
+    """Kernel 4 on both variants, bit for bit against its plain version: H
+    on both sides of every boundary of the warp variant (32 hosts a lane,
+    1024 a warp) and on the block variant up to 20000; K in {4, 16, 64,
+    100} (100: a last partial group of 32 demands); every slot live, or the
+    scheduler's inert tail with -inf (down) hosts and zero GPU demands, or
+    every host down; and B = 3 and 5 rows of different data in one
+    launch."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    errs = []
-    for k, h in ((4, 3), (16, 64), (64, 300), (64, 972)):
-        for live in (None, k // 2):
-            args = _ff_inputs(gen, k, h, dev, live)
+    errs, variants = [], set()
+    for h in (1, 3, 31, 32, 64, 300, 972, 1024, 1025, 2048, 20000):
+        variants.add(ff_k.variant(h))
+        for k in (4, 16, 64, 100):
+            for live, down in ((None, False), (k // 2, False),
+                               (k // 2, True)):
+                args = _ff_inputs(gen, k, h, dev, live, down)
+                got = ff_k.first_fit_place(*args)
+                errs.append(_ff_same(got, ref.first_fit_place(*args),
+                                     f"first_fit_place k={k} h={h} "
+                                     f"live={live} all_down={down}"))
+                if down:
+                    check(bool((got[0] == -1).all()),
+                          f"first_fit_place h={h}: placed on a down host")
+    check(variants == {"warp", "block"}, f"variants run: {variants}")
+    for h in (972, 2048):
+        for b in (3, 5):
+            rows = [_ff_inputs(gen, 64, h, dev, 40) for _ in range(b)]
+            args = [torch.stack(x) for x in zip(*rows)]
             got = ff_k.first_fit_place(*args)
-            want = ref.first_fit_place(*args)
-            check(torch.equal(got[0], want[0]),
-                  f"first_fit_place k={k} h={h}: assignments differ")
-            for g, w in zip(got[1:], want[1:]):
-                fin = torch.isfinite(w)
-                check(torch.equal(torch.isfinite(g), fin),
-                      f"first_fit_place k={k} h={h}: inf pattern")
-                errs.append(_close(g[fin], w[fin], 0.0, 1e-5,
-                                   f"first_fit_place k={k} h={h}"))
-    # batched rows: one scenario per thread block
-    rows = [_ff_inputs(gen, 64, 972, dev, 40) for _ in range(3)]
-    args = [torch.stack(x) for x in zip(*rows)]
-    got = ff_k.first_fit_place(*args)
-    for i in range(3):
-        want = ref.first_fit_place(*(a[i] for a in args))
-        check(torch.equal(got[0][i], want[0]), "first_fit_place batched")
+            for i in range(b):
+                errs.append(_ff_same(
+                    [g[i] for g in got],
+                    ref.first_fit_place(*(a[i] for a in args)),
+                    f"first_fit_place batched b={b} h={h} row {i}"))
     torch.cuda.synchronize()
     results["first_fit_place"] = {"max_abs_err": max(errs),
-                                  "cases": len(errs)}
+                                  "cases": len(errs),
+                                  "variants": sorted(variants)}
 
 
 def facility_traces(s: int, dev):
@@ -495,6 +535,19 @@ def time_kernels(dev, results: dict, main_cfg) -> None:
         lambda: ref.fused_facility_power(cu, gu, ng, on, wb, sp, cpu, gpu,
                                          cool),
         20 * h + 20, 16 * h + 20, "facility_power_kernel")
+    # the launch floor of the two kernels redesigned for latency: an empty
+    # kernel on each one's grid at these shapes, launched through the same
+    # ctypes path and timed by the same device_ms
+    floor = {}
+    for name, (blocks, threads) in (
+            ("fused_facility_power", (1, pc_k.facility_block(h))),
+            ("first_fit_place", ff_k.warp_grid(1))):
+        ms = device_ms(lambda g=(blocks, threads): pc_k.empty_launch(
+            *g, dev), "empty_kernel")
+        results[name]["launch_floor_ms"] = ms
+        floor[name] = {"blocks": blocks, "threads": threads,
+                       "device_ms": ms}
+    results["launch_floor"] = floor
     # kernel 4: all K slots live (the Marconi backlog fills them), 750
     # usable hosts; each live slot compares every host's two free values
     cc = torch.tensor([4, 8, 16, 32, 48], device=dev, dtype=torch.float32)[
@@ -504,10 +557,17 @@ def time_kernels(dev, results: dict, main_cfg) -> None:
     fg = torch.randint(0, 5, (h,), generator=gen, device=dev).float()
     fc[MARCONI_ACTIVE:] = -float("inf")
     fg[MARCONI_ACTIVE:] = -float("inf")
+    ff_name = ("first_fit_warp_kernel" if ff_k.variant(h) == "warp"
+               else "first_fit_kernel")
     row("first_fit_place",
         lambda: ff_k.first_fit_place(cc, cg, fc, fg),
         lambda: ref.first_fit_place(cc, cg, fc, fg),
-        8 * k + 8 * h + 4 * k + 8 * h, 2 * k * h, "first_fit_kernel")
+        8 * k + 8 * h + 4 * k + 8 * h, 2 * k * h, ff_name)
+    # its fixed cost: the same launch with no candidates loads the free
+    # vectors and writes them back; the rest of device_ms is the chain
+    none = cc[:0]
+    results["first_fit_place"]["device_ms_k0"] = device_ms(
+        lambda: ff_k.first_fit_place(none, none, fc, fg), ff_name)
     # its latency bound, for any design: the K live placements are a chain
     # (each reads the free capacity the last one wrote).  Even with the H
     # hosts' free values in the registers of one warp, a placement needs a
@@ -627,7 +687,8 @@ def profile_window(tasks, hosts, cfg, dyn, ci, n_steps: int, dev) -> list:
         run = lambda: summarize(simulate(  # noqa: E731
             tasks, hosts, ci[:n_steps], c, dyn=dyn, device=dev)[0], c)
         run()
-        row = profiled(run)
+        row = profiled(run, watch=("first_fit", "facility_power_kernel",
+                                   "power_carbon_kernel"))
         rows.append({"backend": backend, "n_steps": n_steps,
                      "host_ms_per_step": row["wall_s"] / n_steps * 1e3,
                      **row})
@@ -991,8 +1052,24 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": report})
+    seconds = time.perf_counter() - t0
+    # registers and spills of the two kernels redesigned in registers (the
+    # libraries are built fresh in a fresh checkout; a reused one has no
+    # compiler output to read)
+    resources = {}
+    for lib, kernel in (("first_fit", "first_fit_warp_kernel"),
+                        ("power_carbon", "facility_power_kernel")):
+        if lib in report:
+            resources[kernel] = build.resources(report[lib]["ptxas"], kernel)
+    if "first_fit" in report:
+        check(bool(resources["first_fit_warp_kernel"]),
+              "no ptxas report of first_fit_warp_kernel")
+    for r in resources.get("first_fit_warp_kernel", []):
+        # a stack frame without spills is an array left in local memory
+        check(r.get("stack") == r.get("spill_stores") == r.get("spill_loads")
+              == 0, f"first_fit_warp_kernel uses local memory: {r}")
+    emit({"phase": "build", "seconds": seconds, "libraries": report,
+          "resources": resources})
 
     kres = {name: {} for name in build.KERNELS}
     t0 = time.perf_counter()
@@ -1072,7 +1149,8 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "device_ms": r["device_ms"], "kernel_ms": r["ms"],
-                     "bound_us": r["bound_ms"] * 1e3})
+                     "bound_us": r["bound_ms"] * 1e3,
+                     "launch_floor_ms": r.get("launch_floor_ms")})
         check(all(math.isfinite(v) for v in (r["ms"], r["plain_ms"],
                                               r["bound_ms"])),
               f"{name}: timing not finite")

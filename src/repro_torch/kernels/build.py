@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -95,13 +96,35 @@ def build_all(names=SOURCES) -> dict[str, dict]:
         os.replace(tmp, out)  # atomic: a concurrent build sees whole files
         report[n] = {"seconds": time.perf_counter() - t0, "path": str(out),
                      "ptxas": [ln.strip() for ln in log.splitlines()
-                               if "ptxas" in ln and any(
+                               if "spill" in ln or "ptxas" in ln and any(
                                    w in ln for w in ("Used", "Compiling",
-                                                     "spill", "Performance",
+                                                     "Performance",
                                                      "warning"))]}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+def resources(ptxas: list[str], kernel: str) -> list[dict]:
+    """Registers, stack and spill bytes of every compiled kernel whose
+    (mangled) name holds `kernel`, from a build's `ptxas` lines."""
+    out, cur = [], None
+    for ln in ptxas:
+        if "Compiling entry function" in ln:
+            cur = None
+            if kernel in ln:
+                cur = {"function": ln.split("'")[1]}
+                out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m:
+                cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                           spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m[1])
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -140,6 +163,14 @@ def check(name: str, what: str, code: int) -> None:
 def ptr(t) -> ctypes.c_void_p:
     """Device pointer of a tensor as a ctypes argument."""
     return ctypes.c_void_p(t.data_ptr())
+
+
+def f32(t):
+    """t as contiguous f32: t itself when it already is (no copy)."""
+    import torch
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
 
 
 def aligned(t):

@@ -7,17 +7,30 @@
 // What bounds it on an H100: at the simulator's widths (H ~ 1e3 hosts) one
 // call moves ~20 KB (four f32 inputs read, one f32 output written), ~6 ns
 // at 3.35 TB/s, and does a few thousand flops: it is bound by launch
-// latency, not by bytes or operations.  The design keeps the whole step in
-// one launch: one thread block per scenario row, 256 threads striding over
-// the hosts, the curves evaluated per element, a warp-shuffle block
-// reduction for the IT sum, and the scalar tail (carbon, or the cooling
-// model of core/thermal.py) run by thread 0 -- so no second launch and no
-// atomics.  The leading scenario axis [B, H] lets a scenario grid put one
-// row on each SM in a single launch.
+// latency and by the dependent steps inside the one block, not by bytes or
+// operations.  Both keep the whole step in one launch, one thread block per
+// scenario row (a scenario grid puts one row on each SM), with no atomics.
+//
+// power_carbon_kernel: 256 threads stride over the hosts (`power_row`), a
+// block_sum reduces the IT sum, and thread 0 runs the carbon tail.
+//
+// facility_power_kernel has a row pass of its own, built for the latency:
+// one host a thread, up to 1024 threads (a wider row takes a further pass
+// of 1024 hosts for each 1024 more), and every load of a pass -- its host's
+// four inputs and, in thread 0, the row's wet-bulb and setpoint -- issued
+// before any is used, so a row of up to 1024 hosts pays one DRAM round
+// trip.  One host a thread rather than 16-byte vector
+// loads: a row of H floats starts on a 16-byte boundary only when H % 4 ==
+// 0 (and a [H] input may be a view at any offset), while 1024 threads
+// already issue every load of a 1024-host row at once.  The IT sum is a
+// warp shuffle tree, one barrier, and a second shuffle tree in warp 0,
+// whose lane 0 then runs the cooling tail of core/thermal.py: no second
+// barrier.
 //
 // Arithmetic follows the reference term for term in f32; the library is
 // built without --use_fast_math and with --fmad=false, so sqrtf and the
-// divisions are IEEE and no multiply-add is contracted.
+// divisions are IEEE and no multiply-add is contracted.  Only the order of
+// the IT sum differs from the reference's.
 #include "common.cuh"
 
 // Parameter blocks passed by value; named (not file-local) types, so the
@@ -86,24 +99,45 @@ __global__ void power_carbon_kernel(const float* __restrict__ cpu_u,
   }
 }
 
-__global__ void facility_power_kernel(const float* __restrict__ cpu_u,
-                                      const float* __restrict__ gpu_u,
-                                      const float* __restrict__ n_gpus,
-                                      const float* __restrict__ on,
-                                      const float* __restrict__ wet_bulb,
-                                      const float* __restrict__ setpoint,
-                                      int H, PowerParams p, CoolingParams c,
-                                      float* __restrict__ power,
-                                      float* __restrict__ it,
-                                      float* __restrict__ cooling,
-                                      float* __restrict__ water) {
-  __shared__ float scratch[32];
+// Kernel 2's row pass: one host a thread, loads first; see the note above.
+__global__ void __launch_bounds__(1024)
+facility_power_kernel(const float* __restrict__ cpu_u,
+                      const float* __restrict__ gpu_u,
+                      const float* __restrict__ n_gpus,
+                      const float* __restrict__ on,
+                      const float* __restrict__ wet_bulb,
+                      const float* __restrict__ setpoint, int H,
+                      PowerParams p, CoolingParams c,
+                      float* __restrict__ power, float* __restrict__ it,
+                      float* __restrict__ cooling,
+                      float* __restrict__ water) {
+  __shared__ float warp_sums[32];
   const size_t row = blockIdx.x, off = row * (size_t)H;
-  const float total = power_row(cpu_u + off, gpu_u + off, n_gpus + off,
-                                on + off, H, p, power + off, scratch);
-  if (threadIdx.x == 0) {
+  const int tid = threadIdx.x, n = blockDim.x;
+  float wb = 0.0f, sp = 0.0f;
+  if (tid == 0) {  // the tail's inputs, in flight with the hosts' loads
+    wb = wet_bulb[row];
+    sp = setpoint[row];
+  }
+  float part = 0.0f;
+  for (int h = tid; h < H; h += n) {
+    const float cu = cpu_u[off + h], gu = gpu_u[off + h],
+                ng = n_gpus[off + h], o = on[off + h];
+    const float kw = host_kw(&cu, &gu, &ng, &o, 0, p);  // from registers
+    power[off + h] = kw;
+    part += kw;
+  }
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int s = 16; s > 0; s >>= 1)
+    part += __shfl_down_sync(steam::kFull, part, s);
+  if (lane == 0) warp_sums[warp] = part;
+  __syncthreads();
+  if (warp != 0) return;
+  float total = lane < (n >> 5) ? warp_sums[lane] : 0.0f;
+  for (int s = 16; s > 0; s >>= 1)
+    total += __shfl_down_sync(steam::kFull, total, s);
+  if (lane == 0) {
     // the cooling tail of power_carbon.py:110-122 / core/thermal.py
-    const float wb = wet_bulb[row], sp = setpoint[row];
     const float rng = fmaxf(c.econ_range, 1e-6f);
     const float frac = fminf(fmaxf((wb - (sp - rng)) / rng, 0.0f), 1.0f);
     const float lift = fmaxf(wb + c.tower_approach + c.condenser_lift - sp, 1.0f);
@@ -115,6 +149,9 @@ __global__ void facility_power_kernel(const float* __restrict__ cpu_u,
     water[row] = (frac * total + chiller_kw) * c.evap_l_per_kwh;
   }
 }
+
+// Launch latency alone: the floor of any kernel launched on the same grid.
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -128,17 +165,26 @@ extern "C" int steam_power_carbon(const float* cpu_u, const float* gpu_u,
   return (int)cudaGetLastError();
 }
 
+// `threads` (a multiple of 32, at most 1024) comes from the wrapper
+// (power_carbon.py, `facility_block`).
 extern "C" int steam_facility_power(const float* cpu_u, const float* gpu_u,
                                     const float* n_gpus, const float* on,
                                     const float* wet_bulb,
                                     const float* setpoint, int B, int H,
-                                    const PowerParams* p,
+                                    int threads, const PowerParams* p,
                                     const CoolingParams* c, float* power,
                                     float* it, float* cooling, float* water,
                                     void* stream) {
-  facility_power_kernel<<<B, steam::kThreads, 0, (cudaStream_t)stream>>>(
+  if (threads % 32 != 0 || threads < 32 || threads > 1024)
+    return (int)cudaErrorInvalidValue;
+  facility_power_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
       cpu_u, gpu_u, n_gpus, on, wet_bulb, setpoint, H, *p, *c, power, it,
       cooling, water);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int steam_empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

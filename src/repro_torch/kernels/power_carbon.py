@@ -8,7 +8,9 @@ cooling tail of core/thermal.py.  Inputs are f32 [H] or [B, H] (one row per
 scenario); the kernels run one thread block per row.  The wrappers check
 their inputs, allocate the outputs and launch on PyTorch's current stream;
 they take CUDA tensors only (kernels/ops.py routes CPU tensors to the plain
-versions in kernels/ref.py).
+versions in kernels/ref.py).  A step calls them once each, so they keep
+their host work small: the ctypes parameter blocks are built once per
+configuration, and inputs that already are contiguous f32 are not copied.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from ..core.config import CoolingConfig, PowerModelConfig
 from . import build
 
 CURVE_CODES = {"linear": 0, "sqrt": 1, "square": 2, "cubic": 3}
+# facility_power_kernel's block: one host a thread, at most MAX_THREADS
+MAX_THREADS = 1024
 
 
 class _PowerParams(ctypes.Structure):
@@ -34,35 +38,67 @@ class _CoolingParams(ctypes.Structure):
         "max_cop", "fan_overhead", "evap_l_per_kwh")]
 
 
+_POWER_ARGS = [*[ctypes.c_void_p] * 5, ctypes.c_float, ctypes.c_int,
+               ctypes.c_int, ctypes.POINTER(_PowerParams),
+               *[ctypes.c_void_p] * 4]
+_FACILITY_ARGS = [*[ctypes.c_void_p] * 6, *[ctypes.c_int] * 3,
+                  ctypes.POINTER(_PowerParams),
+                  ctypes.POINTER(_CoolingParams), *[ctypes.c_void_p] * 5]
+_params: dict = {}
+
+
 def _power_params(cpu: PowerModelConfig, gpu: PowerModelConfig):
-    for m in (cpu, gpu):
-        if m.model not in CURVE_CODES:
-            raise ValueError(f"unknown power model '{m.model}'")
-    # the span is formed in double and rounded once, as the reference
-    # forms `(max_w - idle_w)` from Python floats
-    return _PowerParams(cpu.idle_w, cpu.max_w - cpu.idle_w, gpu.idle_w,
-                        gpu.max_w - gpu.idle_w, CURVE_CODES[cpu.model],
-                        CURVE_CODES[gpu.model])
+    """The kernels' power parameter block, built once per configuration."""
+    key = (cpu, gpu)
+    if key not in _params:
+        for m in (cpu, gpu):
+            if m.model not in CURVE_CODES:
+                raise ValueError(f"unknown power model '{m.model}'")
+        # the span is formed in double and rounded once, as the reference
+        # forms `(max_w - idle_w)` from Python floats
+        _params[key] = ctypes.byref(_PowerParams(
+            cpu.idle_w, cpu.max_w - cpu.idle_w, gpu.idle_w,
+            gpu.max_w - gpu.idle_w, CURVE_CODES[cpu.model],
+            CURVE_CODES[gpu.model]))
+    return _params[key]
+
+
+def _cooling_params(c: CoolingConfig):
+    """The cooling tail's parameter block, built once per configuration."""
+    if c not in _params:
+        _params[c] = ctypes.byref(_CoolingParams(
+            c.economizer_range_c, c.tower_approach_c, c.condenser_lift_c,
+            c.carnot_efficiency, c.max_cop, c.fan_pump_overhead,
+            c.evap_l_per_kwh_heat))
+    return _params[c]
+
+
+def facility_block(h: int) -> int:
+    """Threads of facility_power_kernel's block for a row of `h` hosts: one
+    a host, rounded up to a warp, at most MAX_THREADS (a wider row takes
+    further passes)."""
+    return min(max(-(-h // 32) * 32, 32), MAX_THREADS)
 
 
 def _rows(*xs):
-    """[H] or [B, H] f32 inputs as contiguous [B, H]; (B, H, was_1d)."""
-    one_d = xs[0].dim() == 1
-    rows = [x.reshape(1, -1) if one_d else x for x in xs]
-    rows = [r.to(torch.float32).contiguous() for r in rows]
+    """[H] or [B, H] inputs as contiguous f32 of one shape; (B, H)."""
+    rows = [build.f32(x) for x in xs]
     shape = rows[0].shape
-    if any(r.shape != shape for r in rows) or len(shape) != 2:
+    if any(r.shape != shape for r in rows) or len(shape) not in (1, 2):
         raise ValueError(f"host inputs must share one [H] or [B, H] shape, "
                          f"got {[tuple(x.shape) for x in xs]}")
-    return rows, shape[0], shape[1], one_d
+    return rows, (1 if len(shape) == 1 else shape[0]), shape[-1]
 
 
 def _per_row(x, b: int, like: torch.Tensor) -> torch.Tensor:
-    """A scalar or [B] per-row input as a contiguous f32 [B] on the device
-    (a host number is filled in on the device: no copy, no wait)."""
+    """A scalar or [B] per-row input as contiguous f32 of B elements on the
+    device (a host number is filled in on the device: no copy, no wait)."""
     if not isinstance(x, torch.Tensor):
         return torch.full((b,), float(x), dtype=torch.float32,
                           device=like.device)
+    if (x.numel() == b and x.dtype == torch.float32
+            and x.device == like.device and x.is_contiguous()):
+        return x
     x = x.to(device=like.device, dtype=torch.float32)
     return x.reshape(-1).expand(b).contiguous() if x.numel() == 1 else \
         x.reshape(b).contiguous()
@@ -72,24 +108,20 @@ def fused_power_carbon(cpu_util, gpu_util, n_gpus, on, ci, dt_h: float,
                        cpu_cfg: PowerModelConfig, gpu_cfg: PowerModelConfig):
     """(power_kw, it_kw, carbon_kg) from one launch.  `ci` is a scalar or
     [B] tensor, or None for a power-only call (carbon is then 0)."""
-    (cu, gu, ng, o), b, h, one_d = _rows(cpu_util, gpu_util, n_gpus, on)
+    (cu, gu, ng, o), b, h = _rows(cpu_util, gpu_util, n_gpus, on)
     build.require_cuda("fused_power_carbon", cu, gu, ng, o)
     ci_row = None if ci is None else _per_row(ci, b, cu)
-    power = torch.empty((b, h), dtype=torch.float32, device=cu.device)
-    it = torch.empty(b, dtype=torch.float32, device=cu.device)
-    carbon = torch.empty(b, dtype=torch.float32, device=cu.device)
-    fn = build.function("power_carbon", "steam_power_carbon", [
-        *[ctypes.c_void_p] * 5, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(_PowerParams), *[ctypes.c_void_p] * 4])
-    params = _power_params(cpu_cfg, gpu_cfg)
-    code = fn(build.ptr(cu), build.ptr(gu), build.ptr(ng), build.ptr(o),
-              None if ci_row is None else build.ptr(ci_row), float(dt_h),
-              b, h, ctypes.byref(params), build.ptr(power), build.ptr(it),
-              build.ptr(carbon), build.stream_of(cu))
+    power = torch.empty(cu.shape, dtype=torch.float32, device=cu.device)
+    sums = torch.empty((2, *cu.shape[:-1]), dtype=torch.float32,
+                       device=cu.device)
+    fn = build.function("power_carbon", "steam_power_carbon", _POWER_ARGS)
+    code = fn(cu.data_ptr(), gu.data_ptr(), ng.data_ptr(), o.data_ptr(),
+              None if ci_row is None else ci_row.data_ptr(), float(dt_h),
+              b, h, _power_params(cpu_cfg, gpu_cfg), power.data_ptr(),
+              sums.data_ptr(), sums.data_ptr() + 4 * b, build.stream_of(cu))
     build.check("power_carbon", "fused_power_carbon launch", code)
     build.count_launch("fused_power_carbon")
-    if one_d:
-        return power[0], it[0], carbon[0]
+    it, carbon = sums
     return power, it, carbon
 
 
@@ -99,29 +131,33 @@ def fused_facility_power(cpu_util, gpu_util, n_gpus, on, wet_bulb_c,
                          cooling_cfg: CoolingConfig):
     """(power_kw, it_kw, cooling_kw, water_l_per_h) from one launch;
     `wet_bulb_c` and `setpoint_c` are scalars or [B] tensors."""
-    (cu, gu, ng, o), b, h, one_d = _rows(cpu_util, gpu_util, n_gpus, on)
+    (cu, gu, ng, o), b, h = _rows(cpu_util, gpu_util, n_gpus, on)
     build.require_cuda("fused_facility_power", cu, gu, ng, o)
     wb = _per_row(wet_bulb_c, b, cu)
     sp = _per_row(setpoint_c, b, cu)
-    power = torch.empty((b, h), dtype=torch.float32, device=cu.device)
-    it, cool, water = torch.empty((3, b), dtype=torch.float32,
-                                  device=cu.device)
-    fn = build.function("power_carbon", "steam_facility_power", [
-        *[ctypes.c_void_p] * 6, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(_PowerParams), ctypes.POINTER(_CoolingParams),
-        *[ctypes.c_void_p] * 5])
-    params = _power_params(cpu_cfg, gpu_cfg)
-    c = cooling_cfg
-    cparams = _CoolingParams(c.economizer_range_c, c.tower_approach_c,
-                             c.condenser_lift_c, c.carnot_efficiency,
-                             c.max_cop, c.fan_pump_overhead,
-                             c.evap_l_per_kwh_heat)
-    code = fn(build.ptr(cu), build.ptr(gu), build.ptr(ng), build.ptr(o),
-              build.ptr(wb), build.ptr(sp), b, h, ctypes.byref(params),
-              ctypes.byref(cparams), build.ptr(power), build.ptr(it),
-              build.ptr(cool), build.ptr(water), build.stream_of(cu))
+    power = torch.empty(cu.shape, dtype=torch.float32, device=cu.device)
+    sums = torch.empty((3, *cu.shape[:-1]), dtype=torch.float32,
+                       device=cu.device)
+    fn = build.function("power_carbon", "steam_facility_power",
+                        _FACILITY_ARGS)
+    at = sums.data_ptr()
+    code = fn(cu.data_ptr(), gu.data_ptr(), ng.data_ptr(), o.data_ptr(),
+              wb.data_ptr(), sp.data_ptr(), b, h, facility_block(h),
+              _power_params(cpu_cfg, gpu_cfg), _cooling_params(cooling_cfg),
+              power.data_ptr(), at, at + 4 * b, at + 8 * b,
+              build.stream_of(cu))
     build.check("power_carbon", "fused_facility_power launch", code)
     build.count_launch("fused_facility_power")
-    if one_d:
-        return power[0], it[0], cool[0], water[0]
+    it, cool, water = sums
     return power, it, cool, water
+
+
+def empty_launch(blocks: int, threads: int, device) -> None:
+    """One launch of an empty kernel on `blocks` x `threads`, through this
+    library's ctypes path: the device time any launch of that grid pays.  A
+    measurement, not a kernel of the main path: it counts no launch."""
+    fn = build.function("power_carbon", "steam_empty_launch",
+                        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    code = fn(blocks, threads, ctypes.c_void_p(
+        torch.cuda.current_stream(device).cuda_stream))
+    build.check("power_carbon", "empty launch", code)

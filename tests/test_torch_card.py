@@ -45,7 +45,7 @@ def _host_inputs(h, seed, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [7, 972, 2048])
+@pytest.mark.parametrize("h", [7, 972, 1025, 2048, 4096])
 def test_power_kernels_match_plain(cuda_device, h):
     from repro_torch.kernels import power_carbon as pc
     d = cuda_device
@@ -69,23 +69,56 @@ def test_power_kernels_match_plain(cuda_device, h):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,h", [(4, 3), (64, 972)])
-def test_first_fit_kernel_matches_plain(cuda_device, k, h):
-    from repro_torch.kernels import first_fit as ff
-    rng = np.random.default_rng(k * h)
+def _ff_inputs(k, h, seed, case, dev):
+    """Candidates and free vectors with many ties: every slot live ("live"),
+    the scheduler's inert tail with down (-inf) hosts and zero GPU demands
+    ("inert"), or every host down ("down")."""
+    rng = np.random.default_rng(seed)
     cc = rng.integers(1, 8, k).astype(np.float32)
     cg = rng.integers(0, 2, k).astype(np.float32)
     fc = rng.integers(0, 16, h).astype(np.float32)
     fg = rng.integers(0, 4, h).astype(np.float32)
-    cc[k // 2:] = cg[k // 2:] = np.inf       # the scheduler's inert tail
-    down = rng.uniform(size=h) < 0.2         # unusable hosts
-    fc[down] = fg[down] = -np.inf
-    args = [torch.tensor(x, device=cuda_device) for x in (cc, cg, fc, fg)]
+    if case in ("inert", "down"):
+        cc[k // 2:] = cg[k // 2:] = np.inf   # the scheduler's inert tail
+        cg[:max(k // 8, 1)] = 0.0            # zero-footprint GPU demand
+        down = (rng.uniform(size=h) < 0.2) | (case == "down")
+        fc[down] = fg[down] = -np.inf        # unusable hosts
+    return [torch.tensor(x, device=dev) for x in (cc, cg, fc, fg)]
+
+
+def _assert_same_placement(got, want):
+    """Assignments equal, free vectors bit for bit (inf patterns too)."""
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["live", "inert", "down"])
+@pytest.mark.parametrize("k", [4, 64, 100])
+@pytest.mark.parametrize("h", [1, 3, 31, 32, 972, 1024, 1025, 2048])
+def test_first_fit_kernel_matches_plain(cuda_device, k, h, case):
+    """Both variants (one warp a row up to 1024 hosts, one block a row
+    beyond) on both sides of each boundary of the warp's layout."""
+    from repro_torch.kernels import first_fit as ff
+    args = _ff_inputs(k, h, k * h, case, cuda_device)
     got = ff.first_fit_place(*args)
-    want = ref.first_fit_place(*args)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    _assert_same_placement(got, ref.first_fit_place(*args))
+    if case == "down":
+        assert bool((got[0] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [972, 2048])
+def test_first_fit_kernel_rows_match_plain(cuda_device, h):
+    """B = 3 rows of different data in one launch, each row its own."""
+    from repro_torch.kernels import first_fit as ff
+    rows = [_ff_inputs(64, h, s, "inert", cuda_device) for s in range(3)]
+    args = [torch.stack(x) for x in zip(*rows)]
+    got = ff.first_fit_place(*args)
+    for i in range(3):
+        _assert_same_placement([g[i] for g in got],
+                               ref.first_fit_place(*rows[i]))
 
 
 def _traces(seed: int):

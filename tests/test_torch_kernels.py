@@ -28,7 +28,9 @@ import repro.core.config as jconfig
 from repro.kernels import ops as jops
 from repro.kernels.fused_step import fused_facility_totals as j_fused_totals
 import repro_torch.core.config as pconfig
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import first_fit as ff
+from repro_torch.kernels import power_carbon as pc
 
 torch.set_num_threads(1)
 
@@ -150,6 +152,117 @@ def test_first_fit_rows_are_independent():
         one = ops.first_fit_place(*(T(x) for x in row))
         for g, w in zip(got, one):
             np.testing.assert_array_equal(g[i].numpy(), w.numpy())
+
+
+# ---------------------------------------------------------------------------
+# first-fit's warp layout (csrc/first_fit.cu, first_fit_warp_kernel)
+# ---------------------------------------------------------------------------
+
+def test_first_fit_variant_follows_host_count():
+    """The wrapper picks the kernel from H alone: one warp a row while the
+    row fits 32 lanes of HOSTS_PER_LANE hosts, one block a row beyond."""
+    assert ff.WARP_MAX_HOSTS == 32 * ff.HOSTS_PER_LANE == 1024
+    assert [ff.variant(h) for h in (1, 31, 32, 972, 1024)] == ["warp"] * 5
+    assert [ff.variant(h) for h in (1025, 2048, ff.MAX_HOSTS)] == \
+        ["block"] * 3
+    assert ff.warp_grid(1) == (1, 128) and ff.warp_grid(5) == (2, 128)
+
+
+def _lanes_first_fit(cc, cg, fc, fg):
+    """The warp kernel's placement, written out in torch: the H hosts padded
+    with -inf to 32 lanes x R, lane l holding hosts l*R .. l*R+R-1; per live
+    candidate each lane's lowest fitting local index, the min over lanes of
+    lane * R + index, and one subtraction in the owning lane's slot."""
+    r = ff.HOSTS_PER_LANE
+    h = fc.shape[0]
+    pad = torch.full((32 * r - h,), -np.inf)
+    lc = torch.cat([fc, pad]).reshape(32, r)
+    lg = torch.cat([fg, pad]).reshape(32, r)
+    slot = torch.arange(r)
+    none = 2 ** 32 - 1                     # the kernel's "no fit" (u32 max)
+    assign = torch.full(cc.shape, -1, dtype=torch.int32)
+    for j in range(cc.shape[0]):
+        need_c, need_g = cc[j], cg[j]
+        if need_c == np.inf or need_g == np.inf:
+            continue                       # inert slot
+        fits = (lc >= need_c) & (lg >= need_g)
+        first_in_lane = torch.where(fits, slot, r).amin(1)
+        lane_first = torch.where(first_in_lane < r,
+                                 torch.arange(32) * r + first_in_lane, none)
+        first = int(lane_first.min())
+        if first < h:
+            lane, s = divmod(first, r)
+            lc[lane, s] -= need_c
+            lg[lane, s] -= need_g
+            assign[j] = first
+    return assign, lc.reshape(-1)[:h], lg.reshape(-1)[:h]
+
+
+@pytest.mark.parametrize("case", ["live", "inert", "down"])
+@pytest.mark.parametrize("k,h", [(4, 3), (64, 31), (40, 100), (100, 972),
+                                 (64, 1024)])
+def test_first_fit_lane_layout_matches_plain_and_reference(k, h, case):
+    """The lane layout places exactly as the sequential plain version and
+    the reference's Pallas op (interpret mode): assignments equal, free
+    vectors bit for bit, on inputs with many ties, H not a multiple of 32,
+    -inf (down) hosts and +inf (inert) slots."""
+    cc, cg, fc, fg = _ff_inputs(k, h, k + h, None if case == "live"
+                                else k // 2)
+    if case == "down":
+        fc[:] = fg[:] = -np.inf
+    got = _lanes_first_fit(*(T(x) for x in (cc, cg, fc, fg)))
+    for want in (ops.first_fit_place(*(T(x) for x in (cc, cg, fc, fg))),
+                 [T(np.asarray(x)) for x in
+                  jops.first_fit_place(cc, cg, fc, fg)]):
+        np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                          w.numpy().view(np.int32))
+    if case == "down":
+        assert bool((got[0] == -1).all())
+
+
+@pytest.mark.parametrize("h", [1, 31, 972, 1024, 1025, 2048, 4096, 5000])
+def test_facility_block_covers_the_row(h):
+    """Facility power's block: one host a thread, a multiple of 32 threads,
+    at most 1024; one pass covers the row up to 1024 hosts (the kernel
+    loops past that)."""
+    threads = pc.facility_block(h)
+    assert threads % 32 == 0 and 32 <= threads <= pc.MAX_THREADS
+    assert min(h, pc.MAX_THREADS) <= threads < min(h, pc.MAX_THREADS) + 32
+
+
+def test_power_params_are_built_once_per_configuration():
+    cpu = pconfig.PowerModelConfig(80.0, 250.0, "sqrt")
+    gpu = pconfig.PowerModelConfig(40.0, 300.0, "linear")
+    cool = pconfig.CoolingConfig(enabled=True)
+    same = pconfig.PowerModelConfig(80.0, 250.0, "sqrt")
+    assert pc._power_params(cpu, gpu) is pc._power_params(same, gpu)
+    assert pc._cooling_params(cool) is pc._cooling_params(
+        pconfig.CoolingConfig(enabled=True))
+    with pytest.raises(ValueError, match="unknown power model"):
+        pc._power_params(pconfig.PowerModelConfig(1.0, 2.0, "quartic"), gpu)
+
+
+def test_build_reads_registers_and_spills_from_ptxas():
+    lines = [
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121"
+        "first_fit_warp_kernelEPKf' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_121"
+        "first_fit_warp_kernelEPKf",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116"
+        "first_fit_kernelEPKf' for 'sm_90a'",
+        "8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 26 registers, used 1 barriers"]
+    warp = build.resources(lines, "first_fit_warp_kernel")
+    assert warp == [{"function": "_ZN12_GLOBAL__N_121first_fit_warp_kernel"
+                                 "EPKf", "stack": 0, "spill_stores": 0,
+                     "spill_loads": 0, "registers": 96}]
+    block = build.resources(lines, "first_fit_kernel")
+    assert [(b["spill_stores"], b["spill_loads"], b["registers"])
+            for b in block] == [(4, 8, 26)]
 
 
 # ---------------------------------------------------------------------------
