@@ -11,9 +11,10 @@ Phases, each printing one JSON line:
                  src/repro_torch/kernels/csrc/ (one nvcc per source, all at
                  once) into src/repro_torch/kernels/_build/; seconds, the
                  ptxas register / shared-memory / spill lines, and the
-                 registers, stack and spill bytes of first-fit's warp
-                 variant (which must keep its arrays in registers) and of
-                 facility power.
+                 registers, stack, spill and static shared bytes of
+                 first-fit's warp variant and of the facility kernel (both
+                 must keep their arrays in registers: no stack, no spills),
+                 and of the two power kernels.
   3. kernels  -- each kernel against its plain PyTorch version
                  (kernels/ref.py) on the card, at the main paths' shapes and
                  around them, at the tolerances of the CPU tests.
@@ -41,8 +42,9 @@ Phases, each printing one JSON line:
                  scaled_dot_product_attention as a yardstick; first-fit's
                  latency bound (the least dependent chain of its K
                  placements), the model kernels' bounds at their
-                 tensor-core rates, and the launch floor: the device time
-                 of an empty kernel on first-fit's and facility power's
+                 tensor-core rates, the facility kernel's latency bound
+                 (its SoC chain), and the launch floor: the device time of
+                 an empty kernel on the power kernels' and first-fit's
                  grids, launched through the same ctypes path.
 
 Then the `kernels` summary line, the nvidia-smi line, and as the last line
@@ -93,6 +95,18 @@ PEAK_TF32_OPS_S = 495e12
 # and the H100 SXM's highest SM clock (NVIDIA data sheet: 1980 MHz)
 DEP_CYCLES = 4
 MAX_SM_HZ = 1.98e9
+# kernel 3's SoC recurrence: the fewest dependent instructions from one
+# step's `soc` to the next that the function needs (fused_step.py:145-151
+# in f32, IEEE divisions), each at its SASS length: FADD (cap - soc); the
+# IEEE division's three FFMAs that follow the dividend (q0, residual,
+# quotient; the step's reciprocal and its Newton step depend on the step
+# alone); one FMNMX, the charge min(q, lim): the rate, the charge cap and
+# the decision combine into `lim` off the chain (a minimum is exact in any
+# order), and max(q, 0) is q, since the clamp keeps soc <= cap; FMUL
+# (efficiency); FADD (- dk); FMUL (step); FADD (soc +); two FMNMX (the
+# clamp).  The discharge (the second division, min(q_soc, min(rate, net)),
+# the select) joins at the FADD after 5, so it is shorter.
+SOC_CHAIN_LEVELS = 11
 DT_H = 0.25
 MAIN_STEPS = 2880            # 30 days at 15 minutes
 MARCONI_ACTIVE = 750         # the published Marconi optimum (of 972 hosts)
@@ -190,9 +204,10 @@ def _close(got, want, rtol, atol, what) -> float:
 
 def check_power_kernels(dev, results: dict) -> None:
     """Kernels 1 and 2 at H in {7, 972, 1000, 1024, 1025, 2048, 4096, 5000}
-    (kernel 2: one host a thread up to 1024, four beyond, and a second pass
-    of the block past 4096), every curve pair, one and four scenario rows;
-    per-host rtol 1e-5 atol 1e-6, sums rtol 1e-4."""
+    (one host a thread up to 1024, further passes of the block beyond),
+    every curve pair, one and four scenario rows, kernel 1 with a carbon
+    tail and without (`ci` None, the megakernel's call); per-host rtol 1e-5
+    atol 1e-6, sums rtol 1e-4."""
     gen = torch.Generator(device=dev).manual_seed(1)
     errs1, errs2 = [], []
     cool = C.CoolingConfig(enabled=True)
@@ -214,6 +229,17 @@ def check_power_kernels(dev, results: dict) -> None:
                     errs1.append(_close(got[0], want[0], 1e-5, 1e-6, what))
                     for g, w in zip(got[1:], want[1:]):
                         errs1.append(_close(g, w, 1e-4, 0.0, what + " sums"))
+                    # the megakernel's call (ops.host_power): no carbon tail
+                    got = pc_k.fused_power_carbon(cu, gu, ng, on, None, 0.25,
+                                                  cpu, gpu)
+                    want = ref.fused_power_carbon(cu, gu, ng, on, None, 0.25,
+                                                  cpu, gpu)
+                    errs1.append(_close(got[0], want[0], 1e-5, 1e-6,
+                                        what + " ci=None"))
+                    errs1.append(_close(got[1], want[1], 1e-4, 0.0,
+                                        what + " ci=None sum"))
+                    check(bool((got[2] == 0).all()),
+                          f"{what} ci=None: carbon not 0")
                     got = pc_k.fused_facility_power(cu, gu, ng, on, wb, sp,
                                                     cpu, gpu, cool)
                     want = ref.fused_facility_power(cu, gu, ng, on, wb, sp,
@@ -348,12 +374,135 @@ def _totals_close(got, want, rtol, atol, what) -> tuple[float, float]:
     return max(errs), max(rels)
 
 
+# kernel 3's [4, S] cases: a horizon inside one tile (1, 255), the main
+# path's (2880: three tiles, the last partial) and a year at 15 minutes
+# (35,040: 35 tiles)
+ROW_STEPS = (1, 255, MAIN_STEPS, 35040)
+# per scenario row: battery capacity (kWh), rate (kW), initial SoC, dispatch
+# lambda (blended policy: 0 is the price policy, 1 the carbon one) and PV
+# capacity (kW).  Row 0's battery fills or empties in one 15-minute step,
+# so it is driven both to its capacity and to 0.
+ROW_PARAMS = {"batt_capacity_kwh": (60.0, 2000.0, 8748.0, 30000.0),
+              "batt_rate_kw": (240.0, 500.0, 2187.0, 100.0),
+              "soc0": (0.0, 2000.0, 4374.0, 30000.0),
+              "dispatch_lambda": (0.0, 0.3, 0.7, 1.0),
+              "pv_capacity_kw": (0.0, 200.0, 500.0, 2000.0)}
+
+
+def facility_rows_case(dev, gen, s: int, errs: list) -> dict:
+    """Kernel 3 on [4, S] rows that differ in every per-row parameter (the
+    scenario grid's layout), every technique on, against the plain version
+    row by row (rtol 1e-4, atol 1e-3); where the horizon is long enough,
+    checks that a row's battery reached its capacity and 0."""
+    from repro_torch.core.engine import facility_totals_from_flows
+    b = len(ROW_PARAMS["soc0"])
+    cfg = main_config(s, C.EmbodiedConfig(), policy="blended")
+    traces = facility_traces(s, dev)
+    it_kw = 700.0 + 300.0 * torch.rand((b, s), generator=gen, device=dev)
+    args = facility_args(cfg, it_kw, traces)
+    per_row = {k: torch.tensor(v, device=dev) for k, v in ROW_PARAMS.items()}
+    got = fs_k.fused_facility_totals(*args, cfg, **per_row)
+    full = empty = False
+    for r in range(b):
+        kw = {k: v[r] for k, v in ROW_PARAMS.items()}
+        flows = ref.fused_facility_chain(it_kw[r], *args[1:], cfg.dt_h, cfg,
+                                         **kw)
+        want = facility_totals_from_flows(flows, args[1], args[3], cfg)
+        errs.append(_totals_close({k: v[r] for k, v in got.items()}, want,
+                                  1e-4, 1e-3,
+                                  f"fused_facility_totals [{b}, {s}] row {r}"))
+        soc = flows["soc"]
+        full |= bool((soc == kw["batt_capacity_kwh"]).any())
+        empty |= bool(((soc[1:] == 0.0) & (soc[:-1] > 0.0)).any())
+    if s >= 255:
+        check(full and empty, f"[{b}, {s}]: no battery reached both its "
+              f"capacity ({full}) and 0 ({empty})")
+    return {"rows": b, "reached_capacity": full, "reached_zero": empty}
+
+
+# rows that send kernel 3's SoC chain down each route (capacity kWh, rate
+# kW, initial SoC): an initial SoC above the capacity (the row never takes
+# the fast division); a rate of 2^-100 kW from an empty battery, whose SoC
+# lies in (0, 2^-100) from its first charge on (those tiles run again with
+# the division written out); the same from 40 x 2^-100 kWh, which first
+# falls there past the first tile; and the main path's battery
+ROUTE_ROWS = {"batt_capacity_kwh": (60.0, 2.0 ** -60, 2.0 ** -60, 8748.0),
+              "batt_rate_kw": (240.0, 2.0 ** -100, 2.0 ** -100, 2187.0),
+              "soc0": (90.0, 0.0, 40 * 2.0 ** -100, 4374.0)}
+
+
+def facility_routes_case(dev, dt: float, errs: list) -> list:
+    """Kernel 3 on [4, 2880] ROUTE_ROWS with cooling and PV off (the chain's
+    inputs are then exact) against a sequential walk, the plain version on
+    the CPU (IEEE divisions): SoC, last decision, grid peak, last window's
+    peak and the demand charge (windows billed in order) equal in f32, the
+    other totals at rtol 1e-4, atol 1e-3, and the tiles run with the
+    division written out as the SoC path says.  Returns those counts."""
+    from repro_torch.core.engine import facility_totals_from_flows
+    s, ws, f = MAIN_STEPS, 96, np.float32
+    tile, n_tiles, _ = fs_k.launch_plan(s)
+    cfg = C.SimConfig(
+        dt_h=dt, n_steps=s, cooling=C.CoolingConfig(enabled=False),
+        renewables=C.RenewableConfig(enabled=False),
+        pricing=C.PricingConfig(enabled=True, billing_window_h=ws * dt),
+        battery=C.BatteryConfig(enabled=True, policy="carbon"))
+    cpu = torch.device("cpu")
+    it_kw = 700.0 + 300.0 * torch.rand(
+        (4, s), generator=torch.Generator().manual_seed(6))
+    args = facility_args(cfg, it_kw, facility_traces(s, cpu))
+    acc = fs_k.launch(*fs_k.prepare(
+        *(a.to(dev) for a in args), cfg,
+        **{k: torch.tensor(v, device=dev) for k, v in ROUTE_ROWS.items()}))
+    acc = acc.cpu()
+    got = fs_k.totals_from_rows(acc, cfg)
+    slow = [int(v) for v in acc[:, fs_k.A_SLOW]]
+    dc = f(cfg.pricing.demand_charge_per_kw)
+    for r in range(4):
+        kw = {k: v[r] for k, v in ROUTE_ROWS.items()}
+        what = f"fused_facility_totals route row {r}, step {dt} h"
+        flows = ref.fused_facility_chain(it_kw[r], *args[1:], dt, cfg, **kw)
+        want = facility_totals_from_flows(flows, args[1], args[3], cfg)
+        grid = flows["grid_import_kw"].numpy()
+        demand, peak = f(0), f(0)
+        for w0 in range(0, s, ws):
+            if w0:
+                demand = f(demand + f(peak * dc))
+            peak = max(f(0), grid[w0:w0 + ws].max())
+        want["demand_cost"], want["window_peak_kw"] = demand, peak
+        exact = ("soc_final", "was_charging", "peak_power", "window_peak_kw",
+                 "demand_cost")
+        for k in exact:
+            check(got[k][r].item() == f(want[k]).item(),
+                  f"{what}: {k} {got[k][r].item()} != {f(want[k]).item()}")
+        errs.append(_totals_close(
+            {k: v[r] for k, v in got.items() if k not in exact},
+            {k: v for k, v in want.items() if k not in exact}, 1e-4, 1e-3,
+            what))
+        fast = (2.0 ** -20 <= dt <= 2.0 ** 20
+                and 2.0 ** -60 <= kw["batt_capacity_kwh"] <= 2.0 ** 90
+                and 0.0 <= kw["soc0"] <= kw["batt_capacity_kwh"])
+        before = np.concatenate([[f(kw["soc0"])], flows["soc"].numpy()[:-1]])
+        low = np.nonzero((before > 0) & (before < f(2.0 ** -100)))[0]
+        want_slow = len(set((low // tile).tolist())) if fast else n_tiles
+        check(slow[r] == want_slow,
+              f"{what}: {slow[r]} tiles ran slow, the SoC path says "
+              f"{want_slow}")
+    if dt == 0.1:
+        # every route taken: never fast, from the first tile, past it, never
+        check(slow[0] == n_tiles and slow[1] > 0 and 0 < slow[2] < n_tiles
+              and slow[3] == 0, f"routes not all taken: {slow}")
+    return slow
+
+
 def check_facility_kernel(dev, results: dict) -> None:
     """Kernel 3 at S = 2880: the 2^3 facility combos x {carbon, price,
-    blended} with f32 traces (rtol 1e-4, atol 1e-3), and the bf16 / int8
-    stores: tight against the plain version on the same stored traces, and
-    within 5e-3 / 1e-2 relative of the f32 chain on the decision-free
-    energy totals with the battery off."""
+    blended} with f32 traces (rtol 1e-4, atol 1e-3); [4, S] rows of
+    different batteries, lambdas and PV for S in ROW_STEPS
+    (`facility_rows_case`); each route of the SoC chain at steps of 0.1 and
+    2^-21 h (`facility_routes_case`); and the bf16 / int8 stores: tight
+    against the plain version on the same stored traces, and within 5e-3 /
+    1e-2 relative of the f32 chain on the decision-free energy totals with
+    the battery off."""
     s = MAIN_STEPS
     traces = facility_traces(s, dev)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -378,6 +527,9 @@ def check_facility_kernel(dev, results: dict) -> None:
                         got, want, 1e-4, 1e-3,
                         f"fused_facility_totals {cool}/{price}/{renew}/"
                         f"{policy}"))
+    rows = {n: facility_rows_case(dev, gen, n, errs) for n in ROW_STEPS}
+    routes = {f"dt_{dt:g}": facility_routes_case(dev, dt, errs)
+              for dt in (0.1, 2.0 ** -21)}
     cfg = main_config(s, C.EmbodiedConfig()).replace(
         battery=C.BatteryConfig(enabled=False))
     args = facility_args(cfg, it_kw, traces)
@@ -399,7 +551,8 @@ def check_facility_kernel(dev, results: dict) -> None:
     results["fused_facility_totals"] = {
         "max_abs_err": max(e for e, _ in errs),
         "max_rel_err": max(r for _, r in errs), "cases": len(errs),
-        "store_rel_err": envelope}
+        "store_rel_err": envelope, "rows": rows,
+        "slow_tiles_by_route_row": routes}
 
 
 def _ssd_inputs(gen, shape, dev, decay=0.2):
@@ -535,11 +688,12 @@ def time_kernels(dev, results: dict, main_cfg) -> None:
         lambda: ref.fused_facility_power(cu, gu, ng, on, wb, sp, cpu, gpu,
                                          cool),
         20 * h + 20, 16 * h + 20, "facility_power_kernel")
-    # the launch floor of the two kernels redesigned for latency: an empty
+    # the launch floor of the three kernels redesigned for latency: an empty
     # kernel on each one's grid at these shapes, launched through the same
     # ctypes path and timed by the same device_ms
     floor = {}
     for name, (blocks, threads) in (
+            ("fused_power_carbon", (1, pc_k.facility_block(h))),
             ("fused_facility_power", (1, pc_k.facility_block(h))),
             ("first_fit_place", ff_k.warp_grid(1))):
         ms = device_ms(lambda g=(blocks, threads): pc_k.empty_launch(
@@ -591,6 +745,26 @@ def time_kernels(dev, results: dict, main_cfg) -> None:
         lambda: fs_k.launch(*prepared),
         lambda: ref.fused_facility_totals(*args, main_cfg),
         33 * s + 8 * 8 + 18 * 4, 100 * s, "facility_totals_kernel")
+    # its latency bound: the S steps' SoC recurrence is a chain of
+    # SOC_CHAIN_LEVELS dependent instructions a step; and how many of the
+    # main path's tiles ran the chain with the division written out
+    results["fused_facility_totals"].update(
+        slow_tiles=int(fs_k.launch(*prepared)[0, fs_k.A_SLOW]),
+        latency_levels=s * SOC_CHAIN_LEVELS,
+        latency_cycles=s * SOC_CHAIN_LEVELS * DEP_CYCLES,
+        latency_bound_ms=s * SOC_CHAIN_LEVELS * DEP_CYCLES / MAX_SM_HZ * 1e3,
+        launch_plan=fs_k.launch_plan(s))
+    # and over a year at 15 minutes (35,040 steps, 35 tiles)
+    year = 35040
+    cfg_y = main_cfg.replace(n_steps=year)
+    it_y = 700.0 + 300.0 * torch.rand(year, generator=gen, device=dev)
+    prep_y = fs_k.prepare(*facility_args(cfg_y, it_y,
+                                         facility_traces(year, dev)), cfg_y)
+    results["fused_facility_totals"].update(
+        device_ms_year=device_ms(lambda: fs_k.launch(*prep_y),
+                                 "facility_totals_kernel", reps=10),
+        latency_bound_ms_year=(year * SOC_CHAIN_LEVELS * DEP_CYCLES
+                               / MAX_SM_HZ * 1e3))
     torch.cuda.synchronize()
 
 
@@ -1058,16 +1232,19 @@ def main() -> int:
     # compiler output to read)
     resources = {}
     for lib, kernel in (("first_fit", "first_fit_warp_kernel"),
-                        ("power_carbon", "facility_power_kernel")):
+                        ("power_carbon", "power_carbon_kernel"),
+                        ("power_carbon", "facility_power_kernel"),
+                        ("fused_step", "facility_totals_kernel")):
         if lib in report:
             resources[kernel] = build.resources(report[lib]["ptxas"], kernel)
-    if "first_fit" in report:
-        check(bool(resources["first_fit_warp_kernel"]),
-              "no ptxas report of first_fit_warp_kernel")
-    for r in resources.get("first_fit_warp_kernel", []):
-        # a stack frame without spills is an array left in local memory
-        check(r.get("stack") == r.get("spill_stores") == r.get("spill_loads")
-              == 0, f"first_fit_warp_kernel uses local memory: {r}")
+            check(bool(resources[kernel]), f"no ptxas report of {kernel}")
+    # first-fit's hosts and kernel 3's chain live in registers: a stack
+    # frame without spills is an array left in local memory
+    for kernel in ("first_fit_warp_kernel", "facility_totals_kernel"):
+        for r in resources.get(kernel, []):
+            check(r.get("stack") == r.get("spill_stores")
+                  == r.get("spill_loads") == 0,
+                  f"{kernel} uses local memory: {r}")
     emit({"phase": "build", "seconds": seconds, "libraries": report,
           "resources": resources})
 

@@ -11,8 +11,16 @@ new, new, old (A = OLD_ROOT, B = NEW_ROOT): two versions are compared only
 within one run on one card, because host clocks and power limits differ
 between machines.  Prints one JSON line per turn with, for each of the four
 simulator kernels, the mean ms per call through the wrapper (CUDA events),
-the device ms (profiler), and the plain version's ms; then the card's name
-and power limit.  Needs a CUDA card; exits non-zero if a turn fails.
+the device ms (profiler), and the plain version's ms; beside them the
+outputs each side's kernels give on the same inputs: the facility kernel's
+18 accumulator lanes at the main path's configuration, at a step of 0.1 h
+(its divisions by the step then round) and with the main path's battery at
+a tenth of its size, each lane as f32 bits (and its count of tiles run
+with the division written out, where the kernel has that lane), and a
+checksum of the power kernel's per-host power (`ci` None, as the
+megakernel calls it).  Then a
+summary line saying whether every turn gave the same bits, and the card's
+name and power limit.  Needs a CUDA card; exits non-zero if a turn fails.
 """
 from __future__ import annotations
 
@@ -24,7 +32,11 @@ import sys
 
 KERNELS = ("fused_power_carbon", "fused_facility_power", "first_fit_place",
            "fused_facility_totals")
-KEYS = ("ms", "device_ms", "plain_ms", "launch_floor_ms", "device_ms_k0")
+KEYS = ("ms", "device_ms", "plain_ms", "launch_floor_ms", "device_ms_k0",
+        "device_ms_year")
+# the facility row's lanes that come out of its chain and window walk:
+# soc_final, window peak, was_charging, demand charge, grid peak
+CHAIN_LANES = (0, 1, 2, 3, 7)
 
 CHILD = f"""
 import json, sys
@@ -36,8 +48,33 @@ from repro_torch.kernels import build
 res = {{n: {{}} for n in build.KERNELS}}
 cs.time_kernels(torch.device("cuda"), res,
                 cs.main_config(cs.MAIN_STEPS, C.EmbodiedConfig()))
-print(json.dumps({{n: {{k: res[n].get(k) for k in {KEYS!r}}}
-                  for n in {KERNELS!r}}}))
+out = {{n: {{k: res[n].get(k) for k in {KEYS!r}}} for n in {KERNELS!r}}}
+# the outputs: the same inputs on both sides, from seeds
+import dataclasses, hashlib
+from repro_torch.kernels import fused_step as fs_k, power_carbon as pc_k
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(11)
+cu, gu, ng, on = (x[0] for x in cs._host_inputs(gen, 1, 972, dev))
+on[cs.MARCONI_ACTIVE:] = 0.0
+cfg = cs.main_config(cs.MAIN_STEPS, C.EmbodiedConfig())
+power = pc_k.fused_power_carbon(cu, gu, ng, on, None, 0.0, cfg.cpu_power,
+                                cfg.gpu_power)[0]
+out["power_sha256"] = hashlib.sha256(
+    power.cpu().numpy().tobytes()).hexdigest()
+it_kw = 700.0 + 300.0 * torch.rand(cs.MAIN_STEPS, generator=gen, device=dev)
+small = dataclasses.replace(cfg.battery,
+                            capacity_kwh=cfg.battery.capacity_kwh / 10)
+rows, slow = {{}}, {{}}
+for name, c in (("main", cfg), ("dt_0.1", cfg.replace(dt_h=0.1)),
+                ("small_battery", cfg.replace(battery=small))):
+    args = cs.facility_args(c, it_kw, cs.facility_traces(cs.MAIN_STEPS, dev))
+    acc = fs_k.launch(*fs_k.prepare(*args, c))[0].cpu()
+    rows[name] = acc[:18].view(torch.int32).tolist()
+    # a later kernel's 19th lane: the tiles its chain ran slow
+    slow[name] = acc[18].item() if acc.numel() > 18 else None
+out["facility_row_bits"] = rows
+out["facility_slow_tiles"] = slow
+print(json.dumps(out))
 """
 
 
@@ -56,9 +93,20 @@ def main() -> int:
     args = ap.parse_args()
     roots = {"A": os.path.abspath(args.old_root),
              "B": os.path.abspath(args.new_root)}
+    outs = []
     for i, side in enumerate("ABBA"):
+        outs.append(turn(roots[side]))
         print(json.dumps({"turn": i, "side": side, "root": roots[side],
-                          "kernels": turn(roots[side])}), flush=True)
+                          "kernels": outs[-1]}), flush=True)
+    chain = [{name: [row[i] for i in CHAIN_LANES]
+              for name, row in o["facility_row_bits"].items()} for o in outs]
+    print(json.dumps({"bit_equal_across_turns": {
+        "power": all(o["power_sha256"] == outs[0]["power_sha256"]
+                     for o in outs),
+        "facility_chain_lanes": all(c == chain[0] for c in chain),
+        "facility_all_lanes": all(o["facility_row_bits"]
+                                  == outs[0]["facility_row_bits"]
+                                  for o in outs)}}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)

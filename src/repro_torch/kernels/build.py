@@ -106,8 +106,9 @@ def build_all(names=SOURCES) -> dict[str, dict]:
 
 
 def resources(ptxas: list[str], kernel: str) -> list[dict]:
-    """Registers, stack and spill bytes of every compiled kernel whose
-    (mangled) name holds `kernel`, from a build's `ptxas` lines."""
+    """Registers, stack, spill and static shared-memory bytes of every
+    compiled kernel whose (mangled) name holds `kernel`, from a build's
+    `ptxas` lines."""
     out, cur = [], None
     for ln in ptxas:
         if "Compiling entry function" in ln:
@@ -124,6 +125,9 @@ def resources(ptxas: list[str], kernel: str) -> list[dict]:
             m = re.search(r"Used (\d+) registers", ln)
             if m:
                 cur["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", ln)
+            if m:
+                cur["static_smem"] = int(m[1])
     return out
 
 

@@ -12,21 +12,6 @@ namespace steam {
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Sum over the block; the result is valid in thread 0.  `scratch` holds
-// one float per warp.  Ends with a barrier, so `scratch` may be reused.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (blockDim.x >> 5) ? scratch[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  }
-  __syncthreads();
-  return v;
-}
-
 // Minimum over the block; the result is valid in thread 0.
 __device__ __forceinline__ int block_min(int v, int* scratch) {
   for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_down_sync(kFull, v, o));

@@ -9,7 +9,9 @@ totals of `engine.facility_totals_from_flows`.  The four exogenous traces
 bf16 or int8 affine (core/quant.py) and dequantized on read in the kernel.
 
 Series are f32 [S] or [B, S] (one scenario per thread block).  CUDA tensors
-only (kernels/ops.py routes CPU tensors to kernels/ref.py).
+only (kernels/ops.py routes CPU tensors to kernels/ref.py).  The kernel walks
+the horizon in tiles of steps held in shared memory; `launch_plan` sizes
+them.
 """
 from __future__ import annotations
 
@@ -26,21 +28,45 @@ from . import build
 F32 = torch.float32
 POLICY_CODES = {"carbon": 0, "price": 1, "blended": 2}
 
-# lanes of the kernel's [B, 18] output row
+# lanes of the kernel's [B, 19] output row: the reference's 18 accumulator
+# lanes, then the number of tiles whose SoC chain ran with the division
+# written out (a SoC in (0, 2^-100), or a step, capacity or initial SoC
+# outside the fast division's range)
 (A_SOC, A_WPEAK, A_WASC, A_DEMAND, A_GRID, A_GRID_CI, A_GRID_PR, A_GRID_MAX,
  A_IT, A_COOL, A_WATER, A_HEAT, A_PV, A_CK, A_DK, A_EXP, A_EXP_PR,
- A_CUR) = range(18)
-N_ACC = 18
+ A_CUR, A_SLOW) = range(19)
+N_ACC = 19
+
+# the kernel's tiles (csrc/fused_step.cu): a ring of RING input tiles (five
+# f32 series and two bit-mask words per 32 steps) and two tiles of ck / dk,
+# plus one window peak a step, in dynamic shared memory
+TILE_MAX = 1024
+RING = 3
 
 
 class _FacilityConfig(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_int) for f in (
-        "n_steps", "wsteps", "cooling", "renewables", "export_allowed",
-        "battery", "pricing", "policy", "wait_for_trough")]
+        "n_steps", "wsteps", "tile", "cooling", "renewables",
+        "export_allowed", "battery", "pricing", "policy", "wait_for_trough")]
         + [(f, ctypes.c_float) for f in (
             "dt", "eff", "demand_charge", "heat_reuse", "one_minus_reuse",
             "econ_range", "tower_approach", "condenser_lift", "carnot_eff",
             "max_cop", "fan_overhead", "evap_l_per_kwh")])
+
+
+def smem_bytes(tile: int) -> int:
+    """Dynamic shared bytes of a launch with tiles of `tile` steps: the
+    kernel's `smem_floats`, which sizes the launch; this copy lets the
+    launch plan be checked against a block's shared memory."""
+    return 4 * (RING * (5 * tile + 2 * (tile // 32)) + 2 * 2 * tile + tile)
+
+
+def launch_plan(s: int) -> tuple[int, int, int]:
+    """(tile, n_tiles, dynamic shared bytes) for a horizon of `s` steps:
+    tiles of a multiple of 32 steps, at most TILE_MAX (82.7 KB: two blocks
+    fit on an SM), no longer than the horizon rounded up to 32."""
+    tile = min(TILE_MAX, max(32, -(-s // 32) * 32))
+    return tile, -(-s // tile), smem_bytes(tile)
 
 
 def _facility_config(cfg, s: int) -> _FacilityConfig:
@@ -49,7 +75,7 @@ def _facility_config(cfg, s: int) -> _FacilityConfig:
         raise ValueError(f"unknown battery dispatch policy '{b.policy}'")
     reuse = c.heat_reuse_fraction if c.enabled else 0.0
     return _FacilityConfig(
-        n_steps=s,
+        n_steps=s, tile=launch_plan(s)[0],
         wsteps=(pricing_mod.billing_window_steps(p, cfg.dt_h)
                 if p.enabled else 1),
         cooling=int(c.enabled), renewables=int(cfg.renewables.enabled),
@@ -128,11 +154,11 @@ def prepare(it_kw, ci, wet_bulb_c, price, price_lo, price_hi, pv_cf,
 
 
 def launch(tensors, fcfg: _FacilityConfig, store: int, b: int):
-    """One launch; returns the [B, 18] totals rows."""
+    """One launch; returns the [B, 19] rows (`A_*` lanes)."""
     out = torch.empty((b, N_ACC), dtype=F32, device=tensors[0].device)
     fn = build.function("fused_step", "steam_facility_totals", [
         *[ctypes.c_void_p] * 11, ctypes.POINTER(_FacilityConfig),
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        *[ctypes.c_int] * 2, ctypes.c_void_p, ctypes.c_void_p])
     code = fn(*(build.ptr(t) for t in tensors), ctypes.byref(fcfg), store, b,
               build.ptr(out), build.stream_of(out))
     build.check("fused_step", "fused_facility_totals launch", code)

@@ -22,7 +22,7 @@ from ..core.config import CoolingConfig, PowerModelConfig
 from . import build
 
 CURVE_CODES = {"linear": 0, "sqrt": 1, "square": 2, "cubic": 3}
-# facility_power_kernel's block: one host a thread, at most MAX_THREADS
+# the block of both kernels' row pass: one host a thread, at most MAX_THREADS
 MAX_THREADS = 1024
 
 
@@ -38,8 +38,8 @@ class _CoolingParams(ctypes.Structure):
         "max_cop", "fan_overhead", "evap_l_per_kwh")]
 
 
-_POWER_ARGS = [*[ctypes.c_void_p] * 5, ctypes.c_float, ctypes.c_int,
-               ctypes.c_int, ctypes.POINTER(_PowerParams),
+_POWER_ARGS = [*[ctypes.c_void_p] * 5, ctypes.c_float, *[ctypes.c_int] * 3,
+               ctypes.POINTER(_PowerParams),
                *[ctypes.c_void_p] * 4]
 _FACILITY_ARGS = [*[ctypes.c_void_p] * 6, *[ctypes.c_int] * 3,
                   ctypes.POINTER(_PowerParams),
@@ -74,9 +74,9 @@ def _cooling_params(c: CoolingConfig):
 
 
 def facility_block(h: int) -> int:
-    """Threads of facility_power_kernel's block for a row of `h` hosts: one
-    a host, rounded up to a warp, at most MAX_THREADS (a wider row takes
-    further passes)."""
+    """Threads of the row pass's block (both kernels) for a row of `h`
+    hosts: one a host, rounded up to a warp, at most MAX_THREADS (a wider
+    row takes further passes)."""
     return min(max(-(-h // 32) * 32, 32), MAX_THREADS)
 
 
@@ -117,8 +117,9 @@ def fused_power_carbon(cpu_util, gpu_util, n_gpus, on, ci, dt_h: float,
     fn = build.function("power_carbon", "steam_power_carbon", _POWER_ARGS)
     code = fn(cu.data_ptr(), gu.data_ptr(), ng.data_ptr(), o.data_ptr(),
               None if ci_row is None else ci_row.data_ptr(), float(dt_h),
-              b, h, _power_params(cpu_cfg, gpu_cfg), power.data_ptr(),
-              sums.data_ptr(), sums.data_ptr() + 4 * b, build.stream_of(cu))
+              b, h, facility_block(h), _power_params(cpu_cfg, gpu_cfg),
+              power.data_ptr(), sums.data_ptr(), sums.data_ptr() + 4 * b,
+              build.stream_of(cu))
     build.check("power_carbon", "fused_power_carbon launch", code)
     build.count_launch("fused_power_carbon")
     it, carbon = sums

@@ -69,6 +69,25 @@ def test_power_kernels_match_plain(cuda_device, h):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [7, 972, 1025, 4096])
+def test_power_kernel_without_carbon_matches_plain(cuda_device, h):
+    """The megakernel's call (ops.host_power, `ci` None): per-host power
+    and its sum as the plain version's, carbon 0."""
+    from repro_torch.kernels import power_carbon as pc
+    cpu_u, gpu_u, ngpu, on = _host_inputs(h, h + 1, cuda_device)
+    cpu = C.PowerModelConfig(80.0, 250.0, "cubic")
+    gpu = C.PowerModelConfig(40.0, 300.0, "square")
+    got = pc.fused_power_carbon(cpu_u, gpu_u, ngpu, on, None, 0.25, cpu, gpu)
+    want = ref.fused_power_carbon(cpu_u, gpu_u, ngpu, on, None, 0.25, cpu,
+                                  gpu)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=0.0)
+    assert bool((got[2] == 0).all())
+    p, it = ops.host_power(cpu_u, gpu_u, ngpu, on, cpu, gpu)
+    assert torch.equal(p, got[0]) and torch.equal(it, got[1])
+
+
 def _ff_inputs(k, h, seed, case, dev):
     """Candidates and free vectors with many ties: every slot live ("live"),
     the scheduler's inert tail with down (-inf) hosts and zero GPU demands
@@ -121,12 +140,12 @@ def test_first_fit_kernel_rows_match_plain(cuda_device, h):
                                ref.first_fit_place(*rows[i]))
 
 
-def _traces(seed: int):
+def _traces(seed: int, s: int = S):
     rng = np.random.default_rng(seed)
-    t = np.arange(S) * DT
+    t = np.arange(s) * DT
     ci = (rng.uniform(50, 600)
           * (1 + 0.5 * np.sin(2 * np.pi * t / 24 + rng.uniform(0, 6)))
-          + rng.normal(0, 10, S)).clip(5.0).astype(np.float32)
+          + rng.normal(0, 10, s)).clip(5.0).astype(np.float32)
     price = (0.1 * (1 + 0.5 * np.sin(2 * np.pi * t / 24))).astype(np.float32)
     wb = (14.0 + 6.0 * np.sin(2 * np.pi * t / 24)).astype(np.float32)
     cf = np.clip(np.sin(2 * np.pi * (t - 6.0) / 24.0), 0.0, 1.0).astype(
@@ -163,6 +182,149 @@ def test_facility_kernel_matches_plain(cuda_device, store):
     for k in want:
         torch.testing.assert_close(got[k].double(), want[k].double(),
                                    rtol=1e-4, atol=1e-3)
+
+
+# [4, S] rows of different batteries (capacity kWh, rate kW, initial SoC),
+# dispatch lambdas and PV capacities (kW); row 0's battery fills and empties
+# in one step
+ROWS = {"batt_capacity_kwh": (1.5, 6.0, 20.0, 60.0),
+        "batt_rate_kw": (6.0, 3.0, 10.0, 40.0),
+        "soc0": (0.0, 6.0, 10.0, 60.0),
+        "dispatch_lambda": (0.0, 0.3, 0.7, 1.0),
+        "pv_capacity_kw": (0.0, 10.0, 25.0, 100.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 255, 2880, 35040])
+def test_facility_kernel_rows_match_plain(cuda_device, s):
+    """Kernel 3 on the scenario grid's layout: one launch over [4, S] rows
+    that differ in every per-row parameter, each row against the plain
+    version (rtol 1e-4, atol 1e-3); S within one tile, across three and
+    across 35 (a year at 15 minutes); a battery driven to its capacity and
+    to 0."""
+    from repro_torch.core.engine import facility_totals_from_flows
+    from repro_torch.kernels import fused_step as fs
+    d = cuda_device
+    ci, dyn = _traces(11, s)
+    cfg = _cfg().replace(n_steps=s)
+    x = P.build_step_inputs(ci, cfg, dyn, device=d)
+    it_kw = torch.tensor(np.random.default_rng(s).uniform(20.0, 80.0, (4, s)),
+                         dtype=torch.float32, device=d)
+    args = (x.ci, x.wet_bulb_c, x.price, x.price_lo, x.price_hi, x.pv_cf,
+            x.batt_threshold, x.ci_rising)
+    got = fs.fused_facility_totals(
+        it_kw, *args, cfg,
+        **{k: torch.tensor(v, device=d) for k, v in ROWS.items()})
+    full = empty = False
+    for r in range(4):
+        kw = {k: v[r] for k, v in ROWS.items()}
+        flows = ref.fused_facility_chain(it_kw[r], *args, cfg.dt_h, cfg, **kw)
+        want = facility_totals_from_flows(flows, x.ci, x.price, cfg)
+        assert set(got) == set(want)
+        for k in want:
+            torch.testing.assert_close(got[k][r].double(), want[k].double(),
+                                       rtol=1e-4, atol=1e-3)
+        soc = flows["soc"]
+        full |= bool((soc == kw["batt_capacity_kwh"]).any())
+        empty |= bool(((soc[1:] == 0.0) & (soc[:-1] > 0.0)).any())
+    assert s < 255 or (full and empty)
+
+
+# rows that send kernel 3's SoC chain down each route (capacity kWh, rate
+# kW, initial SoC): an initial SoC above the capacity, so the row never
+# takes the fast division; a rate of 2^-100 kW from an empty battery, whose
+# SoC lies in (0, 2^-100) from its first charge on (those tiles run again
+# with the division written out); the same from 40 x 2^-100 kWh, which
+# first falls there past the first tile at S = 2880, a step of 0.1 h; and
+# the main path's battery, on the fast division throughout
+ROUTE_ROWS = {"batt_capacity_kwh": (60.0, 2.0 ** -60, 2.0 ** -60, 8748.0),
+              "batt_rate_kw": (240.0, 2.0 ** -100, 2.0 ** -100, 2187.0),
+              "soc0": (90.0, 0.0, 40 * 2.0 ** -100, 4374.0)}
+
+
+def _slow_tiles(soc, soc0, cap, dt, s):
+    """The tiles kernel 3 runs with the division written out, read from the
+    plain version's SoC path: all of them where the step, capacity or
+    initial SoC lies outside the fast division's range, else those with a
+    step that starts from a SoC in (0, 2^-100)."""
+    from repro_torch.kernels import fused_step as fs
+    tile, n_tiles, _ = fs.launch_plan(s)
+    if not (2.0 ** -20 <= dt <= 2.0 ** 20 and 2.0 ** -60 <= cap <= 2.0 ** 90
+            and 0.0 <= soc0 <= cap):
+        return n_tiles
+    before = np.concatenate([[np.float32(soc0)], soc[:-1]])
+    low = (before > 0) & (before < np.float32(2.0 ** -100))
+    return len(set((np.nonzero(low)[0] // tile).tolist()))
+
+
+def _demand_in_window_order(grid, ws, dc):
+    """(demand charge, last window's peak) billed as the reference bills
+    them: each window's peak taken from 0, the closed windows' charges
+    added in window order in f32."""
+    f = np.float32
+    demand, peak = f(0), f(0)
+    for w0 in range(0, len(grid), ws):
+        if w0:
+            demand = f(demand + f(peak * f(dc)))
+        peak = max(f(0), grid[w0:w0 + ws].max())
+    return demand, peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,ws,dt,slow", [
+    (1, 96, 0.25, [1, 0, 0, 0]), (90, 7, 0.1, [1, 1, 0, 0]),
+    (255, 33, 0.25, [1, 1, 0, 0]), (2880, 1, 0.1, [3, 3, 2, 0]),
+    (2880, 96, 0.1, [3, 3, 2, 0]), (3000, 5000, 2.0 ** -21, [3, 3, 3, 3])])
+def test_facility_kernel_chain_matches_the_sequential_walk(cuda_device, s, ws,
+                                                           dt, slow):
+    """Kernel 3's chain against a sequential walk, the plain version on the
+    CPU (IEEE divisions), with cooling and PV off so that the chain's inputs
+    are exact: SoC, last decision, grid peak, last window's peak and the
+    demand charge (windows billed in order) equal in f32; the other totals
+    at rtol 1e-4, atol 1e-3.  Tiles of 32, 96, 256 and 1024 steps; billing
+    windows of 1, 7, 33, 96 and 5000 steps (cut at tile edges, or longer
+    than the run); each route of the chain (ROUTE_ROWS; a step of 2^-21 h
+    is outside the fast division's range), with the count of tiles run
+    again as the SoC path says."""
+    from repro_torch.core.engine import facility_totals_from_flows
+    from repro_torch.kernels import fused_step as fs
+    d = cuda_device
+    cfg = C.SimConfig(
+        dt_h=dt, n_steps=s, cooling=C.CoolingConfig(enabled=False),
+        renewables=C.RenewableConfig(enabled=False),
+        pricing=C.PricingConfig(enabled=True, billing_window_h=ws * dt),
+        battery=C.BatteryConfig(enabled=True, policy="carbon"))
+    ci, dyn = _traces(11, s)
+    dyn.pop("pv_cf_trace")
+    x = P.build_step_inputs(ci, cfg, dyn, device="cpu")
+    it_kw = torch.tensor(np.random.default_rng(s).uniform(20.0, 80.0, (4, s)),
+                         dtype=torch.float32)
+    args = (x.ci, x.wet_bulb_c, x.price, x.price_lo, x.price_hi, x.pv_cf,
+            x.batt_threshold, x.ci_rising)
+    acc = fs.launch(*fs.prepare(
+        it_kw.to(d), *(a.to(d) for a in args), cfg,
+        **{k: torch.tensor(v, device=d) for k, v in ROUTE_ROWS.items()}))
+    acc = acc.cpu()
+    got = fs.totals_from_rows(acc, cfg)
+    assert [int(v) for v in acc[:, fs.A_SLOW]] == slow
+    for r in range(4):
+        kw = {k: v[r] for k, v in ROUTE_ROWS.items()}
+        flows = ref.fused_facility_chain(it_kw[r], *args, dt, cfg, **kw)
+        want = facility_totals_from_flows(flows, x.ci, x.price, cfg)
+        grid = flows["grid_import_kw"].numpy()
+        want["demand_cost"], want["window_peak_kw"] = _demand_in_window_order(
+            grid, ws, cfg.pricing.demand_charge_per_kw)
+        assert slow[r] == _slow_tiles(flows["soc"].numpy(), kw["soc0"],
+                                      kw["batt_capacity_kwh"], dt, s)
+        assert set(got) == set(want)
+        for k in want:
+            g = got[k][r]
+            if k in ("soc_final", "was_charging", "peak_power",
+                     "window_peak_kw", "demand_cost"):
+                assert g.item() == np.float32(want[k]).item(), k
+            else:
+                torch.testing.assert_close(g.double(), want[k].double(),
+                                           rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from repro.kernels.fused_step import fused_facility_totals as j_fused_totals
 import repro_torch.core.config as pconfig
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import first_fit as ff
+from repro_torch.kernels import fused_step as fs
 from repro_torch.kernels import power_carbon as pc
 
 torch.set_num_threads(1)
@@ -230,6 +231,103 @@ def test_facility_block_covers_the_row(h):
     threads = pc.facility_block(h)
     assert threads % 32 == 0 and 32 <= threads <= pc.MAX_THREADS
     assert min(h, pc.MAX_THREADS) <= threads < min(h, pc.MAX_THREADS) + 32
+
+
+class _Launch:
+    """Stands in for a C entry point on the CPU: records its arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def recorded_launch(monkeypatch):
+    """The wrappers' launch path with the C entry points recorded instead
+    of called (no card here): returns the recorder."""
+    fn = _Launch()
+    monkeypatch.setattr(build, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(build, "function", lambda *a: fn)
+    monkeypatch.setattr(build, "stream_of", lambda t: None)
+    yield fn
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("h", [7, 972, 1024, 1025, 5000])
+def test_power_carbon_launches_the_row_pass_block(recorded_launch, h):
+    """Kernel 1 takes the row pass's block, one host a thread, as facility
+    power does; the megakernel's call passes no carbon intensity."""
+    cpu_u, gpu_u, ngpu, on = (T(x) for x in _host_inputs(h, h))
+    cfg = pconfig.PowerModelConfig(80.0, 250.0, "sqrt")
+    pc.fused_power_carbon(cpu_u, gpu_u, ngpu, on, None, 0.25, cfg, cfg)
+    pc.fused_power_carbon(cpu_u, gpu_u, ngpu, on, T(350.0), 0.25, cfg, cfg)
+    without, with_ci = recorded_launch.calls
+    assert without[4] is None and with_ci[4] is not None
+    for args in recorded_launch.calls:
+        assert args[6:9] == (1, h, pc.facility_block(h))
+
+
+@pytest.mark.parametrize("s", [0, 1, 31, 32, 33, 255, 1023, 1024, 1025, 2880,
+                               35040, 35041, 105120, 10 ** 6])
+def test_facility_launch_plan_covers_the_horizon(s):
+    """Kernel 3's tiles: a multiple of 32 steps, at most TILE_MAX, no longer
+    than the horizon needs; ceil(S / tile) of them cover S with the last one
+    partial; their ring fits a block's shared memory."""
+    tile, n_tiles, smem = fs.launch_plan(s)
+    assert tile % 32 == 0 and 32 <= tile <= fs.TILE_MAX
+    assert tile == min(fs.TILE_MAX, max(32, -(-s // 32) * 32))
+    assert n_tiles * tile >= s and (n_tiles == 0 or (n_tiles - 1) * tile < s)
+    # a block may take 227 KB of an H100 SM's 228 KB; two of the largest
+    # plan fit on one SM
+    assert smem == fs.smem_bytes(tile) <= 227 * 1024
+    assert 2 * fs.smem_bytes(fs.TILE_MAX) <= 228 * 1024
+
+
+@pytest.mark.parametrize("s", [1, 255, 2880])
+def test_facility_launch_passes_the_plan(recorded_launch, s):
+    """The launch carries its plan's tile in the config block (the C entry
+    point sizes shared memory from it) and returns a row of N_ACC lanes."""
+    rng = np.random.default_rng(s)
+    x = [T(rng.uniform(lo, hi, s).astype(np.float32)) for lo, hi in (
+        (20, 80), (50, 600), (5, 25), (0.05, 0.2), (0.04, 0.1), (0.1, 0.3),
+        (0, 1), (50, 600))] + [T(rng.uniform(size=s) < 0.5)]
+    cfg = _cfg(pconfig, True, True, True, "blended")
+    acc = fs.launch(*fs.prepare(*x, cfg))
+    (args,) = recorded_launch.calls
+    assert len(args) == 16
+    fcfg, store, b = args[11]._obj, args[12], args[13]
+    assert (fcfg.n_steps, fcfg.tile, store, b) == (s, fs.launch_plan(s)[0],
+                                                   0, 1)
+    assert acc.shape == (1, fs.N_ACC) == (1, fs.A_SLOW + 1)
+
+
+@pytest.mark.parametrize("pricing", [False, True])
+@pytest.mark.parametrize("renewables", [False, True])
+def test_facility_rows_map_to_the_totals(pricing, renewables):
+    """Each total reads its own accumulator lane (times the step where it is
+    an energy); the count of slow tiles reaches no total."""
+    cfg = _cfg(pconfig, True, pricing, renewables, "carbon")
+    acc = torch.arange(1, 2 * fs.N_ACC + 1, dtype=torch.float32).reshape(
+        2, fs.N_ACC)
+    got = fs.totals_from_rows(acc, cfg)
+    want = ref.fused_facility_totals(
+        *[torch.ones(8)] * 8, torch.ones(8, dtype=torch.bool), cfg)
+    assert set(got) == set(want)
+    dt = np.float32(cfg.dt_h)
+    lanes = {"soc_final": fs.A_SOC, "peak_power": fs.A_GRID_MAX,
+             "grid_energy": fs.A_GRID, "it_energy": fs.A_IT,
+             "batt_discharged": fs.A_DK, "curtailed_energy": fs.A_CUR}
+    if pricing:
+        lanes.update(demand_cost=fs.A_DEMAND, window_peak_kw=fs.A_WPEAK)
+    for key, lane in lanes.items():
+        scale = 1.0 if key in ("soc_final", "peak_power", "demand_cost",
+                               "window_peak_kw") else dt
+        torch.testing.assert_close(got[key], acc[:, lane] * scale)
+    assert not any(bool((v == acc[:, fs.A_SLOW]).any()) for k, v in
+                   got.items() if k != "was_charging")
 
 
 def test_power_params_are_built_once_per_configuration():
