@@ -22,6 +22,16 @@ Phases, each printing one JSON line:
                  at 15 minutes = 2880 steps) with every technique on, through
                  both step executors; launch counts are reset just before
                  and read just after each run and must be exact.
+  4b. grid   -- the scenario grid of paper Fig 12 at the main phase's
+                 configuration: 8 carbon regions x battery capacities, as
+                 B = 1, 16 and 64 cells in one step loop, through both
+                 executors: wall time, aggregate simulated years a second,
+                 peak memory, a 192-step profile (host ms a step, device
+                 idle share), launch counts equal to one run's; cell 0
+                 equal to the main run, every cell of the B = 16
+                 megakernel grid equal to its own run, B = 64's repeated
+                 cells equal to B = 16's, the backends equal cell by cell;
+                 then a small 16-cell grid on the card and on the CPU.
   5. small    -- the same configuration at a small scale on the card and on
                  the CPU (the plain versions, which the CPU tests hold to the
                  reference package): counts exact, the rest within 1e-4.
@@ -71,8 +81,9 @@ import torch  # noqa: E402
 from repro_torch.carbontraces import make_region_traces  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import config as C  # noqa: E402
-from repro_torch.core import (battery, pricing,  # noqa: E402
-                              result_to_numpy, simulate, summarize)
+from repro_torch.core import (ScenarioGrid, battery,  # noqa: E402
+                              dyn_axis, pricing, result_to_numpy, simulate,
+                              summarize, sweep_grid, trace_axis)
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import first_fit as ff_k  # noqa: E402
 from repro_torch.kernels import flash_attn as fa_k  # noqa: E402
@@ -870,7 +881,7 @@ def profile_window(tasks, hosts, cfg, dyn, ci, n_steps: int, dev) -> list:
 
 
 def main_path(dev, scale: float, n_steps: int, n_active: int,
-              check_counts: bool, profile_steps: int = 0):
+              check_counts: bool):
     tasks, hosts, _, meta = make_workload("marconi", scale=scale, seed=0,
                                           dt_h=DT_H,
                                           horizon_days=n_steps * DT_H / 24,
@@ -900,10 +911,238 @@ def main_path(dev, scale: float, n_steps: int, n_active: int,
         check(1.0 < float(res["pue"]) < 2.0, f"{backend}: pue {res['pue']}")
     compare_backends(results["stage-pipeline"], results["megakernel"], 1e-4,
                      "backends")
-    if profile_steps:
-        meta["profile"] = profile_window(tasks, hosts, cfg, dyn, ci,
-                                         profile_steps, dev)
     return meta, results, infos
+
+
+# --------------------------------------------------------------------------
+# phase 4b: the scenario grid (paper Fig 12: regions x battery sizes)
+# --------------------------------------------------------------------------
+
+GRID_REGIONS = 8
+# the main phase's 8748 kWh battery first, then further sizes; a grid of C
+# capacities takes the first C, so each grid's cells repeat the smaller
+# grids' and its cell 0 is the main phase's run
+GRID_CAP_FACTORS = (1.0, 0.5, 0.25, 0.125, 1.5, 2.0, 3.0, 4.0)
+GRID_SHAPES = ((1, 1), (8, 2), (8, 8))
+
+
+def grid_axes(n_regions: int, n_caps: int, n_steps: int, kwh: float):
+    """The Fig 12 axes: the first `n_regions` of the 8 synthetic carbon
+    regions (region 0 is the main phase's trace) x the first `n_caps`
+    battery capacities."""
+    ci = make_region_traces(n_steps, DT_H, GRID_REGIONS, seed=0)
+    caps = np.float32(kwh) * np.float32(GRID_CAP_FACTORS[:n_caps])
+    return [trace_axis(ci[:n_regions]), dyn_axis(batt_capacity_kwh=caps)]
+
+
+def grid_run(tasks, hosts, cfg, dyn, axes, backend, dev) -> tuple:
+    """One grid run: (numpy fields [R, C], info) with wall time, aggregate
+    simulated years a second, launch counts and peak device memory."""
+    cfg = cfg.replace(backend=backend)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sweep_grid(tasks, hosts, cfg, axes, dyn=dyn, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    out = result_to_numpy(res)
+    b = int(np.prod(out["n_done"].shape))
+    years = b * cfg.n_steps * cfg.dt_h / C.HOURS_PER_YEAR
+    return out, {"backend": backend, "cells": b,
+                 "shape": list(out["n_done"].shape), "wall_s": wall,
+                 "sim_years_per_s": years / wall, "launches": counts,
+                 "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                          if dev.type == "cuda" else None)}
+
+
+def cell(res: dict, idx) -> dict:
+    return {k: v[idx] for k, v in res.items()}
+
+
+def check_grid_launches(info: dict, n_steps: int, n_chunks: int) -> None:
+    """A grid run launches each kernel as often as one run does: once a
+    step (the facility kernel once a chunk), whatever the number of cells."""
+    want = {"first_fit_place": n_steps}
+    if info["backend"] == "stage-pipeline":
+        want["fused_facility_power"] = n_steps
+    else:
+        want.update(fused_power_carbon=n_steps,
+                    fused_facility_totals=n_chunks)
+    got = {k: v for k, v in info["launches"].items() if v}
+    check(got == want, f"grid {info['shape']} {info['backend']}: launches "
+          f"{got} != {want}")
+
+
+def grid_phase(dev, main: dict, scale: float, n_steps: int, n_active: int,
+               check_counts: bool, profile_steps: int = 0) -> tuple:
+    """The Fig 12 grid at the main phase's configuration for each shape of
+    GRID_SHAPES (B = 1, 16, 64) and each backend: every cell finite, cell
+    0 (and the whole B = 1 grid) equal to the main phase's run `main`
+    ({backend: fields}), every cell of the megakernel's B = 16 grid equal to
+    its own `simulate`, the B = 64 cells that repeat B = 16's equal to them,
+    and the backends equal cell by cell ("equal": `compare_backends`).
+    The timed runs come first, then the checks' single runs, then the
+    profiles: the main phase's single run (`profile_window`) and each grid
+    (`grid_profile`), so no timed run follows a profiled one.  Returns
+    (info rows, launch counts summed over the timed grid runs, the single
+    run's profile rows, seconds of each part)."""
+    tasks, hosts, _, meta = make_workload("marconi", scale=scale, seed=0,
+                                          dt_h=DT_H,
+                                          horizon_days=n_steps * DT_H / 24,
+                                          device=dev)
+    cfg = main_config(n_steps, meta["embodied"], meta["n_hosts"])
+    _, wb, price, cf = facility_traces(n_steps, dev)
+    dyn = {"n_active_hosts": n_active, "price_trace": price,
+           "wet_bulb_trace": wb, "pv_cf_trace": cf}
+    kwh = cfg.battery.capacity_kwh
+    rows, launches, res = [], dict.fromkeys(build.KERNELS, 0), {}
+    t0 = time.perf_counter()
+    for r, c in GRID_SHAPES:
+        axes = grid_axes(r, c, n_steps, kwh)
+        grid = ScenarioGrid(axes, base_dyn=dyn)
+        n_chunks = -(-r // grid._auto_chunk_size(tasks, hosts, cfg, None))
+        for backend in ("stage-pipeline", "megakernel"):
+            out, info = grid_run(tasks, hosts, cfg, dyn, axes, backend, dev)
+            info["n_chunks"] = n_chunks
+            if check_counts:
+                check_grid_launches(info, n_steps, n_chunks)
+            for k, n in info["launches"].items():
+                launches[k] += n
+            for k in HEADLINE:
+                check(bool(np.all(np.isfinite(out[k]))),
+                      f"grid {info['shape']} {backend}: {k} not finite")
+            compare_backends(cell(out, (0, 0)), main[backend], 1e-4,
+                             f"grid {info['shape']} {backend} cell 0 vs the "
+                             "main run")
+            res[(r, c, backend)] = out
+            rows.append(info)
+        compare_backends(res[(r, c, "stage-pipeline")],
+                         res[(r, c, "megakernel")], 1e-4,
+                         f"grid {r}x{c}: backends")
+    seconds = {"grid_runs": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    small, big = res[(8, 2, "megakernel")], res[(8, 8, "megakernel")]
+    for backend in ("stage-pipeline", "megakernel"):
+        compare_backends(cell(res[(8, 8, backend)], np.s_[:, :2]),
+                         res[(8, 2, backend)], 1e-4,
+                         f"{backend}: B = 64 cells vs B = 16")
+    # every cell of the megakernel's B = 16 grid against its own run
+    ci = make_region_traces(n_steps, DT_H, GRID_REGIONS, seed=0)
+    mega = cfg.replace(backend="megakernel")
+    for i, j in np.ndindex(*small["n_done"].shape):
+        final, _ = simulate(tasks, hosts, ci[i], mega, device=dev, dyn={
+            **dyn, "batt_capacity_kwh":
+                np.float32(kwh) * np.float32(GRID_CAP_FACTORS[j])})
+        compare_backends(cell(small, (i, j)),
+                         result_to_numpy(summarize(final, mega)), 1e-4,
+                         f"grid 8x2 cell ({i}, {j}) vs its own simulate")
+    check(not np.array_equal(big["total_carbon_kg"][0],
+                             big["total_carbon_kg"][1])
+          and not np.array_equal(big["total_carbon_kg"][:, 0],
+                                 big["total_carbon_kg"][:, 1]),
+          "grid cells do not differ along both axes")
+    seconds["singles"] = time.perf_counter() - t0
+    profile = []
+    if profile_steps:
+        t0 = time.perf_counter()
+        profile = profile_window(tasks, hosts, cfg, dyn,
+                                 torch.as_tensor(ci[0], device=dev),
+                                 profile_steps, dev)
+        for info in rows:
+            r, c = info["shape"]
+            info["profile"] = grid_profile(tasks, hosts, cfg, dyn, r, c,
+                                           info["backend"], profile_steps,
+                                           dev)
+        seconds["profiles"] = time.perf_counter() - t0
+    return rows, launches, profile, seconds
+
+
+def grid_profile(tasks, hosts, cfg, dyn, r: int, c: int, backend: str,
+                 n_steps: int, dev) -> dict:
+    """Where the time goes in a grid run: its first `n_steps` steps under
+    the profiler (after one unprofiled run)."""
+    cfg = cfg.replace(n_steps=n_steps, backend=backend)
+    dyn = {k: (v[:n_steps] if isinstance(v, torch.Tensor) else v)
+           for k, v in dyn.items()}
+    axes = grid_axes(r, c, n_steps, cfg.battery.capacity_kwh)
+    run = lambda: sweep_grid(tasks, hosts, cfg, axes, dyn=dyn,  # noqa: E731
+                             device=dev)
+    run()
+    row = profiled(run, watch=("first_fit", "facility_power_kernel",
+                               "power_carbon_kernel",
+                               "facility_totals_kernel"))
+    return {"n_steps": n_steps, "host_ms_per_step": row["wall_s"] / n_steps
+            * 1e3, **row}
+
+
+def small_grid_card_vs_cpu(dev) -> dict:
+    """The 8 x 2 grid at a small scale (0.05, 192 steps, 38 active hosts)
+    on `dev` (the card) and with the plain versions on the CPU, cell by
+    cell."""
+    out, seconds = {}, {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        tasks, hosts, _, meta = make_workload("marconi", scale=0.05, seed=0,
+                                              dt_h=DT_H, horizon_days=2.0,
+                                              device=d)
+        cfg = main_config(192, meta["embodied"], meta["n_hosts"])
+        _, wb, price, cf = facility_traces(192, d)
+        dyn = {"n_active_hosts": 38, "price_trace": price,
+               "wet_bulb_trace": wb, "pv_cf_trace": cf}
+        axes = grid_axes(8, 2, 192, cfg.battery.capacity_kwh)
+        for backend in ("stage-pipeline", "megakernel"):
+            out[(side, backend)] = grid_run(tasks, hosts, cfg, dyn, axes,
+                                            backend, d)[0]
+        seconds[side] = time.perf_counter() - t0
+    for backend in ("stage-pipeline", "megakernel"):
+        compare_backends(out[("card", backend)], out[("cpu", backend)], 1e-4,
+                         f"small grid card vs cpu ({backend})")
+    return {"cells": int(out[("cpu", "megakernel")]["n_done"].size),
+            "n_done": out[("card", "megakernel")]["n_done"].tolist(),
+            "seconds": seconds}
+
+
+def time_kernels_at_rows(dev, main_cfg, b: int) -> dict:
+    """Device ms of kernels 1-4 a launch at the grid's row shapes: [b, 972]
+    hosts (750 on), [b, 64] candidates, [b, 2880] steps with a battery per
+    row."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h, k, s = 972, 64, MAIN_STEPS
+    cu, gu, ng, on = _host_inputs(gen, b, h, dev)
+    on[:, MARCONI_ACTIVE:] = 0.0
+    ng.fill_(4.0)
+    cpu, gpu = main_cfg.cpu_power, main_cfg.gpu_power
+    wb = torch.full((b,), 20.0, device=dev)
+    sp = torch.full((b,), main_cfg.cooling.setpoint_c, device=dev)
+    cc = torch.tensor([4, 8, 16, 32, 48], device=dev, dtype=torch.float32)[
+        torch.randint(0, 5, (b, k), generator=gen, device=dev)]
+    cg = torch.randint(0, 5, (b, k), generator=gen, device=dev).float()
+    fc = torch.randint(0, 49, (b, h), generator=gen, device=dev).float()
+    fg = torch.randint(0, 5, (b, h), generator=gen, device=dev).float()
+    fc[:, MARCONI_ACTIVE:] = -float("inf")
+    fg[:, MARCONI_ACTIVE:] = -float("inf")
+    it_kw = 700.0 + 300.0 * torch.rand((b, s), generator=gen, device=dev)
+    args = facility_args(main_cfg, it_kw, facility_traces(s, dev))
+    caps = torch.tensor(np.float32(main_cfg.battery.capacity_kwh)
+                        * np.float32(GRID_CAP_FACTORS), device=dev)
+    prepared = fs_k.prepare(*args, main_cfg,
+                            batt_capacity_kwh=caps.repeat(b // 8 + 1)[:b])
+    return {"rows": b, "device_ms": {
+        "fused_power_carbon": device_ms(lambda: pc_k.fused_power_carbon(
+            cu, gu, ng, on, None, 0.0, cpu, gpu), "power_carbon_kernel"),
+        "fused_facility_power": device_ms(
+            lambda: pc_k.fused_facility_power(cu, gu, ng, on, wb, sp, cpu,
+                                              gpu, main_cfg.cooling),
+            "facility_power_kernel"),
+        "first_fit_place": device_ms(lambda: ff_k.first_fit_place(
+            cc, cg, fc, fg), "first_fit_warp_kernel"),
+        "fused_facility_totals": device_ms(lambda: fs_k.launch(*prepared),
+                                           "facility_totals_kernel",
+                                           reps=10)}}
 
 
 # --------------------------------------------------------------------------
@@ -1201,10 +1440,14 @@ def main() -> int:
     args = ap.parse_args()
     if args.device == "cpu":
         cpu = torch.device("cpu")
-        meta, _, infos = main_path(cpu, 0.02, 192, 15, False)
+        meta, results, infos = main_path(cpu, 0.02, 192, 15, False)
         for info in infos:
             emit({"phase": "main", "rehearsal": True, "n_tasks":
                   meta["n_tasks"], **info})
+        for row in grid_phase(cpu, results, 0.02, 192, 15, False)[0]:
+            emit({"phase": "grid", "rehearsal": True, **row})
+        emit({"phase": "small_grid_card_vs_cpu", "rehearsal": True,
+              **small_grid_card_vs_cpu(cpu)})
         for arch, contract in (("zamba2-7b", 64), ("mamba2-2.7b", 0)):
             info, _ = serve(cpu, reduced(arch), 64, contract, 4)
             emit({"phase": "serve", "rehearsal": True, **info})
@@ -1259,7 +1502,7 @@ def main() -> int:
           "results": kres})
 
     meta, results, infos = main_path(dev, 1.0, MAIN_STEPS, MARCONI_ACTIVE,
-                                     True, profile_steps=192)
+                                     True)
     check(meta["n_tasks"] == 192817 and meta["n_hosts"] == 972,
           f"Marconi at full scale: {meta['n_tasks']} tasks, "
           f"{meta['n_hosts']} hosts")
@@ -1268,8 +1511,22 @@ def main() -> int:
               meta["n_tasks"], "n_hosts": meta["n_hosts"],
               "n_steps": MAIN_STEPS, "n_active_hosts": MARCONI_ACTIVE,
               **info})
-    for row in meta["profile"]:
+
+    # the scenario grid at the main configuration: B = 1, 16, 64 cells in
+    # one step loop each, on both backends; then the profiles of the main
+    # run and of each grid
+    t0 = time.perf_counter()
+    grid_rows, grid_launches, profile, seconds = grid_phase(
+        dev, results, 1.0, MAIN_STEPS, MARCONI_ACTIVE, True,
+        profile_steps=192)
+    for row in profile:
         emit({"phase": "profile", **row})
+    for row in grid_rows:
+        emit({"phase": "grid", "workload": "marconi", "n_tasks":
+              meta["n_tasks"], "n_steps": MAIN_STEPS, **row})
+    emit({"phase": "small_grid_card_vs_cpu", "ok": True,
+          **small_grid_card_vs_cpu(dev), "grid_phase_seconds": seconds,
+          "grid_phase_s": time.perf_counter() - t0})
 
     # the small run on the card against the plain versions on the CPU
     small = {}
@@ -1285,7 +1542,8 @@ def main() -> int:
     # the serving path: zamba2-7b as configured (contract, prefill, greedy
     # decode), then mamba2-2.7b's prefill; each timed prefill's launch
     # counts are reset just before it and read just after
-    launches = {k: sum(i["launches"][k] for i in infos) for k in build.KERNELS}
+    launches = {k: sum(i["launches"][k] for i in infos) + grid_launches[k]
+                for k in build.KERNELS}
     for cfg, contract, greedy in ((get_config("zamba2-7b"), CONTRACT_LEN,
                                    GREEDY_TOKENS),
                                   (get_config("mamba2-2.7b"), 0, 0)):
@@ -1299,6 +1557,9 @@ def main() -> int:
 
     main_cfg = main_config(MAIN_STEPS, meta["embodied"])
     time_kernels(dev, kres, main_cfg)
+    rows64 = time_kernels_at_rows(dev, main_cfg, 64)
+    for name, ms in rows64["device_ms"].items():
+        kres[name]["device_ms_b64"] = ms
     time_model_kernels(dev, kres)
     emit({"phase": "timing", "results": kres})
     sources = {"fused_power_carbon": ("power_carbon.cu",
@@ -1327,7 +1588,8 @@ def main() -> int:
                      "library_ms": r["library_ms"],
                      "device_ms": r["device_ms"], "kernel_ms": r["ms"],
                      "bound_us": r["bound_ms"] * 1e3,
-                     "launch_floor_ms": r.get("launch_floor_ms")})
+                     "launch_floor_ms": r.get("launch_floor_ms"),
+                     "device_ms_b64": r.get("device_ms_b64")})
         check(all(math.isfinite(v) for v in (r["ms"], r["plain_ms"],
                                               r["bound_ms"])),
               f"{name}: timing not finite")

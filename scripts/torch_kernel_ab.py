@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's simulator kernels of two checkouts in turns on one card.
+"""Time the port's simulator kernels and main path of two checkouts in turns
+on one card.
 
     python3 scripts/torch_kernel_ab.py OLD_ROOT NEW_ROOT
 
@@ -18,9 +19,15 @@ outputs each side's kernels give on the same inputs: the facility kernel's
 a tenth of its size, each lane as f32 bits (and its count of tiles run
 with the division written out, where the kernel has that lane), and a
 checksum of the power kernel's per-host power (`ci` None, as the
-megakernel calls it).  Then a
-summary line saying whether every turn gave the same bits, and the card's
-name and power limit.  Needs a CUDA card; exits non-zero if a turn fails.
+megakernel calls it).  Each turn first runs that checkout's
+`chip_smoke.main_path` MAIN_REPS times (before any profiling: a run timed
+after the profiler has been used pays its leftover host cost): one
+full-scale Marconi `simulate` per step executor (192,817 tasks, 972 hosts,
+750 on, 2880 steps) each time, after building that checkout's kernels,
+giving every run's wall seconds and the outcome counts.  Then one line
+per side and executor with its runs' walls sorted, a summary line saying
+whether every turn gave the same bits and counts, and the card's name and
+power limit.  Needs a CUDA card; exits non-zero if a turn fails.
 """
 from __future__ import annotations
 
@@ -34,6 +41,9 @@ KERNELS = ("fused_power_carbon", "fused_facility_power", "first_fit_place",
            "fused_facility_totals")
 KEYS = ("ms", "device_ms", "plain_ms", "launch_floor_ms", "device_ms_k0",
         "device_ms_year")
+# full-scale runs of each step executor a turn (the host's spread between
+# runs is as large as the effects compared)
+MAIN_REPS = 3
 # the facility row's lanes that come out of its chain and window walk:
 # soc_final, window peak, was_charging, demand charge, grid peak
 CHAIN_LANES = (0, 1, 2, 3, 7)
@@ -45,6 +55,16 @@ import torch
 import chip_smoke as cs
 from repro_torch.core import config as C
 from repro_torch.kernels import build
+# the main path first: a run timed after the profiler has been used pays
+# its leftover host cost
+dev = torch.device("cuda")
+build.build_all()  # the first run would otherwise build the kernels
+walls = {{}}
+for _ in range({MAIN_REPS}):
+    _, results, infos = cs.main_path(dev, 1.0, cs.MAIN_STEPS,
+                                     cs.MARCONI_ACTIVE, True)
+    for i in infos:
+        walls.setdefault(i["backend"], []).append(i["wall_s"])
 res = {{n: {{}} for n in build.KERNELS}}
 cs.time_kernels(torch.device("cuda"), res,
                 cs.main_config(cs.MAIN_STEPS, C.EmbodiedConfig()))
@@ -74,6 +94,10 @@ for name, c in (("main", cfg), ("dt_0.1", cfg.replace(dt_h=0.1)),
     slow[name] = acc[18].item() if acc.numel() > 18 else None
 out["facility_row_bits"] = rows
 out["facility_slow_tiles"] = slow
+out["main_path_wall_s"] = walls
+out["main_path_counts"] = {{b: [float(r[k]) for k in ("n_done", "n_started",
+                                                      "n_decided")]
+                           for b, r in results.items()}}
 print(json.dumps(out))
 """
 
@@ -100,13 +124,22 @@ def main() -> int:
                           "kernels": outs[-1]}), flush=True)
     chain = [{name: [row[i] for i in CHAIN_LANES]
               for name, row in o["facility_row_bits"].items()} for o in outs]
+    for side in "AB":
+        for backend in ("stage-pipeline", "megakernel"):
+            runs = sorted(w for o, sd in zip(outs, "ABBA") if sd == side
+                          for w in o["main_path_wall_s"][backend])
+            print(json.dumps({"side": side, "backend": backend,
+                              "main_path_wall_s_sorted": runs}), flush=True)
     print(json.dumps({"bit_equal_across_turns": {
         "power": all(o["power_sha256"] == outs[0]["power_sha256"]
                      for o in outs),
         "facility_chain_lanes": all(c == chain[0] for c in chain),
         "facility_all_lanes": all(o["facility_row_bits"]
                                   == outs[0]["facility_row_bits"]
-                                  for o in outs)}}), flush=True)
+                                  for o in outs),
+        "main_path_counts": all(o["main_path_counts"]
+                                == outs[0]["main_path_counts"]
+                                for o in outs)}}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)

@@ -14,8 +14,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .core import (SimConfig, make_host_table, make_task_table,  # noqa: E402
-                   simulate, summarize)
+                   simulate, summarize, sweep_grid)
 from .workloads import make_workload  # noqa: E402
 
 __all__ = ["SimConfig", "make_host_table", "make_task_table", "make_workload",
-           "simulate", "summarize"]
+           "simulate", "summarize", "sweep_grid"]

@@ -8,9 +8,13 @@ from .config import (BatteryConfig, CoolingConfig, EmbodiedConfig,
 from .engine import (BACKENDS, EnergyFlow, StepInputs, build_step_fn,
                      build_step_inputs, default_pipeline,
                      facility_totals_from_flows, init_energy_flow, simulate)
+from .grid import (Axis, ScenarioGrid, dyn_axis, fleet_axis, price_axis,
+                   region_axis, renewable_axis, seed_axis, sweep_grid,
+                   tasktrace_axis, trace_axis, weather_axis)
 from .metrics import SimResult, result_to_numpy, summarize
 from .pricing import precompute_price_signals
-from .quant import STORES, QuantizedTrace, dequantize_trace, quantize_trace
+from .quant import (STORES, QuantizedTrace, dequantize_trace,
+                    maybe_dequantize, quantize_trace)
 from .scaling import with_scale
 from .shifting import forward_window_quantile, forward_window_quantiles
 from .state import (DONE, INVALID, JOB_BATCH, JOB_CLASS_NAMES,
@@ -19,6 +23,8 @@ from .state import (DONE, INVALID, JOB_BATCH, JOB_CLASS_NAMES,
                     TaskTable, active_host_mask, init_sim_state,
                     make_host_table, make_task_table, pad_task_table,
                     retime_task_table, tables_from_numpy)
+from .sweep import (lower_sweep, sharded_sweep, sweep_battery_sizes,
+                    sweep_regions, sweep_regions_x_battery, sweep_step_fn)
 
 __all__ = [
     "battery_flow_step", "dispatch_decision", "precompute_battery_signals",
@@ -27,13 +33,18 @@ __all__ = [
     "ProbeConfig", "RenewableConfig", "ResilienceConfig", "SchedulerConfig",
     "ShiftingConfig", "SimConfig", "techniques", "BACKENDS", "EnergyFlow",
     "StepInputs", "build_step_fn", "build_step_inputs", "default_pipeline",
-    "facility_totals_from_flows", "init_energy_flow", "simulate",
+    "facility_totals_from_flows", "init_energy_flow", "simulate", "Axis", "ScenarioGrid", "dyn_axis", "fleet_axis",
+    "price_axis", "region_axis", "renewable_axis", "seed_axis", "sweep_grid",
+    "tasktrace_axis", "trace_axis", "weather_axis",
     "SimResult", "result_to_numpy", "summarize", "precompute_price_signals",
-    "STORES", "QuantizedTrace", "dequantize_trace", "quantize_trace",
+    "STORES", "QuantizedTrace", "dequantize_trace", "maybe_dequantize",
+    "quantize_trace",
     "with_scale", "forward_window_quantile", "forward_window_quantiles",
     "DONE", "INVALID", "JOB_BATCH", "JOB_CLASS_NAMES", "JOB_INTERACTIVE",
     "JOB_TRAINING", "N_JOB_CLASSES", "PENDING", "RUNNING", "BatteryState",
     "HostTable", "MetricsAcc", "SimState", "TaskTable", "active_host_mask",
     "init_sim_state", "make_host_table", "make_task_table", "pad_task_table",
-    "retime_task_table", "tables_from_numpy",
+    "retime_task_table", "tables_from_numpy", "lower_sweep",
+    "sharded_sweep", "sweep_battery_sizes", "sweep_regions",
+    "sweep_regions_x_battery", "sweep_step_fn",
 ]

@@ -37,37 +37,41 @@ def _row_prefix(x: torch.Tensor) -> torch.Tensor:
 
 
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """f32 inclusive cumsum with the association of the reference's CPU
-    lowering: 16-wide blocks summed left to right, the block totals scanned
-    the same way recursively, each block offset by the exclusive total of
-    the blocks before it.  `torch.cumsum` associates differently, and the
-    trailing-mean threshold below feeds strict comparisons, so the order is
-    kept and the threshold stays bit-equal to the reference's."""
-    n = x.shape[0]
+    """f32 inclusive cumsum along the last axis with the association of the
+    reference's CPU lowering: 16-wide blocks summed left to right, the block
+    totals scanned the same way recursively, each block offset by the
+    exclusive total of the blocks before it.  `torch.cumsum` associates
+    differently, and the trailing-mean threshold below feeds strict
+    comparisons, so the order is kept and the threshold stays bit-equal to
+    the reference's.  Each row of an [..., n] input is scanned on its own,
+    exactly as a lone [n] series."""
+    n = x.shape[-1]
     if n <= _SCAN_BLOCK:
         return _row_prefix(x)
     m = -(-n // _SCAN_BLOCK)
-    rows = torch.cat([x, x.new_zeros(m * _SCAN_BLOCK - n)]).reshape(
-        m, _SCAN_BLOCK)
+    lead = x.shape[:-1]
+    rows = torch.cat([x, x.new_zeros(*lead, m * _SCAN_BLOCK - n)],
+                     -1).reshape(*lead, m, _SCAN_BLOCK)
     within = _row_prefix(rows)
-    totals = blocked_cumsum(within[:, -1].contiguous())
-    before = torch.cat([totals.new_zeros(1), totals[:-1]])
-    return (within + before[:, None]).reshape(-1)[:n]
+    totals = blocked_cumsum(within[..., -1].contiguous())
+    before = torch.cat([totals.new_zeros(*lead, 1), totals[..., :-1]], -1)
+    return (within + before[..., None]).reshape(*lead, -1)[..., :n]
 
 
 def precompute_battery_signals(ci_trace, dt_h: float, cfg: BatteryConfig):
-    """(threshold[S], ci_rising[S]): trailing-window mean carbon intensity
-    (expanding before a full window exists), and whether the trace stopped
-    decreasing at t."""
+    """(threshold[..., S], ci_rising[..., S]): trailing-window mean carbon
+    intensity (expanding before a full window exists), and whether the
+    trace stopped decreasing at t; one row per [..., S] series."""
     ci = ci_trace.to(torch.float32)
-    s = ci.shape[0]
+    s = ci.shape[-1]
     w = max(int(round(cfg.threshold_window_h / dt_h)), 1)
-    csum = torch.cat([ci.new_zeros(1), blocked_cumsum(ci)])
+    csum = torch.cat([ci.new_zeros(*ci.shape[:-1], 1), blocked_cumsum(ci)],
+                     -1)
     idx = torch.arange(s, device=ci.device)
     lo = torch.clamp(idx + 1 - w, min=0)
     window = (idx + 1 - lo).to(torch.float32)
-    threshold = (csum[idx + 1] - csum[lo]) / window
-    prev = torch.cat([ci[:1], ci[:-1]])
+    threshold = (csum[..., idx + 1] - csum[..., lo]) / window
+    prev = torch.cat([ci[..., :1], ci[..., :-1]], -1)
     return threshold, ci >= prev
 
 

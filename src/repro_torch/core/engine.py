@@ -37,6 +37,14 @@ per-step series.
 No stage reads a value back from the device: the loop enqueues work and
 never waits for it.
 
+Scenario rows.  One run carries B scenarios at once (`run_cells`): the
+cells of a scenario grid (core/grid.py), or the one scenario of `simulate`
+(B = 1, the leading axis squeezed at the end).  The state's layout is that
+of core/state.py: written task columns [B, T], shared columns [1, T], a
+row's scalars [B, 1]; every stage works along the last axis, so each step
+runs every stage once for all rows, and each kernel of the path is one
+launch a step (the facility kernel one a run) whatever B is.
+
 Not ported yet, and refused with NotImplementedError: host failures,
 checkpointing and the resilience loop (they draw JAX threefry bits), the
 probe bus, and the dyn keys that need them.
@@ -60,7 +68,8 @@ from . import state as state_mod
 from . import thermal as thermal_mod
 from .config import HOURS_PER_YEAR, SimConfig
 from .state import (DONE, PENDING, RUNNING, BatteryState, HostTable,
-                    SimState, TaskTable, as_tensor, f32, init_sim_state)
+                    MetricsAcc, SimState, TaskTable, as_tensor, f32,
+                    init_sim_state)
 
 F32 = torch.float32
 BACKENDS = ("stage-pipeline", "megakernel")
@@ -90,14 +99,17 @@ class EnergyFlow(NamedTuple):
     curtailed_kw: torch.Tensor
 
 
-def init_energy_flow(device="cuda") -> EnergyFlow:
+def init_energy_flow(device="cuda", shape=()) -> EnergyFlow:
+    """The ledger at the start of a step: zeros of `shape` ([B, 1] for B
+    scenario rows)."""
     # one shared zero: ledger fields are only ever replaced, never mutated
-    z = torch.zeros((), dtype=F32, device=device)
+    z = torch.zeros(shape, dtype=F32, device=device)
     return EnergyFlow(*([z] * len(EnergyFlow._fields)))
 
 
 class StepInputs(NamedTuple):
-    """Exogenous per-step inputs, all precomputed, each f32/bool[S]."""
+    """Exogenous per-step inputs, all precomputed, each f32/bool[..., S]:
+    [S] for one scenario, [B, S] where the scenario rows differ."""
     ci: torch.Tensor
     batt_threshold: torch.Tensor
     ci_rising: torch.Tensor
@@ -113,13 +125,18 @@ class StepInputs(NamedTuple):
 
 def _trace(x, n: int, what: str, device):
     x = as_tensor(x, F32, device)
-    if x.shape[0] < n:
-        raise ValueError(f"{what} trace too short: {x.shape[0]} < {n}")
-    return x[:n]
+    if x.shape[-1] < n:
+        raise ValueError(f"{what} trace too short: {x.shape[-1]} < {n}")
+    return x[..., :n]
 
 
 def build_step_inputs(ci_trace, cfg: SimConfig, dyn: dict | None = None,
                       device="cuda") -> StepInputs:
+    """The exogenous per-step series of a run.  Each trace (carbon, and
+    the dyn `wet_bulb_trace`, `price_trace`, `pv_cf_trace`) is [S] or one
+    row a scenario, [B, S]; a swept `shift_quantile_value` ([B] levels)
+    gives [B, S] thresholds.  Every signal is computed row by row, and a
+    field is [B, S] only where its own inputs are."""
     dyn = dyn or {}
     s = cfg.n_steps
     ci = _trace(ci_trace, s, "carbon", device)
@@ -176,7 +193,7 @@ def stage_task_stopper(cfg: SimConfig) -> Stage:
                                         state.t, tasks.arrival, cfg.shifting,
                                         shiftable=tasks.shiftable)
         stop = stop & (tasks.status == RUNNING)
-        n = stop.to(F32).sum()
+        n = stop.to(F32).sum(-1, keepdim=True)
         tasks = tasks._replace(
             status=torch.where(stop, PENDING, tasks.status).to(torch.int32),
             host=torch.where(stop, -1, tasks.host).to(torch.int32))
@@ -204,7 +221,7 @@ def stage_scheduler(cfg: SimConfig) -> Stage:
             ctx["ci"], ctx["shift_threshold"], state.t, tasks.arrival,
             cfg.shifting, shiftable=tasks.shiftable)
         n_delayed = ((tasks.status == PENDING) & (tasks.arrival <= state.t)
-                     & ~shift_ok).to(F32).sum()
+                     & ~shift_ok).to(F32).sum(-1, keepdim=True)
         tasks = scheduler_mod.schedule_step(
             tasks, state.hosts, state.t, shift_ok, cfg.scheduler,
             slots=ctx.get("slots_per_step"), presorted=presorted)
@@ -218,8 +235,9 @@ def stage_progress(cfg: SimConfig) -> Stage:
     def fn(state: SimState, ctx: dict):
         tasks = state.tasks
         running = tasks.status == RUNNING
-        h = state.hosts.speed.shape[0]
-        speed = state.hosts.speed[torch.clamp(tasks.host, 0, h - 1).long()]
+        h = state.hosts.speed.shape[-1]
+        speed = scheduler_mod.take(state.hosts.speed,
+                                   torch.clamp(tasks.host, 0, h - 1).long())
         advance = cfg.dt_h * torch.where(running, speed, 1.0)
         done_now = running & (tasks.remaining <= advance)
         finish = torch.where(
@@ -237,15 +255,23 @@ def stage_progress(cfg: SimConfig) -> Stage:
     return fn
 
 
-def _device_scalar(cache: dict, key: str, value, like: torch.Tensor):
-    """`value` as a 0-d f32 tensor on `like`'s device, made once per run
-    (a per-step host-to-device copy would wait for the device)."""
+def _row_param(cache: dict, key: str, value, like: torch.Tensor):
+    """A kernel's per-row parameter: a [B, 1] (or 0-d) tensor as [B] (or
+    [1]); a host number as an f32 [B] tensor on `like`'s device, made once
+    per run (a per-step host-to-device copy would wait for the device)."""
     if isinstance(value, torch.Tensor):
-        return value
+        return value.reshape(-1)
     if key not in cache:
-        cache[key] = torch.full((), float(np.float32(value)), dtype=F32,
-                                device=like.device)
+        cache[key] = torch.full(like.shape[:-1], float(np.float32(value)),
+                                dtype=F32, device=like.device)
     return cache[key]
+
+
+def _host_inputs(hosts, cpu_u):
+    """(n_gpus, on) of every scenario row, as the power kernels take them:
+    [B, H] like the utilizations (shared rows broadcast)."""
+    return (hosts.n_gpus.expand_as(cpu_u),
+            (hosts.active & hosts.up).to(F32).expand_as(cpu_u))
 
 
 def stage_power(cfg: SimConfig) -> Stage:
@@ -258,22 +284,21 @@ def stage_power(cfg: SimConfig) -> Stage:
     def fn(state: SimState, ctx: dict):
         hosts = state.hosts
         cpu_u, gpu_u = scheduler_mod.host_utilization(state.tasks, hosts)
-        on = (hosts.active & hosts.up).to(F32)
+        n_gpus, on = _host_inputs(hosts, cpu_u)
         if cfg.collect_series:  # capacity-invariant probe for tests
-            free_c, free_g = scheduler_mod.free_capacity(state.tasks, hosts)
-            ctx["max_overcommit"] = torch.maximum((-free_c).amax(),
-                                                  (-free_g).amax())
+            ctx["max_overcommit"] = _max_overcommit(state.tasks, hosts)
         if cfg.cooling.enabled:
-            sp = _device_scalar(cache, "setpoint", ctx.get(
+            sp = _row_param(cache, "setpoint", ctx.get(
                 "cooling_setpoint", cfg.cooling.setpoint_c), cpu_u)
             p, it_kw, cool_kw, water = ops.facility_power(
-                cpu_u, gpu_u, hosts.n_gpus, on, ctx["wet_bulb_c"], sp,
+                cpu_u, gpu_u, n_gpus, on, ctx["wet_bulb_c"].reshape(-1), sp,
                 cfg.cpu_power, cfg.gpu_power, cfg.cooling)
-            ctx = dict(ctx, fused_cooling_kw=cool_kw,
-                       fused_water_l_per_h=water)
+            ctx = dict(ctx, fused_cooling_kw=cool_kw[:, None],
+                       fused_water_l_per_h=water[:, None])
         else:
-            p, it_kw = ops.host_power(cpu_u, gpu_u, hosts.n_gpus, on,
+            p, it_kw = ops.host_power(cpu_u, gpu_u, n_gpus, on,
                                       cfg.cpu_power, cfg.gpu_power)
+        it_kw = it_kw[:, None]
         flow = ctx["flow"]._replace(it_kw=it_kw, grid_import_kw=it_kw)
         return state, dict(ctx, flow=flow, host_power_kw=p,
                            host_cpu_util=cpu_u, host_gpu_util=gpu_u)
@@ -420,7 +445,7 @@ def stage_carbon(cfg: SimConfig) -> Stage:
     def fn(state: SimState, ctx: dict):
         flow = ctx["flow"]
         grid_kw = flow.grid_import_kw
-        n_active = state.hosts.active.to(F32).sum()
+        n_active = state.hosts.active.to(F32).sum(-1, keepdim=True)
         batt_rate = _battery_embodied_rate(cfg, ctx.get("batt_capacity_kwh"))
         op, emb = carbon_mod.carbon_delta(grid_kw, ctx["ci"], cfg.dt_h,
                                           n_active, cfg.embodied, batt_rate)
@@ -475,23 +500,39 @@ def _advance_clock(state: SimState, cfg: SimConfig) -> SimState:
 
 
 def _n_running(state: SimState):
-    return (state.tasks.status == RUNNING).to(torch.int32).sum()
+    return (state.tasks.status == RUNNING).to(torch.int32).sum(
+        -1, keepdim=True)
 
 
-def _per_step(inputs: StepInputs):
-    """Per-step views of the [S] inputs (indexing once, not per stage)."""
-    cols = [x.unbind(0) for x in inputs]
-    return [StepInputs(*row) for row in zip(*cols)]
+def _max_overcommit(tasks: TaskTable, hosts: HostTable):
+    free_c, free_g = scheduler_mod.free_capacity(tasks, hosts)
+    return torch.maximum((-free_c).amax(-1, keepdim=True),
+                         (-free_g).amax(-1, keepdim=True))
+
+
+def _rows(inputs: StepInputs, b: int) -> StepInputs:
+    """Every input as [B, S] (a view where it is shared by the rows)."""
+    s = inputs.ci.shape[-1]
+    return StepInputs(*(x.reshape(-1, s).expand(b, s) for x in inputs))
+
+
+def _per_step(inputs: StepInputs, b: int):
+    """Per-step [B, 1] columns of the inputs, each contiguous (one copy
+    per run, not an index per stage and step)."""
+    cols = [x.t().contiguous()[..., None].unbind(0)
+            for x in _rows(inputs, b)]
+    return [StepInputs(*step) for step in zip(*cols)]
 
 
 def _stack_series(ys: list[dict]) -> dict:
+    """The steps' [B, 1] series values as [B, S]."""
     out = {}
     for k, v in ys[0].items():
         if isinstance(v, EnergyFlow):
-            out[k] = EnergyFlow(*(torch.stack([y[k][i] for y in ys])
+            out[k] = EnergyFlow(*(torch.cat([y[k][i] for y in ys], -1)
                                   for i in range(len(EnergyFlow._fields))))
         else:
-            out[k] = torch.stack([y[k] for y in ys])
+            out[k] = torch.cat([y[k] for y in ys], -1)
     return out
 
 
@@ -536,9 +577,10 @@ def build_step_fn(cfg: SimConfig, stages: Sequence[Stage] | None = None,
 def _simulate_stage_pipeline(state0: SimState, inputs: StepInputs,
                              cfg: SimConfig, stages, dyn: dict):
     step = build_step_fn(cfg, stages, dyn)
-    flow0 = init_energy_flow(inputs.ci.device)
+    b = state0.tasks.status.shape[0]
+    flow0 = init_energy_flow(inputs.ci.device, (b, 1))
     state, ys = state0, []
-    for x in _per_step(inputs):
+    for x in _per_step(inputs, b):
         state, y = step(state, x, flow0)
         ys.append(y)
     return state, (_stack_series(ys) if cfg.collect_series else None)
@@ -558,15 +600,12 @@ def _build_demand_step(cfg: SimConfig, dyn: dict):
             state, ctx = stage(state, ctx)
         hosts = state.hosts
         cpu_u, gpu_u = scheduler_mod.host_utilization(state.tasks, hosts)
-        on = (hosts.active & hosts.up).to(F32)
-        _, it_kw = ops.host_power(cpu_u, gpu_u, hosts.n_gpus, on,
+        _, it_kw = ops.host_power(cpu_u, gpu_u, *_host_inputs(hosts, cpu_u),
                                   cfg.cpu_power, cfg.gpu_power)
         state = _advance_clock(state, cfg)
         ys = {"it_kw": it_kw}
         if cfg.collect_series:
-            free_c, free_g = scheduler_mod.free_capacity(state.tasks, hosts)
-            ys["max_overcommit"] = torch.maximum((-free_c).amax(),
-                                                 (-free_g).amax())
+            ys["max_overcommit"] = _max_overcommit(state.tasks, hosts)
             ys["n_running"] = _n_running(state)
         return state, ys
 
@@ -575,87 +614,94 @@ def _build_demand_step(cfg: SimConfig, dyn: dict):
 
 def facility_totals_from_flows(flows: dict, ci, price,
                                cfg: SimConfig) -> dict:
-    """Reduce the [S] flow series of `ref.fused_facility_chain` to the run
-    totals the metrics need; the fused facility kernel produces this same
-    dict from its accumulator row."""
+    """Reduce the [..., S] flow series of `ref.fused_facility_chain` to the
+    run totals the metrics need, one per row ([S] series give 0-d totals,
+    [B, S] give [B]); the fused facility kernel produces this same dict
+    from its accumulator rows."""
     dt = np.float32(cfg.dt_h)
     grid = flows["grid_import_kw"]
     load = flows["it_kw"] + flows["cooling_kw"]
+
+    def total(x):
+        return x.sum(-1) * dt
+
     totals = {
-        "op_carbon": (grid * ci).sum() * dt / 1000.0,
-        "grid_energy": grid.sum() * dt,
-        "dc_energy": load.sum() * dt,
-        "it_energy": flows["it_kw"].sum() * dt,
-        "peak_power": grid.amax(),
-        "batt_discharged": flows["batt_discharge_kw"].sum() * dt,
-        "cooling_energy": flows["cooling_kw"].sum() * dt,
-        "water_l": flows["water_l_per_h"].sum() * dt,
-        "heat_reuse": flows["heat_reuse_kw"].sum() * dt,
-        "pv_energy": flows["pv_kw"].sum() * dt,
-        "export_energy": flows["grid_export_kw"].sum() * dt,
-        "curtailed_energy": flows["curtailed_kw"].sum() * dt,
-        "soc_final": flows["soc"][-1],
-        "was_charging": flows["want_charge"][-1],
+        "op_carbon": (grid * ci).sum(-1) * dt / 1000.0,
+        "grid_energy": total(grid),
+        "dc_energy": total(load),
+        "it_energy": total(flows["it_kw"]),
+        "peak_power": grid.amax(-1),
+        "batt_discharged": total(flows["batt_discharge_kw"]),
+        "cooling_energy": total(flows["cooling_kw"]),
+        "water_l": total(flows["water_l_per_h"]),
+        "heat_reuse": total(flows["heat_reuse_kw"]),
+        "pv_energy": total(flows["pv_kw"]),
+        "export_energy": total(flows["grid_export_kw"]),
+        "curtailed_energy": total(flows["curtailed_kw"]),
+        "soc_final": flows["soc"][..., -1],
+        "was_charging": flows["want_charge"][..., -1],
     }
     if cfg.pricing.enabled:
         wsteps = pricing_mod.billing_window_steps(cfg.pricing, cfg.dt_h)
-        s = grid.shape[0]
+        lead, s = grid.shape[:-1], grid.shape[-1]
         n_win = -(-s // wsteps)
-        padded = torch.cat([grid, grid.new_zeros(n_win * wsteps - s)])
+        padded = torch.cat([grid, grid.new_zeros(*lead, n_win * wsteps - s)],
+                           -1)
         # windows [0,w), [w,2w), ...: closed windows bill here, the last
         # (open) one is settled by `summarize`
-        peaks = padded.reshape(n_win, wsteps).amax(1)
-        totals["energy_cost"] = (grid * price).sum() * dt
-        totals["demand_cost"] = (peaks[:-1].sum()
+        peaks = padded.reshape(*lead, n_win, wsteps).amax(-1)
+        totals["energy_cost"] = total(grid * price)
+        totals["demand_cost"] = (peaks[..., :-1].sum(-1)
                                  * np.float32(cfg.pricing.demand_charge_per_kw))
-        totals["window_peak_kw"] = peaks[-1]
+        totals["window_peak_kw"] = peaks[..., -1]
         if cfg.renewables.enabled:
             totals["export_revenue"] = (
-                (flows["grid_export_kw"] * price).sum() * dt
+                total(flows["grid_export_kw"] * price)
                 * np.float32(cfg.pricing.export_price_fraction))
     return totals
 
 
 def _merge_facility_totals(state: SimState, totals: dict, cfg: SimConfig,
                            dyn: dict) -> SimState:
-    """Fold the facility totals (+ the closed-form embodied integral) into
-    the demand phase's final state."""
+    """Fold the facility totals ([B], one a row) and the closed-form
+    embodied integral into the demand phase's final state."""
+    tot = {k: v[:, None] for k, v in totals.items()}
     m = state.metrics
     # embodied carbon is load-independent and `hosts.active` is fixed for
     # the run: the per-step accumulation is a closed-form product
-    n_active = state.hosts.active.to(F32).sum()
+    n_active = state.hosts.active.to(F32).sum(-1, keepdim=True)
     batt_rate = _battery_embodied_rate(cfg, dyn.get("batt_capacity_kwh"))
     host_rate = carbon_mod.host_embodied_rate_kg_per_h(cfg.embodied)
     emb = (n_active * host_rate + batt_rate) * cfg.dt_h * cfg.n_steps
     m = m._replace(
-        op_carbon=m.op_carbon + totals["op_carbon"],
+        op_carbon=m.op_carbon + tot["op_carbon"],
         emb_carbon=m.emb_carbon + emb,
-        grid_energy=m.grid_energy + totals["grid_energy"],
-        dc_energy=m.dc_energy + totals["dc_energy"],
-        it_energy=m.it_energy + totals["it_energy"],
-        peak_power=torch.maximum(m.peak_power, totals["peak_power"]),
-        batt_discharged=m.batt_discharged + totals["batt_discharged"])
+        grid_energy=m.grid_energy + tot["grid_energy"],
+        dc_energy=m.dc_energy + tot["dc_energy"],
+        it_energy=m.it_energy + tot["it_energy"],
+        peak_power=torch.maximum(m.peak_power, tot["peak_power"]),
+        batt_discharged=m.batt_discharged + tot["batt_discharged"])
     if cfg.cooling.enabled:
         m = m._replace(
-            cooling_energy=m.cooling_energy + totals["cooling_energy"],
-            water_l=m.water_l + totals["water_l"],
-            heat_reuse=m.heat_reuse + totals["heat_reuse"])
+            cooling_energy=m.cooling_energy + tot["cooling_energy"],
+            water_l=m.water_l + tot["water_l"],
+            heat_reuse=m.heat_reuse + tot["heat_reuse"])
     if cfg.renewables.enabled:
         m = m._replace(
-            pv_energy=m.pv_energy + totals["pv_energy"],
-            export_energy=m.export_energy + totals["export_energy"],
-            curtailed_energy=m.curtailed_energy + totals["curtailed_energy"])
+            pv_energy=m.pv_energy + tot["pv_energy"],
+            export_energy=m.export_energy + tot["export_energy"],
+            curtailed_energy=m.curtailed_energy + tot["curtailed_energy"])
     if cfg.pricing.enabled:
         m = m._replace(
-            energy_cost=m.energy_cost + totals["energy_cost"],
-            demand_cost=m.demand_cost + totals["demand_cost"],
+            energy_cost=m.energy_cost + tot["energy_cost"],
+            demand_cost=m.demand_cost + tot["demand_cost"],
             window_peak_kw=torch.maximum(m.window_peak_kw,
-                                         totals["window_peak_kw"]))
+                                         tot["window_peak_kw"]))
         if cfg.renewables.enabled:
             m = m._replace(export_revenue=m.export_revenue
-                           + totals["export_revenue"])
-    battery = BatteryState(charge=totals["soc_final"],
-                           was_charging=totals["was_charging"])
+                           + tot["export_revenue"])
+    battery = BatteryState(charge=tot["soc_final"],
+                           was_charging=tot["was_charging"])
     return state._replace(metrics=m, battery=battery)
 
 
@@ -663,20 +709,25 @@ def _simulate_megakernel(state0: SimState, inputs: StepInputs,
                          cfg: SimConfig, dyn: dict):
     step = _build_demand_step(cfg, dyn)
     dev = inputs.ci.device
-    zero = torch.zeros((), dtype=F32, device=dev)
+    b = state0.tasks.status.shape[0]
+    inputs = _rows(inputs, b)
     # shifting off: the gate never reads the carbon intensity or threshold
-    xs = ({"ci": ci, "shift_threshold": th} for ci, th in zip(
-        inputs.ci.unbind(0), inputs.shift_threshold.unbind(0))) \
-        if cfg.shifting.enabled else ({"ci": zero, "shift_threshold": zero}
-                                      for _ in range(cfg.n_steps))
-    # written one step at a time: a fresh buffer nobody else holds
-    it_series = torch.empty(cfg.n_steps, dtype=F32, device=dev)
+    if cfg.shifting.enabled:
+        xs = ({"ci": x.ci, "shift_threshold": x.shift_threshold}
+              for x in _per_step(inputs, b))
+    else:
+        zero = torch.zeros((), dtype=F32, device=dev)
+        xs = ({"ci": zero, "shift_threshold": zero}
+              for _ in range(cfg.n_steps))
+    # written one step (one row) at a time: a fresh buffer nobody else holds
+    it_steps = torch.empty(cfg.n_steps, b, dtype=F32, device=dev)
     state, demand_ys = state0, []
     for i, x in enumerate(xs):
         state, y = step(state, x)
-        it_series[i] = y.pop("it_kw")
+        it_steps[i] = y.pop("it_kw")
         demand_ys.append(y)
     final = state
+    it_series = it_steps.t()
 
     chain_kwargs = dict(
         soc0=0.0, setpoint_c=dyn.get("cooling_setpoint"),
@@ -735,6 +786,91 @@ def _to_device(table, device):
     return type(table)(*(col.to(device) for col in table))
 
 
+def _cell_values(dyn: dict, b: int, device) -> dict:
+    """dyn with each per-row value (an array or tensor of B values, one a
+    scenario row) as a [B, 1] tensor on `device` (f32 where it is real);
+    host numbers and 0-d tensors stay as they are."""
+    out = {}
+    for k, v in dyn.items():
+        if not isinstance(v, torch.Tensor) and np.ndim(v):
+            v = torch.as_tensor(np.asarray(v))
+        if isinstance(v, torch.Tensor) and v.dim():
+            if v.numel() != b:
+                raise ValueError(f"dyn '{k}' has {v.numel()} values for "
+                                 f"{b} scenario rows")
+            v = v.to(device=device, dtype=F32 if v.is_floating_point()
+                     else v.dtype).reshape(b, 1)
+        out[k] = v
+    return out
+
+
+def run_cells(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
+              n_cells: int, stages: Sequence[Stage] | None = None,
+              dyn: dict | None = None, device="cuda"):
+    """Run `n_cells` scenarios of one workload and configuration through
+    one step loop on `device`.  Returns (final SimState, per-step series or
+    None) in the layout of core/state.py: [B, T] written task columns,
+    [B, 1] battery and accumulators, [B, S] series.
+
+    The tables are the scenarios' common [T] / [H] tables; what differs
+    between rows comes in as [B, S] traces (`ci_trace` and the dyn traces)
+    and as dyn values of B entries ([B] or [B, 1]; see `simulate` for the
+    keys).  A value given once (a host number, a 0-d tensor, an [S] trace)
+    holds for every row.  Each step launches each kernel of the path once
+    for all rows, and the megakernel's facility kernel runs once."""
+    if cfg.backend not in BACKENDS:
+        raise ValueError(
+            f"unknown backend '{cfg.backend}'; pick one of {BACKENDS}")
+    if stages is not None and cfg.backend != "stage-pipeline":
+        raise ValueError(
+            "custom stages compose only with backend='stage-pipeline'; the "
+            "megakernel fuses the default facility chain and cannot honour "
+            "a replacement pipeline")
+    dyn = dict(dyn) if dyn else {}
+    _refuse_unported(cfg, dyn)
+    tasks, hosts = _to_device(tasks, device), _to_device(hosts, device)
+    arrival = dyn.pop("arrival_trace", None)
+    if arrival is not None:
+        tasks = state_mod.retime_task_table(tasks, arrival)
+    # priority scheduling: permute rows into (priority desc, arrival) order
+    # once, before the loop (the same order in every scenario row); the
+    # final table is un-permuted below
+    inv = None
+    if _presort_enabled(cfg):
+        order = state_mod.priority_schedule_order(
+            tasks, cfg.scheduler.priority_levels)
+        tasks = state_mod.permute_task_table(tasks, order)
+        inv = state_mod.inverse_permutation(order)
+    inputs = build_step_inputs(ci_trace, cfg, dyn=dyn, device=device)
+    for k in ("wet_bulb_trace", "price_trace", "pv_cf_trace"):
+        dyn.pop(k, None)  # consumed by the inputs, not ctx keys
+    dyn = _cell_values(dyn, n_cells, device)
+    if "n_active_hosts" in dyn:
+        n = dyn["n_active_hosts"]
+        hosts = scaling_mod.with_scale(
+            hosts, n.reshape(-1) if isinstance(n, torch.Tensor) else n)
+    tasks, hosts = state_mod.cell_tables(tasks, hosts, n_cells)
+    state0 = init_sim_state(tasks, hosts, cfg.seed)
+    if cfg.backend == "megakernel":
+        final, ys = _simulate_megakernel(state0, inputs, cfg, dyn)
+    else:
+        final, ys = _simulate_stage_pipeline(state0, inputs, cfg, stages, dyn)
+    if inv is not None:
+        final = final._replace(
+            tasks=state_mod.permute_task_table(final.tasks, inv))
+    return final, ys
+
+
+def _one_cell(state: SimState) -> SimState:
+    """The state of a one-row run in the layout of one scenario: [T] / [H]
+    tables, 0-d battery and accumulators."""
+    return state._replace(
+        tasks=TaskTable(*(col[0] for col in state.tasks)),
+        hosts=HostTable(*(col[0] for col in state.hosts)),
+        battery=BatteryState(*(x.reshape(()) for x in state.battery)),
+        metrics=MetricsAcc(*(x.reshape(()) for x in state.metrics)))
+
+
 def simulate(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
              stages: Sequence[Stage] | None = None, dyn: dict | None = None,
              weather_trace=None, device="cuda"):
@@ -749,43 +885,15 @@ def simulate(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
     `wet_bulb_trace` (also `weather_trace`), `price_trace`,
     `dispatch_lambda`, `pv_cf_trace`, `pv_capacity_kw`, `slots_per_step`
     and `arrival_trace`; each scalar is a host number or a 0-d tensor on
-    `device`.
+    `device`.  This is `run_cells` at one scenario row, the row's axis
+    squeezed from the state and the series.
     """
-    if cfg.backend not in BACKENDS:
-        raise ValueError(
-            f"unknown backend '{cfg.backend}'; pick one of {BACKENDS}")
-    if stages is not None and cfg.backend != "stage-pipeline":
-        raise ValueError(
-            "custom stages compose only with backend='stage-pipeline'; the "
-            "megakernel fuses the default facility chain and cannot honour "
-            "a replacement pipeline")
     dyn = dict(dyn) if dyn else {}
-    _refuse_unported(cfg, dyn)
     if weather_trace is not None:
         dyn["wet_bulb_trace"] = weather_trace
-    tasks, hosts = _to_device(tasks, device), _to_device(hosts, device)
-    if "n_active_hosts" in dyn:
-        hosts = scaling_mod.with_scale(hosts, dyn["n_active_hosts"])
-    arrival = dyn.pop("arrival_trace", None)
-    if arrival is not None:
-        tasks = state_mod.retime_task_table(tasks, arrival)
-    # priority scheduling: permute rows into (priority desc, arrival) order
-    # once, before the loop; the final table is un-permuted below
-    inv = None
-    if _presort_enabled(cfg):
-        order = state_mod.priority_schedule_order(
-            tasks, cfg.scheduler.priority_levels)
-        tasks = state_mod.permute_task_table(tasks, order)
-        inv = state_mod.inverse_permutation(order)
-    inputs = build_step_inputs(ci_trace, cfg, dyn=dyn, device=device)
-    for k in ("wet_bulb_trace", "price_trace", "pv_cf_trace"):
-        dyn.pop(k, None)  # consumed by the inputs, not ctx keys
-    state0 = init_sim_state(tasks, hosts, cfg.seed)
-    if cfg.backend == "megakernel":
-        final, ys = _simulate_megakernel(state0, inputs, cfg, dyn)
-    else:
-        final, ys = _simulate_stage_pipeline(state0, inputs, cfg, stages, dyn)
-    if inv is not None:
-        final = final._replace(
-            tasks=state_mod.permute_task_table(final.tasks, inv))
-    return final, ys
+    final, ys = run_cells(tasks, hosts, ci_trace, cfg, 1, stages, dyn, device)
+    if ys is not None:
+        ys = {k: (EnergyFlow(*(f[0] for f in v))
+                  if isinstance(v, EnergyFlow) else v[0])
+              for k, v in ys.items()}
+    return _one_cell(final), ys

@@ -62,10 +62,16 @@ class SimResult(NamedTuple):
 
 
 def summarize(state: SimState, cfg: SimConfig) -> SimResult:
+    """The run's SimResult.  Task reductions run along the last axis, so a
+    state of B scenario rows ([B, T] written columns, [B, 1] accumulators)
+    gives [B] fields (per-class fields [B, C]), and a one-scenario state
+    0-d ones ([C])."""
     tasks, m = state.tasks, state.metrics
     t_end = state.t
     arrived = (tasks.status != INVALID) & (tasks.arrival <= t_end)
     done = tasks.status == DONE
+    lead = arrived.shape[:-1]
+    m = type(m)(*(x.reshape(lead) for x in m))
 
     expected = tasks.arrival + tasks.duration
     grace = torch.where(tasks.sla_grace >= 0.0, tasks.sla_grace,
@@ -74,7 +80,7 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
     violated_done = done & (tasks.finish > deadline)
     violated_undone = arrived & ~done & (deadline <= t_end)
     decided = done | violated_undone
-    cnt = lambda mask: mask.to(F32).sum()  # noqa: E731
+    cnt = lambda mask: mask.to(F32).sum(-1)  # noqa: E731
     n_decided = torch.clamp(cnt(decided), min=1.0)
     n_viol = cnt(violated_done) + cnt(violated_undone)
     n_arrived = cnt(arrived)
@@ -87,14 +93,14 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
     n_started = torch.clamp(cnt(started), min=1.0)
     sdelay = torch.where(started, tasks.first_start - tasks.arrival, 0.0)
 
-    # per-class splits: one masked [M, C, T] reduction; violated_done and
-    # violated_undone are disjoint, so class counts sum to the totals
-    cw = (tasks.job_class[None, :] == torch.arange(
-        N_JOB_CLASSES, dtype=torch.int32, device=t_end.device)[:, None])
+    # per-class splits: one masked reduction a class ([.., C] fields);
+    # violated_done and violated_undone are disjoint, so class counts sum
+    # to the totals
     stacked = torch.stack([(violated_done | violated_undone).to(F32),
                            decided.to(F32), started.to(F32), sdelay])
-    class_n_viol, class_n_decided, class_n_started, class_sdelay = torch.where(
-        cw[None, :, :], stacked[:, None, :], 0.0).sum(-1)
+    class_n_viol, class_n_decided, class_n_started, class_sdelay = (
+        torch.stack([torch.where(tasks.job_class == c, stacked, 0.0).sum(-1)
+                     for c in range(N_JOB_CLASSES)], -1))
 
     it_safe = torch.clamp(m.it_energy, min=1e-9)
     demand_cost = pricing_mod.settle_demand_charge(
@@ -120,14 +126,14 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
         heat_reuse_kwh=m.heat_reuse,
         peak_power_kw=m.peak_power,
         sla_violation_frac=n_viol / n_decided,
-        mean_delay_h=delay.sum() / n_done,
-        mean_start_delay_h=sdelay.sum() / n_started,
+        mean_delay_h=delay.sum(-1) / n_done,
+        mean_start_delay_h=sdelay.sum(-1) / n_started,
         done_frac=cnt(done) / n_valid,
         n_tasks=n_arrived,
         n_interrupts=m.n_interrupts,
         n_stops=m.n_stops,
         batt_discharged_kwh=m.batt_discharged,
-        lost_work_h=torch.where(arrived, tasks.lost_work, 0.0).sum(),
+        lost_work_h=torch.where(arrived, tasks.lost_work, 0.0).sum(-1),
         throttled_h=m.throttled_h,
         derate_h=m.derate_h,
         n_spills=m.n_spills,

@@ -23,9 +23,10 @@ def billing_window_steps(cfg: PricingConfig, dt_h: float) -> int:
 
 
 def precompute_price_signals(price_trace, dt_h: float, cfg: BatteryConfig):
-    """(price_lo[S], price_hi[S]) forward-quantile arbitrage bands: charge
-    while strictly below `price_lo`, discharge while strictly above
-    `price_hi` (a constant trace makes both vacuous)."""
+    """(price_lo[..., S], price_hi[..., S]) forward-quantile arbitrage
+    bands, one row per [..., S] price series: charge while strictly below
+    `price_lo`, discharge while strictly above `price_hi` (a constant trace
+    makes both vacuous)."""
     bands = forward_window_quantiles(
         price_trace, dt_h, cfg.price_window_h,
         np.asarray([cfg.price_charge_quantile,

@@ -48,3 +48,9 @@ def quantize_trace(x, store: str) -> QuantizedTrace:
 def dequantize_trace(qt: QuantizedTrace) -> torch.Tensor:
     """f32 reconstruction."""
     return qt.q.to(torch.float32) * qt.scale + qt.zero
+
+
+def maybe_dequantize(v):
+    """Pass tensors through, reconstruct QuantizedTraces (the grid's
+    per-scenario trace payloads)."""
+    return dequantize_trace(v) if isinstance(v, QuantizedTrace) else v

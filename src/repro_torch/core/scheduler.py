@@ -2,7 +2,9 @@
 
 FIFO priority is arrival order and the task table is pre-sorted by arrival,
 so "the next tasks to schedule" are the first K eligible rows, selected with
-a cumsum and K binary searches.  Placement is exact greedy first-fit: each
+a cumsum and K binary searches.  Every function works along the last axis:
+[T] tables, or the [B, T] rows of a run of B scenarios (one binary search,
+one first-fit launch for all rows).  Placement is exact greedy first-fit: each
 of the K candidates takes the lowest-index usable host whose free cores and
 GPUs cover it, through `kernels/ops.first_fit_place` -- one launch of the
 hand-written kernel per step on the card, its plain version on the CPU.
@@ -22,9 +24,10 @@ I32 = torch.int32
 
 
 def _per_host_sum(vals, seg, h: int):
-    """Per-host sum of `vals` over the bins `seg` of `_running_seg`."""
-    out = torch.zeros(h + vals.shape[0], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, seg, vals)[:h]
+    """Per-host sum of `vals` over the bins `seg` of `_running_seg`, along
+    the last axis ([T] -> [H], [B, T] -> [B, H])."""
+    out = vals.new_zeros(*seg.shape[:-1], h + vals.shape[-1])
+    return out.scatter_add_(-1, seg, vals)[..., :h]
 
 
 def _running_seg(tasks: TaskTable, h: int):
@@ -36,14 +39,15 @@ def _running_seg(tasks: TaskTable, h: int):
     the card, sending all of them to one bin would make ~T atomic adds to
     the same address, which took 0.34 ms a call at T = 192,817."""
     running = (tasks.status == RUNNING) & (tasks.host >= 0)
-    spare = torch.arange(h, h + tasks.host.shape[0], device=tasks.host.device)
+    t = tasks.host.shape[-1]
+    spare = torch.arange(h, h + t, device=tasks.host.device)
     return running, torch.where(running, torch.clamp(tasks.host, 0, h - 1),
                                 spare)
 
 
 def free_capacity(tasks: TaskTable, hosts: HostTable):
     """Per-host free CPU cores and GPUs, recomputed from the task table."""
-    h = hosts.cores.shape[0]
+    h = hosts.cores.shape[-1]
     running, seg = _running_seg(tasks, h)
     used_c = _per_host_sum(torch.where(running, tasks.cores, 0.0), seg, h)
     used_g = _per_host_sum(torch.where(running, tasks.gpus, 0.0), seg, h)
@@ -53,7 +57,7 @@ def free_capacity(tasks: TaskTable, hosts: HostTable):
 
 def host_utilization(tasks: TaskTable, hosts: HostTable):
     """Per-host CPU/GPU utilization in [0, 1] from running tasks."""
-    h = hosts.cores.shape[0]
+    h = hosts.cores.shape[-1]
     running, seg = _running_seg(tasks, h)
     cpu = _per_host_sum(
         torch.where(running, tasks.cores * tasks.cpu_util, 0.0), seg, h)
@@ -66,20 +70,32 @@ def host_utilization(tasks: TaskTable, hosts: HostTable):
     return torch.clamp(cpu_u, 0.0, 1.0), torch.clamp(gpu_u, 0.0, 1.0)
 
 
+def take(col, idx):
+    """col[..., idx] row by row: a shared [1, N] (or [N]) column read at the
+    [B, M] (or [M]) indices of each row, as one gather."""
+    return torch.gather(col.expand(*idx.shape[:-1], col.shape[-1]), -1, idx)
+
+
 def _eligible(tasks: TaskTable, now, shift_ok):
     return (tasks.status == PENDING) & (tasks.arrival <= now) & shift_ok
 
 
-def _first_k_indices(mask, k: int):
-    """Indices of the first k True rows of mask (padded with -1).
+def _first_slots(csum, k: int):
+    """(rows of the first k True entries, slot numbers 1..k) from the
+    inclusive count `csum` of a mask along its last axis; -1 past the
+    mask's last True entry.  The s-th True index is the first i with
+    csum[i] == s + 1: one batched binary search a row."""
+    wanted = torch.arange(1, k + 1, device=csum.device)
+    idx = torch.searchsorted(
+        csum, wanted.expand(*csum.shape[:-1], k).contiguous(), side="left")
+    return torch.where(wanted <= csum[..., -1:], idx, -1), wanted
 
-    csum[i] counts True rows in [0..i], so the s-th True index is the first
-    i with csum[i] == s + 1.  `torch.cumsum` of an int32 tensor returns
-    int64, and so do the indices."""
-    csum = torch.cumsum(mask.to(I32), 0)
-    wanted = torch.arange(1, k + 1, device=mask.device)
-    idx = torch.searchsorted(csum, wanted, side="left")
-    return torch.where(wanted <= csum[-1], idx, -1)
+
+def _first_k_indices(mask, k: int):
+    """Indices of the first k True entries of mask along its last axis
+    (padded with -1).  `torch.cumsum` of an int32 tensor returns int64, and
+    so do the indices."""
+    return _first_slots(torch.cumsum(mask.to(I32), -1), k)[0]
 
 
 def schedule_first_fit(tasks: TaskTable, hosts: HostTable, now, shift_ok,
@@ -88,11 +104,12 @@ def schedule_first_fit(tasks: TaskTable, hosts: HostTable, now, shift_ok,
     """Exact bounded first-fit.  Returns the updated task table.
 
     `cfg.slots_per_step` bounds the candidates per step; `slots` (dyn
-    `slots_per_step`, a host int or 0-d tensor) masks the slots past it.
+    `slots_per_step`: a host int, a 0-d tensor or a [B, 1] count a scenario
+    row) masks the slots past it.
     `presorted=True` asserts the rows are already in (priority desc,
     arrival) order (`state.priority_schedule_order`), so admission is the
     plain FIFO prefix; otherwise priority levels > 1 select from the
-    level-major flattened [L*T] mask.
+    level-major flattened [L*T] mask ([B, L*T] for [B, T] rows).
 
     The reference places with a `while_loop` that stops early once no
     remaining candidate fits any usable host, or at the first -1 slot;
@@ -102,7 +119,7 @@ def schedule_first_fit(tasks: TaskTable, hosts: HostTable, now, shift_ok,
     neither ever fits, not even a zero-footprint task.
     """
     k = cfg.slots_per_step
-    t = tasks.arrival.shape[0]
+    t = tasks.arrival.shape[-1]
     dev = tasks.arrival.device
     elig = _eligible(tasks, now, shift_ok)
     multi = cfg.priority_levels > 1 and not presorted
@@ -110,24 +127,23 @@ def schedule_first_fit(tasks: TaskTable, hosts: HostTable, now, shift_ok,
         # level-major flattened mask: merged (priority desc, arrival) order
         lvl = torch.arange(cfg.priority_levels - 1, -1, -1, device=dev,
                            dtype=tasks.priority.dtype)
-        m = (elig[None, :] & (tasks.priority[None, :] == lvl[:, None])
-             ).reshape(-1)
+        m = (elig[..., None, :] & (tasks.priority[..., None, :]
+                                   == lvl[:, None])).flatten(-2)
     else:
         m = elig
     # one cumsum maps slots to rows (k binary searches) and rows to slots
     # (a row's rank is its cumsum - 1)
-    csum = torch.cumsum(m.to(I32), 0)
-    wanted = torch.arange(1, k + 1, device=dev)
-    idx = torch.searchsorted(csum, wanted, side="left")
-    cand = torch.where(wanted <= csum[-1], idx % t if multi else idx, -1)
+    csum = torch.cumsum(m.to(I32), -1)
+    idx, wanted = _first_slots(csum, k)
+    cand = torch.where(idx >= 0, idx % t, -1) if multi else idx
     if slots is not None:  # the masked tail of a swept slot count
         cand = torch.where(wanted <= slots, cand, -1)
     free_c, free_g = free_capacity(tasks, hosts)
     usable = hosts.active & hosts.up
     cj = torch.clamp(cand, min=0)
     inf = float("inf")
-    need_c = torch.where(cand >= 0, tasks.cores[cj], inf)
-    need_g = torch.where(cand >= 0, tasks.gpus[cj], inf)
+    need_c = torch.where(cand >= 0, take(tasks.cores, cj), inf)
+    need_g = torch.where(cand >= 0, take(tasks.gpus, cj), inf)
     sel_host, _, _ = ops.first_fit_place(
         need_c, need_g, torch.where(usable, free_c, -inf),
         torch.where(usable, free_g, -inf))
@@ -136,12 +152,12 @@ def schedule_first_fit(tasks: TaskTable, hosts: HostTable, now, shift_ok,
         lvl_t = (cfg.priority_levels - 1
                  - torch.clamp(tasks.priority, 0, cfg.priority_levels - 1))
         pos_t = lvl_t.to(torch.int64) * t + torch.arange(t, device=dev)
-        rank = csum[pos_t] - 1
-        in_k = m[pos_t] & (rank < k)
+        rank = take(csum, pos_t.expand(*csum.shape[:-1], t)) - 1
+        in_k = take(m, pos_t.expand(*m.shape[:-1], t)) & (rank < k)
     else:
         rank = csum - 1
         in_k = elig & (rank < k)
-    host_t = sel_host[torch.clamp(rank, 0, k - 1)]
+    host_t = take(sel_host, torch.clamp(rank, 0, k - 1))
     placed = in_k & (host_t >= 0)
     return tasks._replace(
         status=torch.where(placed, RUNNING, tasks.status).to(I32),
@@ -159,6 +175,6 @@ def schedule_step(tasks: TaskTable, hosts: HostTable, now, shift_ok,
                                   slots=slots, presorted=presorted)
     if cfg.mode == "aggregate":
         raise NotImplementedError(
-            "scheduler mode 'aggregate' is not ported yet (ROADMAP Queue 1, "
-            "'Demand side': schedule_aggregate)")
+            "scheduler mode 'aggregate' is not ported yet (ROADMAP Queue 1 "
+            "item 3b: scheduler.schedule_aggregate)")
     raise ValueError(f"unknown scheduler mode '{cfg.mode}'")

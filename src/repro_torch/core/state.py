@@ -8,6 +8,15 @@ timeline.  All times are hours (f32), energy kWh, power kW, carbon kgCO2-eq.
 
 Tables live on the device the caller names.  Entry points default to
 `device="cuda"`; the CPU runs only when it is asked for.
+
+Scenario rows.  A run carries B scenarios (the cells of a grid; one for
+`simulate`) on a leading axis, all on one clock (`t`, `step` stay 0-d).  The
+task columns a run writes (`WRITTEN_TASK_COLUMNS`) are [B, T]; every other
+column is the same in every row and stays one shared [1, T] row, and so do
+the host columns but `active`, which is [B, H] when the host count differs
+between rows.  A row's scalars (battery, accumulators) are [B, 1], so they
+broadcast against [B, T] and [B, H] columns.  `cell_tables` lays a table
+out so; `init_sim_state` follows the tables it is given.
 """
 from __future__ import annotations
 
@@ -54,7 +63,10 @@ def f32(x):
 
 
 def active_host_mask(n_hosts: int, n_active, device="cuda") -> torch.Tensor:
-    """bool[n_hosts] marking the first `n_active` hosts as provisioned."""
+    """bool[n_hosts] marking the first `n_active` hosts as provisioned; for
+    [B] counts (one a scenario row), bool[B, n_hosts]."""
+    if isinstance(n_active, torch.Tensor) and n_active.dim():
+        n_active = n_active.to(device)[:, None]
     return torch.arange(n_hosts, device=device) < n_active
 
 
@@ -209,9 +221,10 @@ def priority_schedule_order(tasks: TaskTable, levels: int) -> torch.Tensor:
 
 
 def permute_task_table(tasks: TaskTable, order) -> TaskTable:
-    """Reorder every column of the table by `order` (i32[T] permutation)."""
+    """Reorder every column of the table by `order` (i32[T] permutation),
+    along the last axis (each scenario row of [B, T] columns alike)."""
     idx = order.to(torch.int64)
-    return TaskTable(*(col[idx] for col in tasks))
+    return TaskTable(*(col[..., idx] for col in tasks))
 
 
 def inverse_permutation(order) -> torch.Tensor:
@@ -299,22 +312,43 @@ def tables_from_numpy(tasks, hosts, device="cuda"):
             _table_from(HostTable, hosts, _HOST_DTYPES, device))
 
 
-def init_battery(device="cuda") -> BatteryState:
-    return BatteryState(charge=torch.zeros((), dtype=F32, device=device),
-                        was_charging=torch.zeros((), dtype=torch.bool,
+# the task columns a run writes, one row per scenario; the rest are shared
+WRITTEN_TASK_COLUMNS = ("remaining", "status", "host", "first_start", "finish")
+
+
+def cell_tables(tasks: TaskTable, hosts: HostTable, n_cells: int):
+    """The tables of a run of `n_cells` scenario rows: the written task
+    columns as [B, T] (views of the one row, until a step writes them), the
+    rest as shared [1, T] / [1, H] rows; a host `active` mask that is
+    already [B, H] (per-row host counts) stays so."""
+    return (TaskTable(*(col[None].expand(n_cells, -1)
+                        if f in WRITTEN_TASK_COLUMNS else col[None]
+                        for f, col in zip(TaskTable._fields, tasks))),
+            HostTable(*(col if col.dim() == 2 else col[None]
+                        for col in hosts)))
+
+
+def init_battery(device="cuda", shape=()) -> BatteryState:
+    return BatteryState(charge=torch.zeros(shape, dtype=F32, device=device),
+                        was_charging=torch.zeros(shape, dtype=torch.bool,
                                                  device=device))
 
 
-def init_metrics(device="cuda") -> MetricsAcc:
-    z = torch.zeros((), dtype=F32, device=device)
+def init_metrics(device="cuda", shape=()) -> MetricsAcc:
+    z = torch.zeros(shape, dtype=F32, device=device)
     # one shared zero: accumulators are only ever replaced, never mutated
     return MetricsAcc(*([z] * len(MetricsAcc._fields)))
 
 
 def init_sim_state(tasks: TaskTable, hosts: HostTable,
                    seed: int = 0) -> SimState:
+    """The state at t = 0.  Battery and accumulators are 0-d for [T]
+    tables, and [B, 1] for the [B, T] written columns of `cell_tables`."""
     dev = tasks.arrival.device
+    lead = tasks.status.shape[:-1]
+    shape = (*lead, 1) if lead else ()
     return SimState(t=torch.zeros((), dtype=F32, device=dev),
                     step=torch.zeros((), dtype=I32, device=dev),
-                    tasks=tasks, hosts=hosts, battery=init_battery(dev),
-                    metrics=init_metrics(dev), rng=int(seed))
+                    tasks=tasks, hosts=hosts,
+                    battery=init_battery(dev, shape),
+                    metrics=init_metrics(dev, shape), rng=int(seed))

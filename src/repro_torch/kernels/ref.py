@@ -15,6 +15,8 @@ card's smoke test holds each kernel against them on the same inputs.
 
 Host inputs are [H] or [B, H] (one scenario per row); the per-row scalars
 (carbon intensity, wet-bulb, setpoint) are host numbers, 0-d or [B] tensors.
+The facility chain takes [S] or [B, S] series, its per-row parameters host
+numbers, 0-d, [B] or [B, 1] tensors.
 The model kernels take the layouts of the reference's Pallas wrappers.
 The arithmetic is that of the reference package's oracles
 (src/repro/kernels/ref.py) and Pallas kernels, term for term in f32.
@@ -85,14 +87,22 @@ def first_fit_place(cand_cores, cand_gpus, free_cores, free_gpus):
     return assign, fc, fg
 
 
+def _column(x):
+    """A per-row parameter given as [B] as the [B, 1] column that meets
+    [B, S] series; host numbers, 0-d and [B, 1] tensors as they are."""
+    return x[:, None] if isinstance(x, torch.Tensor) and x.dim() == 1 else x
+
+
 def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
                          pv_cf, batt_threshold, ci_rising, dt_h, cfg, *,
                          soc0=0.0, setpoint_c=None, batt_capacity_kwh=None,
                          batt_rate_kw=None, dispatch_lambda=None,
                          pv_capacity_kw=None):
     """The facility pipeline (cooling -> renewables -> battery -> net
-    metering) vectorized over the [S] time axis; a dict of f32[S] flow
-    series plus the battery SoC trajectory.
+    metering) vectorized over the time axis; a dict of f32 flow series plus
+    the battery SoC trajectory.  Series are [S], or [B, S] rows (one a
+    scenario) with per-row parameters as host numbers, 0-d, [B] or [B, 1]
+    tensors.
 
     Everything but the SoC recurrence is elementwise in t.  The dispatch
     decisions factor out of the recurrence: their only SoC dependence, the
@@ -102,6 +112,10 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
     it_kw = it_kw.to(F32)
     zeros = torch.zeros_like(it_kw)
     dt = np.float32(dt_h)
+    soc0, setpoint_c, batt_capacity_kwh, batt_rate_kw, dispatch_lambda, \
+        pv_capacity_kw = (_column(x) for x in (
+            soc0, setpoint_c, batt_capacity_kwh, batt_rate_kw,
+            dispatch_lambda, pv_capacity_kw))
 
     if cfg.cooling.enabled:
         cooling_kw, water_l_per_h = thermal_mod.cooling_step(
@@ -140,21 +154,29 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
                 wc, wd, surplus)
         else:
             charge_cap_kw = torch.full_like(it_kw, float("inf"))
-        s = it_kw.shape[0]
+        shape = torch.broadcast_shapes(it_kw.shape, charge_cap_kw.shape,
+                                       net_load.shape, wc.shape, wd.shape)
+        lead, s = shape[:-1], shape[-1]
+        charge_cap_kw, net_load, wc, wd = (x.expand(shape) for x in (
+            charge_cap_kw, net_load, wc, wd))
         # filled one step at a time below: fresh buffers nobody else holds
-        soc = torch.empty_like(it_kw)
-        charge_kw = torch.empty_like(it_kw)
-        discharge_kw = torch.empty_like(it_kw)
-        cur = torch.full((), float(soc0), dtype=F32, device=it_kw.device)
+        soc = torch.empty(shape, dtype=F32, device=it_kw.device)
+        charge_kw = torch.empty_like(soc)
+        discharge_kw = torch.empty_like(soc)
+        cur = torch.zeros((*lead, 1), dtype=F32, device=it_kw.device) + soc0
         for j in range(s):
+            at = slice(j, j + 1)
             ck = torch.clamp(torch.clamp((cap - cur) / dt, min=0.0), max=rate)
-            ck = torch.minimum(ck, charge_cap_kw[j])
-            ck = torch.where(wc[j], ck, 0.0)
-            dk = torch.minimum(torch.clamp(cur / dt, max=rate), net_load[j])
-            dk = torch.where(wd[j] & (cur > 0.0) & ~wc[j], dk, 0.0)
+            ck = torch.minimum(ck, charge_cap_kw[..., at])
+            ck = torch.where(wc[..., at], ck, 0.0)
+            dk = torch.minimum(torch.clamp(cur / dt, max=rate),
+                               net_load[..., at])
+            dk = torch.where(wd[..., at] & (cur > 0.0) & ~wc[..., at], dk,
+                             0.0)
             cur = torch.clamp(torch.clamp(cur + (ck * eff - dk) * dt,
                                           min=0.0), max=cap)
-            soc[j], charge_kw[j], discharge_kw[j] = cur, ck, dk
+            soc[..., at], charge_kw[..., at], discharge_kw[..., at] = (
+                cur, ck, dk)
         want_charge = wc
     else:
         soc = charge_kw = discharge_kw = zeros

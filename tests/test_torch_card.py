@@ -11,7 +11,8 @@ tests/conftest.py imports JAX):
 Each kernel meets its plain version (repro_torch/kernels/ref.py, held to the
 reference package by the CPU tests) on the same CUDA inputs, at the CPU
 tests' tolerances; a whole simulation on the card meets the same one on the
-CPU, with exact launch counts; a reduced zamba2 / mamba2 prefill launches
+CPU, with exact launch counts, and so does a scenario grid (one launch a
+step for all its cells); a reduced zamba2 / mamba2 prefill launches
 exactly its SSD and flash kernels, and serving never waits for the card.
 """
 from __future__ import annotations
@@ -353,6 +354,44 @@ def test_simulation_on_card_matches_cpu(cuda_device, backend):
     assert {k: v for k, v in counts.items() if v} == want
     got, ref_res = results["cuda"], results["cpu"]
     assert ref_res["n_done"] > 0
+    for k, v in ref_res.items():
+        if k.startswith("n_") or k.startswith("class_n_"):
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-4,
+                                       err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", P.BACKENDS)
+def test_grid_on_card_matches_cpu(cuda_device, backend):
+    """A 2 x 3 grid (carbon regions x battery sizes, every technique on)
+    through the kernels == the same grid through the plain versions on the
+    CPU, cell by cell: counts exact, the rest within rtol 1e-4.  Its six
+    cells take each kernel's launches of one run."""
+    from repro_torch.workloads import make_workload
+    ci, dyn = _traces(11)
+    axes = [P.trace_axis(np.stack([ci, _traces(12)[0]])),
+            P.dyn_axis(batt_capacity_kwh=np.array([2.0, 20.0, 60.0]))]
+    cfg = _cfg(backend=backend)
+    results = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tasks, hosts, _, _ = make_workload("marconi", scale=0.03, seed=1,
+                                           horizon_days=S * DT / 24,
+                                           device=dev)
+        ops.reset_launch_counts()
+        res = P.sweep_grid(tasks, hosts, cfg, axes,
+                           dyn={**dyn, "n_active_hosts": 20}, device=dev)
+        results[dev.type] = P.result_to_numpy(res)
+        counts = ops.launch_counts()
+    want = {"first_fit_place": S}
+    if backend == "megakernel":
+        want.update(fused_power_carbon=S, fused_facility_totals=1)
+    else:
+        want["fused_facility_power"] = S
+    assert {k: v for k, v in counts.items() if v} == want
+    got, ref_res = results["cuda"], results["cpu"]
+    assert got["n_done"].shape == (2, 3) and (ref_res["n_done"] > 0).all()
     for k, v in ref_res.items():
         if k.startswith("n_") or k.startswith("class_n_"):
             np.testing.assert_array_equal(got[k], v, err_msg=k)
