@@ -17,11 +17,28 @@ Phases, each printing one JSON line:
                  and of the two power kernels.
   3. kernels  -- each kernel against its plain PyTorch version
                  (kernels/ref.py) on the card, at the main paths' shapes and
-                 around them, at the tolerances of the CPU tests.
+                 around them, at the tolerances of the CPU tests; kernel 3's
+                 chiller-derate route against its plain chain in each trace
+                 store; threefry's known answers, and its uniforms, the
+                 failure probabilities and a full-scale run's [2880, 1, 972]
+                 failure draws bit for bit against the CPU's.
   4. main     -- a full-scale Marconi run (192,817 tasks, 972 hosts, 30 days
                  at 15 minutes = 2880 steps) with every technique on, through
                  both step executors; launch counts are reset just before
                  and read just after each run and must be exact.
+  4a. resilience -- the main run with host failures, checkpointing and
+                 the closed resilience loop (reactive placement, heat-
+                 correlated failures, a PDU clamp at 0.8 of the open-loop
+                 run's mean IT draw, seed 1), through both executors and as a
+                 seed x failure_hazard_scale grid of 4 cells: launch counts
+                 exact (kernel 1 and first-fit every step, kernel 2 never,
+                 kernel 3's derate route once a megakernel run), the loop
+                 acted (interrupts, lost work, derated and throttled hours),
+                 the executors equal (`compare_resilience`), the grid's cell
+                 the single run, its healthy cells free of failures; after
+                 the grid phase, a 192-step profile of each executor; after
+                 the small phase, the same at a small scale on the card and
+                 on the CPU.
   4b. grid   -- the scenario grid of paper Fig 12 at the main phase's
                  configuration: 8 carbon regions x battery capacities, as
                  B = 1, 16 and 64 cells in one step loop, through both
@@ -57,7 +74,8 @@ Phases, each printing one JSON line:
                  an empty kernel on the power kernels' and first-fit's
                  grids, launched through the same ctypes path.
 
-Then the `kernels` summary line, the nvidia-smi line, and as the last line
+Then the `kernels` summary line (kernel 3's derate route as its own row,
+`fused_facility_totals_derate`), the nvidia-smi line, and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises: no phase is caught,
 and the script exits non-zero without the last line.  Without `--device
 cpu` it needs a card and fails without one.
@@ -81,9 +99,10 @@ import torch  # noqa: E402
 from repro_torch.carbontraces import make_region_traces  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import config as C  # noqa: E402
-from repro_torch.core import (ScenarioGrid, battery,  # noqa: E402
-                              dyn_axis, pricing, result_to_numpy, simulate,
-                              summarize, sweep_grid, trace_axis)
+from repro_torch.core import (STORES, ScenarioGrid, battery,  # noqa: E402
+                              dyn_axis, facility_failure_series, failures,
+                              pricing, result_to_numpy, seed_axis, simulate,
+                              summarize, sweep_grid, threefry, trace_axis)
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import first_fit as ff_k  # noqa: E402
 from repro_torch.kernels import flash_attn as fa_k  # noqa: E402
@@ -682,7 +701,7 @@ def time_kernels(dev, results: dict, main_cfg) -> None:
 
     def row(name, fn, plain, nbytes, nops, kname):
         b_ms, b_by = bound(nbytes, nops)
-        results[name].update(
+        results.setdefault(name, {}).update(
             ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=b_ms,
             bound_by=b_by, device_ms=device_ms(fn, kname), library_ms=None)
 
@@ -776,6 +795,19 @@ def time_kernels(dev, results: dict, main_cfg) -> None:
                                  "facility_totals_kernel", reps=10),
         latency_bound_ms_year=(year * SOC_CHAIN_LEVELS * DEP_CYCLES
                                / MAX_SM_HZ * 1e3))
+    # kernel 3's derate route on the same inputs and the resilience phase's
+    # chiller series: the same bytes (the derate bit rides the flag byte),
+    # ~6 more f32 ops a step
+    derate, _ = facility_failure_series(
+        RES_SEED, s, DT_H, C.ResilienceConfig(enabled=True), device=dev)
+    prep_d = fs_k.prepare(*args, main_cfg, chiller_derate=derate)
+    row("fused_facility_totals_derate", lambda: fs_k.launch(*prep_d),
+        lambda: ref.fused_facility_totals(*args, main_cfg,
+                                          chiller_derate=derate),
+        33 * s + 8 * 8 + 18 * 4, 106 * s, "facility_totals_kernel")
+    results["fused_facility_totals_derate"].update(
+        slow_tiles=int(fs_k.launch(*prep_d)[0, fs_k.A_SLOW]),
+        latency_bound_ms=s * SOC_CHAIN_LEVELS * DEP_CYCLES / MAX_SM_HZ * 1e3)
     torch.cuda.synchronize()
 
 
@@ -821,12 +853,13 @@ def run_backend(tasks, hosts, ci, cfg, dyn, backend, dev):
     return out, info
 
 
-def compare_backends(a: dict, b: dict, rtol: float, what: str) -> None:
-    for k in COUNTS:
+def compare_backends(a: dict, b: dict, rtol: float, what: str,
+                     atol: float = 1e-6, counts: tuple = COUNTS) -> None:
+    for k in counts:
         check(np.array_equal(a[k], b[k]),
               f"{what}: count {k} differs: {a[k]} vs {b[k]}")
     for k in ENERGY_COST_CARBON:
-        check(np.allclose(a[k], b[k], rtol=rtol, atol=1e-6),
+        check(np.allclose(a[k], b[k], rtol=rtol, atol=atol),
               f"{what}: {k} differs: {a[k]} vs {b[k]}")
 
 
@@ -1146,6 +1179,316 @@ def time_kernels_at_rows(dev, main_cfg, b: int) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 4c: host failures, checkpointing and the closed resilience loop
+# --------------------------------------------------------------------------
+
+# the resilience phase's seed: within the 30 days its chiller is derated
+# for 12 h and a PDU is down for 4 h (`facility_failure_series`), so both
+# facility processes and kernel 3's derate route act on the main path
+RES_SEED = 1
+# the grid: seeds x failure_hazard_scale (0.0 is a healthy datacenter)
+RES_GRID_SEEDS = (RES_SEED, 2)
+RES_GRID_HAZARDS = (1.0, 0.0)
+# the PDU clamp while a PDU is down: this share of the open-loop run's mean
+# IT draw, below its peak, so the clamp engages
+RES_PDU_SHARE = 0.8
+# threefry-2x32-20 known answers (Random123 kat_vectors): key, counter, out
+THREEFRY_KAT = (((0, 0), (0, 0), (0x6b200159, 0x99ba4efe)),
+                ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+                 (0x1cb996fc, 0xbb002be7)),
+                ((0x13198a2e, 0x03707344), (0x243f6a88, 0x85a308d3),
+                 (0xc4923a9c, 0x483df7a0)))
+RES_COUNTS = COUNTS + ("n_interrupts",)
+
+
+def resilience_config(cfg: C.SimConfig, pdu_cap_kw: float) -> C.SimConfig:
+    """The main configuration with host failures, checkpointing and the
+    closed loop (reactive placement, heat-correlated host failures, a
+    finite PDU clamp)."""
+    return cfg.replace(
+        seed=RES_SEED,
+        failures=C.FailureConfig(enabled=True, checkpointing=True),
+        resilience=C.ResilienceConfig(enabled=True, reactive_placement=True,
+                                      heat_hazard_mult=2.0,
+                                      pdu_cap_kw=pdu_cap_kw))
+
+
+def check_threefry(dev) -> dict:
+    """Threefry and the failure draws on the card, bit for bit: the three
+    known-answer vectors; 4 x 192,817 uniforms against the CPU's; the
+    main path's failure probabilities (the reference's exp, in f64 fused
+    multiply-adds on the card) and its [2880, 1, 972] failure draws and
+    keys against the CPU's; the exp over 2^20 inputs in [-87, 87]."""
+    cpu = torch.device("cpu")
+    for key, ctr, want in THREEFRY_KAT:
+        got = threefry.threefry2x32(*(torch.tensor(v, device=dev)
+                                      for v in (*key, *ctr)))
+        check(tuple(int(x) for x in got) == want,
+              f"threefry {key} {ctr}: {[hex(int(x)) for x in got]}")
+    n = 192817
+    seeds = [0, 3, 12345, -1]
+    u = [threefry.uniform(threefry.prng_key(seeds, d), n) for d in (dev, cpu)]
+    check(torch.equal(u[0].cpu(), u[1]), "threefry uniforms: card != CPU")
+    x = torch.linspace(-87.0, 87.0, 1 << 20)
+    check(torch.equal(failures.exp_f32(x.to(dev)).cpu(),
+                      failures.exp_f32(x)), "exp_f32: card != CPU")
+    rcfg = C.ResilienceConfig(enabled=True, heat_hazard_mult=2.0)
+    derate, _ = facility_failure_series(RES_SEED, MAIN_STEPS, DT_H, rcfg,
+                                        device=cpu)
+    hazard = 1.0 + 2.0 * (1.0 - derate)
+    p = [failures.failure_probability(hazard.to(d), DT_H, 1000.0)
+         for d in (dev, cpu)]
+    check(torch.equal(p[0].cpu(), p[1]), "failure probability: card != CPU")
+    draws = [failures.draw_host_failures(RES_SEED, pi, 972, d)
+             for pi, d in ((p[0], dev), (p[1], cpu))]
+    for a, b, what in zip(draws[0], draws[1], ("keys", "draws")):
+        check(torch.equal(a.cpu(), b), f"failure {what}: card != CPU")
+    return {"known_answers": len(THREEFRY_KAT), "uniforms": 4 * n,
+            "exp_inputs": x.numel(), "derated_steps": int((derate < 1).sum()),
+            "draws": int(draws[0][1].numel()),
+            "failures_drawn": int(draws[0][1].sum())}
+
+
+def check_facility_derate(dev, results: dict) -> None:
+    """Kernel 3's derate route at S = 2880 against the plain chain on the
+    same series (the resilience phase's chiller: 48 derated steps): the
+    main configuration in each trace store and each dispatch policy, and
+    [4, S] rows with a seed a row (rtol 1e-4, atol 1e-3)."""
+    s = MAIN_STEPS
+    traces = facility_traces(s, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rcfg = C.ResilienceConfig(enabled=True)
+    derate, _ = facility_failure_series(RES_SEED, s, DT_H, rcfg, device=dev)
+    check(bool((derate < 1).any()), "no derated step in the series")
+    it_kw = 700.0 + 300.0 * torch.rand(s, generator=gen, device=dev)
+    errs = []
+    for store in STORES:
+        for policy in ("carbon", "blended"):
+            cfg = main_config(s, C.EmbodiedConfig(), policy=policy,
+                              dispatch_lambda=0.5).replace(resilience=rcfg)
+            args = facility_args(cfg, it_kw, traces)
+            got = fs_k.fused_facility_totals(*args, cfg, trace_store=store,
+                                             chiller_derate=derate)
+            want = ref.fused_facility_totals(*args, cfg, trace_store=store,
+                                             chiller_derate=derate)
+            errs.append(_totals_close(got, want, 1e-4, 1e-3,
+                                      f"derate route {store}/{policy}"))
+            healthy = fs_k.fused_facility_totals(*args, cfg,
+                                                 trace_store=store)
+            check(float(got["cooling_energy"])
+                  > float(healthy["cooling_energy"]),
+                  f"derate route {store}/{policy}: no more cooling energy")
+    seeds = np.array([RES_SEED, 2, 3, 4])
+    rows, _ = facility_failure_series(seeds, s, DT_H, rcfg, device=dev)
+    cfg = main_config(s, C.EmbodiedConfig()).replace(resilience=rcfg)
+    it_rows = 700.0 + 300.0 * torch.rand((4, s), generator=gen, device=dev)
+    args = facility_args(cfg, it_rows, traces)
+    got = fs_k.fused_facility_totals(*args, cfg, chiller_derate=rows)
+    for r in range(4):
+        want = ref.fused_facility_totals(it_rows[r], *args[1:], cfg,
+                                         chiller_derate=rows[r])
+        errs.append(_totals_close({k: v[r] for k, v in got.items()}, want,
+                                  1e-4, 1e-3, f"derate route row {r}"))
+    torch.cuda.synchronize()
+    results["fused_facility_totals_derate"] = {
+        "max_abs_err": max(e for e, _ in errs),
+        "max_rel_err": max(r for _, r in errs), "cases": len(errs),
+        "derated_steps": int((derate < 1).sum()),
+        "derated_steps_rows": [int(x) for x in (rows < 1).sum(1)]}
+
+
+def _res_checks(res: dict, what: str, acted: bool) -> None:
+    """Finite headline numbers, tasks done; with `acted`, the loop acted:
+    interrupts, lost work, derated and throttled hours all above 0."""
+    for k in HEADLINE:
+        check(bool(np.all(np.isfinite(res[k]))), f"{what}: {k} not finite")
+    check(float(np.min(res["n_done"])) > 0, f"{what}: no task finished")
+    if acted:
+        for k in ("n_interrupts", "derate_h", "throttled_h", "lost_work_h"):
+            check(float(np.min(res[k])) > 0, f"{what}: {k} is 0: the loop "
+                  "did not act")
+
+
+def res_launches(backend: str, n_steps: int, n_chunks: int = 1) -> dict:
+    """The resilience path's launches: kernel 1 (power without the cooling
+    tail) and first-fit every step; kernel 2 never; kernel 3 (its derate
+    route) once a megakernel run."""
+    want = {"first_fit_place": n_steps, "fused_power_carbon": n_steps}
+    if backend == "megakernel":
+        want["fused_facility_totals"] = n_chunks
+    return want
+
+
+def compare_resilience(a: dict, b: dict, what: str, open_a: dict,
+                       open_b: dict) -> None:
+    """The resilience path's executors `a` and `b`: counts and
+    `n_interrupts` exact; energy, cost and operational carbon within rtol
+    1e-5, atol 1e-4.  Embodied carbon is load-independent: the stage
+    pipeline sums it a step at a time in f32 and the megakernel takes the
+    closed form, 1.5e-5 apart over 2880 steps with or without the loop, so
+    each executor's equals its own open-loop run's (`open_a`, `open_b`) bit
+    for bit instead, and the total is the sum of the two."""
+    for k in RES_COUNTS:
+        check(np.array_equal(a[k], b[k]),
+              f"{what}: count {k} differs: {a[k]} vs {b[k]}")
+    for k in ENERGY_COST_CARBON:
+        if k not in ("emb_carbon_kg", "total_carbon_kg"):
+            check(np.allclose(a[k], b[k], rtol=1e-5, atol=1e-4),
+                  f"{what}: {k} differs: {a[k]} vs {b[k]}")
+    for x, o, side in ((a, open_a, "first"), (b, open_b, "second")):
+        check(bool(np.all(x["emb_carbon_kg"] == o["emb_carbon_kg"])),
+              f"{what}: emb_carbon_kg of the {side} differs from its "
+              f"open-loop run: {x['emb_carbon_kg']} vs {o['emb_carbon_kg']}")
+
+
+def pdu_cap_kw(open_loop: dict, n_steps: int) -> float:
+    """RES_PDU_SHARE of an open-loop run's mean IT draw (kW)."""
+    return (RES_PDU_SHARE * float(open_loop["it_energy_kwh"])
+            / (n_steps * DT_H))
+
+
+def resilience_inputs(dev, scale: float, n_steps: int, n_active: int,
+                      cap: float, hazard: float | None = None):
+    """(tasks, hosts, cfg, ci, dyn) of the resilience path; `hazard` sets
+    the dyn `failure_hazard_scale`."""
+    tasks, hosts, _, meta = make_workload("marconi", scale=scale, seed=0,
+                                          dt_h=DT_H,
+                                          horizon_days=n_steps * DT_H / 24,
+                                          device=dev)
+    cfg = resilience_config(
+        main_config(n_steps, meta["embodied"], meta["n_hosts"]), cap)
+    ci, wb, price, cf = facility_traces(n_steps, dev)
+    dyn = {"n_active_hosts": n_active, "price_trace": price,
+           "wet_bulb_trace": wb, "pv_cf_trace": cf}
+    if hazard is not None:
+        dyn["failure_hazard_scale"] = hazard
+    return tasks, hosts, cfg, ci, dyn
+
+
+def resilience_path(dev, scale: float, n_steps: int, n_active: int,
+                    cap: float, open_loop: dict, check_counts: bool,
+                    acted: bool, grid: bool = True,
+                    hazard: float | None = None) -> dict:
+    """The main configuration with failures and the closed loop (seed
+    RES_SEED, a PDU clamp of `cap` kW) through both executors, then as a
+    `sweep_grid` of RES_GRID_SEEDS x RES_GRID_HAZARDS: launch counts exact,
+    with `acted` the loop acted (interrupts, derated and throttled hours,
+    lost work), the executors equal (`compare_resilience`; `open_loop`
+    holds each executor's open-loop result at the same scale), the grid's
+    (RES_SEED, 1.0) cell the single run (rtol 1e-4), its hazard-0 cells
+    free of failures.  `hazard` scales every failure rate of the single
+    runs (a grid sweeps it)."""
+    tasks, hosts, cfg, ci, dyn = resilience_inputs(dev, scale, n_steps,
+                                                   n_active, cap, hazard)
+    out = {"pdu_cap_kw": cap, "runs": [], "grid": [],
+           "launches": dict.fromkeys(build.KERNELS, 0)}
+    results = {}
+    for backend in ("stage-pipeline", "megakernel"):
+        res, info = run_backend(tasks, hosts, ci, cfg, dyn, backend, dev)
+        if check_counts:
+            got = {k: v for k, v in info["launches"].items() if v}
+            want = res_launches(backend, n_steps)
+            check(got == want, f"resilience {backend}: launches {got} != "
+                  f"{want}")
+        for k, n in info["launches"].items():
+            out["launches"][k] += n
+        _res_checks(res, f"resilience {backend}", acted)
+        info["resilience"] = {k: float(res[k]) for k in (
+            "n_interrupts", "lost_work_h", "derate_h", "throttled_h")}
+        results[backend] = res
+        out["runs"].append(info)
+    compare_resilience(results["stage-pipeline"], results["megakernel"],
+                       "resilience backends", open_loop["stage-pipeline"],
+                       open_loop["megakernel"])
+    a, b = results["stage-pipeline"], results["megakernel"]
+    out["backend_rel_diff"] = {
+        k: float(np.max(np.abs(a[k] - b[k]) / np.maximum(np.abs(b[k]), 1e-9)))
+        for k in ENERGY_COST_CARBON}
+    out["open_loop_vs_closed"] = {
+        k: [float(open_loop["megakernel"][k]), float(b[k])]
+        for k in ("total_carbon_kg", "op_carbon_kg", "it_energy_kwh",
+                  "cooling_energy_kwh", "total_cost", "n_done",
+                  "sla_violation_frac", "lost_work_h", "throttled_h")}
+    if grid:
+        axes = [seed_axis(np.array(RES_GRID_SEEDS)),
+                dyn_axis(failure_hazard_scale=np.float32(RES_GRID_HAZARDS))]
+        res_g = {}
+        for backend in ("stage-pipeline", "megakernel"):
+            c = cfg.replace(backend=backend)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            g = result_to_numpy(sweep_grid(tasks, hosts, c, axes, ci_trace=ci,
+                                           dyn=dyn, device=dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            if check_counts:
+                got = {k: v for k, v in counts.items() if v}
+                want = res_launches(backend, n_steps)
+                check(got == want, f"resilience grid {backend}: launches "
+                      f"{got} != {want}")
+            for k, n in counts.items():
+                out["launches"][k] += n
+            compare_backends(cell(g, (0, 0)), results[backend], 1e-4,
+                             f"resilience grid {backend} cell (seed "
+                             f"{RES_SEED}, 1.0) vs the single run",
+                             counts=RES_COUNTS)
+            check(bool((g["n_interrupts"][:, 1] == 0).all()
+                       and (g["derate_h"][:, 1] == 0).all()),
+                  f"resilience grid {backend}: hazard 0 failed something")
+            check(not acted or float(g["n_interrupts"][1, 0]) > 0,
+                  f"resilience grid {backend}: seed 2 had no interrupts")
+            res_g[backend] = g
+            years = g["n_done"].size * n_steps * DT_H / C.HOURS_PER_YEAR
+            out["grid"].append({
+                "backend": backend, "shape": list(g["n_done"].shape),
+                "wall_s": wall, "sim_years_per_s": years / wall,
+                "launches": counts,
+                "n_interrupts": g["n_interrupts"].tolist(),
+                "derate_h": g["derate_h"].tolist()})
+        compare_resilience(res_g["stage-pipeline"], res_g["megakernel"],
+                           "resilience grid backends",
+                           open_loop["stage-pipeline"],
+                           open_loop["megakernel"])
+    out["results"] = results
+    return out
+
+
+# the small run's failure_hazard_scale: its two days see host and
+# facility failures and the PDU clamp
+SMALL_RES_HAZARD = 20.0
+
+
+def small_resilience_card_vs_cpu(dev, small: dict) -> dict:
+    """The resilience configuration at a small scale (0.05, 192 steps, 38
+    active hosts, the PDU clamp from the CPU's open-loop run, every failure
+    rate x SMALL_RES_HAZARD) on the card and on the CPU: both executors,
+    the loop acted, counts and `n_interrupts` exact, the rest within rtol
+    1e-4.  `small` holds the open-loop results on each side ({'cuda' |
+    'cpu': {backend: fields}})."""
+    out, info = {}, {}
+    cap = pdu_cap_kw(small["cpu"]["megakernel"], 192)
+    for d in (dev, torch.device("cpu")):
+        r = resilience_path(d, 0.05, 192, 38, cap, small[d.type],
+                            d.type == "cuda", False, grid=False,
+                            hazard=SMALL_RES_HAZARD)
+        for i in r["runs"]:
+            check(i["resilience"]["n_interrupts"] > 0
+                  and i["resilience"]["derate_h"] > 0,
+                  f"small resilience run on {d.type}: the loop did not act")
+        out[d.type] = r["results"]
+        info[d.type] = [i["resilience"] for i in r["runs"]]
+    for backend in ("stage-pipeline", "megakernel"):
+        compare_backends(out["cuda"][backend], out["cpu"][backend], 1e-4,
+                         f"resilience card vs cpu ({backend})",
+                         counts=RES_COUNTS)
+    return {"pdu_cap_kw": cap, **info}
+
+
+# --------------------------------------------------------------------------
 # the serving path: zamba2-7b and mamba2-2.7b
 # --------------------------------------------------------------------------
 
@@ -1444,6 +1787,11 @@ def main() -> int:
         for info in infos:
             emit({"phase": "main", "rehearsal": True, "n_tasks":
                   meta["n_tasks"], **info})
+        res = resilience_path(cpu, 0.02, 192, 15,
+                              pdu_cap_kw(results["megakernel"], 192),
+                              results, False, False)
+        for info in res["runs"] + res["grid"]:
+            emit({"phase": "resilience", "rehearsal": True, **info})
         for row in grid_phase(cpu, results, 0.02, 192, 15, False)[0]:
             emit({"phase": "grid", "rehearsal": True, **row})
         emit({"phase": "small_grid_card_vs_cpu", "rehearsal": True,
@@ -1491,15 +1839,17 @@ def main() -> int:
     emit({"phase": "build", "seconds": seconds, "libraries": report,
           "resources": resources})
 
-    kres = {name: {} for name in build.KERNELS}
+    kres = {name: {} for name in (*build.KERNELS,
+                                  "fused_facility_totals_derate")}
     t0 = time.perf_counter()
     check_power_kernels(dev, kres)
     check_first_fit(dev, kres)
     check_facility_kernel(dev, kres)
+    check_facility_derate(dev, kres)
     check_ssd_kernel(dev, kres)
     check_flash_kernel(dev, kres)
     emit({"phase": "kernels_vs_plain", "seconds": time.perf_counter() - t0,
-          "results": kres})
+          "results": kres, "threefry": check_threefry(dev)})
 
     meta, results, infos = main_path(dev, 1.0, MAIN_STEPS, MARCONI_ACTIVE,
                                      True)
@@ -1511,6 +1861,25 @@ def main() -> int:
               meta["n_tasks"], "n_hosts": meta["n_hosts"],
               "n_steps": MAIN_STEPS, "n_active_hosts": MARCONI_ACTIVE,
               **info})
+
+    # the main path with host failures, checkpointing and the closed
+    # resilience loop: both executors, then the seed x hazard grid (timed
+    # before any profile; the profile comes after the grid phase's)
+    t0 = time.perf_counter()
+    cap = pdu_cap_kw(results["megakernel"], MAIN_STEPS)
+    resil = resilience_path(dev, 1.0, MAIN_STEPS, MARCONI_ACTIVE, cap,
+                            results, True, True)
+    for info in resil["runs"]:
+        emit({"phase": "resilience", "workload": "marconi", "n_tasks":
+              meta["n_tasks"], "n_steps": MAIN_STEPS, "seed": RES_SEED,
+              "pdu_cap_kw": cap, **info})
+    for row in resil["grid"]:
+        emit({"phase": "resilience_grid", "seeds": RES_GRID_SEEDS,
+              "failure_hazard_scale": RES_GRID_HAZARDS, **row})
+    emit({"phase": "resilience_summary", "pdu_cap_kw": cap,
+          "backend_rel_diff": resil["backend_rel_diff"],
+          "open_loop_vs_closed": resil["open_loop_vs_closed"]})
+    res_seconds = time.perf_counter() - t0
 
     # the scenario grid at the main configuration: B = 1, 16, 64 cells in
     # one step loop each, on both backends; then the profiles of the main
@@ -1527,6 +1896,15 @@ def main() -> int:
     emit({"phase": "small_grid_card_vs_cpu", "ok": True,
           **small_grid_card_vs_cpu(dev), "grid_phase_seconds": seconds,
           "grid_phase_s": time.perf_counter() - t0})
+    # where the resilience path's time goes: 192 steps of each executor
+    # under the profiler
+    t0 = time.perf_counter()
+    tasks, hosts, cfg, ci, dyn = resilience_inputs(dev, 1.0, MAIN_STEPS,
+                                                   MARCONI_ACTIVE, cap)
+    for row in profile_window(tasks, hosts, cfg, dyn, ci, 192, dev):
+        emit({"phase": "resilience_profile", **row})
+    del tasks, hosts
+    res_seconds += time.perf_counter() - t0
 
     # the small run on the card against the plain versions on the CPU
     small = {}
@@ -1538,12 +1916,20 @@ def main() -> int:
                          f"card vs cpu ({backend})")
     emit({"phase": "small_card_vs_cpu", "ok": True,
           "n_done": float(small["cuda"]["stage-pipeline"]["n_done"])})
+    t0 = time.perf_counter()
+    info = small_resilience_card_vs_cpu(dev, small)
+    emit({"phase": "small_resilience_card_vs_cpu", "ok": True, **info,
+          "seconds": time.perf_counter() - t0,
+          "resilience_phase_s": res_seconds + time.perf_counter() - t0})
 
     # the serving path: zamba2-7b as configured (contract, prefill, greedy
     # decode), then mamba2-2.7b's prefill; each timed prefill's launch
     # counts are reset just before it and read just after
     launches = {k: sum(i["launches"][k] for i in infos) + grid_launches[k]
-                for k in build.KERNELS}
+                + resil["launches"][k] for k in build.KERNELS}
+    # kernel 3's derate route: its launches on the resilience path
+    launches["fused_facility_totals_derate"] = resil["launches"][
+        "fused_facility_totals"]
     for cfg, contract, greedy in ((get_config("zamba2-7b"), CONTRACT_LEN,
                                    GREEDY_TOKENS),
                                   (get_config("mamba2-2.7b"), 0, 0)):
@@ -1568,6 +1954,8 @@ def main() -> int:
                                         "src/repro/kernels/power_carbon.py:159"),
                "fused_facility_totals": ("fused_step.cu",
                                          "src/repro/kernels/fused_step.py:261"),
+               "fused_facility_totals_derate": (
+                   "fused_step.cu", "src/repro/kernels/fused_step.py:261"),
                "first_fit_place": ("first_fit.cu",
                                    "src/repro/kernels/first_fit.py:78"),
                "ssd_intra_chunk": ("ssd_chunk.cu",
@@ -1575,7 +1963,7 @@ def main() -> int:
                "flash_attention": ("flash_attn.cu",
                                    "src/repro/kernels/flash_attn.py:97")}
     rows = []
-    for name in build.KERNELS:
+    for name in (*build.KERNELS, "fused_facility_totals_derate"):
         r = kres[name]
         check(launches[name] > 0, f"{name} never launched on the main path")
         src, replaces = sources[name]

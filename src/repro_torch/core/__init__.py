@@ -13,6 +13,8 @@ from .grid import (Axis, ScenarioGrid, dyn_axis, fleet_axis, price_axis,
                    tasktrace_axis, trace_axis, weather_axis)
 from .metrics import SimResult, result_to_numpy, summarize
 from .pricing import precompute_price_signals
+from .resilience import (cross_region_spill, facility_failure_series,
+                         host_rank, inlet_proxy_c, next_throttle)
 from .quant import (STORES, QuantizedTrace, dequantize_trace,
                     maybe_dequantize, quantize_trace)
 from .scaling import with_scale
@@ -22,7 +24,8 @@ from .state import (DONE, INVALID, JOB_BATCH, JOB_CLASS_NAMES,
                     RUNNING, BatteryState, HostTable, MetricsAcc, SimState,
                     TaskTable, active_host_mask, init_sim_state,
                     make_host_table, make_task_table, pad_task_table,
-                    retime_task_table, tables_from_numpy)
+                    retime_task_table, tables_from_numpy,
+                    with_interactive_frac)
 from .sweep import (lower_sweep, sharded_sweep, sweep_battery_sizes,
                     sweep_regions, sweep_regions_x_battery, sweep_step_fn)
 
@@ -37,14 +40,16 @@ __all__ = [
     "price_axis", "region_axis", "renewable_axis", "seed_axis", "sweep_grid",
     "tasktrace_axis", "trace_axis", "weather_axis",
     "SimResult", "result_to_numpy", "summarize", "precompute_price_signals",
-    "STORES", "QuantizedTrace", "dequantize_trace", "maybe_dequantize",
+    "cross_region_spill", "facility_failure_series", "host_rank",
+    "inlet_proxy_c", "next_throttle", "STORES", "QuantizedTrace", "dequantize_trace", "maybe_dequantize",
     "quantize_trace",
     "with_scale", "forward_window_quantile", "forward_window_quantiles",
     "DONE", "INVALID", "JOB_BATCH", "JOB_CLASS_NAMES", "JOB_INTERACTIVE",
     "JOB_TRAINING", "N_JOB_CLASSES", "PENDING", "RUNNING", "BatteryState",
     "HostTable", "MetricsAcc", "SimState", "TaskTable", "active_host_mask",
     "init_sim_state", "make_host_table", "make_task_table", "pad_task_table",
-    "retime_task_table", "tables_from_numpy", "lower_sweep",
+    "retime_task_table", "tables_from_numpy", "with_interactive_frac",
+    "lower_sweep",
     "sharded_sweep", "sweep_battery_sizes", "sweep_regions",
     "sweep_regions_x_battery", "sweep_step_fn",
 ]

@@ -5,8 +5,8 @@ ctx)`; each sustainability technique is one stage, and the pipeline is
 composed in Python from the static config before the loop starts.  The
 default pipeline follows the reference's event cascade:
 
-  task_stopper -> scheduler -> progress -> power -> cooling -> renewables
-  -> battery -> pricing -> carbon
+  checkpoint -> failures -> task_stopper -> scheduler -> progress -> power
+  -> cooling -> renewables -> battery -> pricing -> carbon -> resilience
 
 Power flows between the facility stages travel on an explicit energy-flow
 ledger (`ctx["flow"]`, an `EnergyFlow`) that obeys, per step,
@@ -45,9 +45,18 @@ row's scalars [B, 1]; every stage works along the last axis, so each step
 runs every stage once for all rows, and each kernel of the path is one
 launch a step (the facility kernel one a run) whatever B is.
 
-Not ported yet, and refused with NotImplementedError: host failures,
-checkpointing and the resilience loop (they draw JAX threefry bits), the
-probe bus, and the dyn keys that need them.
+Failures and resilience.  Host failures draw the reference's threefry bits
+(core/threefry.py), and neither their keys nor their probabilities depend
+on the simulation state: `build_step_inputs` walks the key chain on the
+host and draws every step's [B, H] failure flags on the device before the
+loop, beside the facility failure series (chiller derate, PDU cap) of
+core/resilience.py; each step reads its slice.  With resilience on, the
+power stage takes the power kernel without its cooling tail (the PDU clamp
+sits between the IT sum and the cooling model), the throttle of the next
+step is a [B, 1] state, and the megakernel's facility kernel takes the
+derate series.
+
+Not ported yet, and refused with NotImplementedError: the probe bus.
 """
 from __future__ import annotations
 
@@ -59,8 +68,10 @@ import torch
 from ..kernels import ops, ref
 from . import battery as battery_mod
 from . import carbon as carbon_mod
+from . import failures as failures_mod
 from . import pricing as pricing_mod
 from . import renewables as renewables_mod
+from . import resilience as resilience_mod
 from . import scaling as scaling_mod
 from . import scheduler as scheduler_mod
 from . import shifting as shifting_mod
@@ -76,15 +87,9 @@ BACKENDS = ("stage-pipeline", "megakernel")
 
 Stage = Callable[[SimState, dict], tuple[SimState, dict]]
 
-# what the port refuses, and the ROADMAP item that brings it
-_THREEFRY = "ROADMAP Queue 1, threefry PRNG + failures + resilience"
-_UNPORTED_DYN = {
-    "interactive_frac": _THREEFRY,
-    "failure_hazard_scale": _THREEFRY,
-    "throttle_inlet_c": _THREEFRY,
-    "pdu_cap_kw": _THREEFRY,
-    "seed": _THREEFRY,
-}
+# dyn keys of the resilience loop, refused (as in the reference) when it
+# is off
+_RESILIENCE_KEYS = ("throttle_inlet_c", "pdu_cap_kw", "failure_hazard_scale")
 
 
 class EnergyFlow(NamedTuple):
@@ -108,8 +113,12 @@ def init_energy_flow(device="cuda", shape=()) -> EnergyFlow:
 
 
 class StepInputs(NamedTuple):
-    """Exogenous per-step inputs, all precomputed, each f32/bool[..., S]:
-    [S] for one scenario, [B, S] where the scenario rows differ."""
+    """Exogenous per-step inputs, all precomputed.  The series are
+    f32/bool[..., S]: [S] for one scenario, [B, S] where the scenario rows
+    differ.  With host failures on, `host_fail` holds every step's failure
+    draws, bool [S, B, H], and `rng_keys` the rows' threefry keys, int64
+    [S + 1, B, 2] (before each step and after the last); one step's inputs
+    hold that step's [B, H] draws and the [B, 2] key after it."""
     ci: torch.Tensor
     batt_threshold: torch.Tensor
     ci_rising: torch.Tensor
@@ -119,8 +128,16 @@ class StepInputs(NamedTuple):
     price_lo: torch.Tensor
     price_hi: torch.Tensor
     pv_cf: torch.Tensor
-    chiller_derate: torch.Tensor  # ones: the resilience loop is not ported
-    pdu_cap_kw: torch.Tensor      # +inf: idem
+    # facility failure injection (core/resilience.py): ones and +inf when
+    # resilience is off
+    chiller_derate: torch.Tensor  # f32 COP / economizer scale
+    pdu_cap_kw: torch.Tensor      # f32 rack-power clamp
+    host_fail: torch.Tensor | None = None
+    rng_keys: torch.Tensor | None = None
+
+
+# the [..., S] series of StepInputs
+SERIES = StepInputs._fields[:11]
 
 
 def _trace(x, n: int, what: str, device):
@@ -130,13 +147,33 @@ def _trace(x, n: int, what: str, device):
     return x[..., :n]
 
 
+def _host_values(v):
+    """A dyn value as a host number or numpy array (a tensor is read
+    once, before the loop)."""
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
+def _column(v, device) -> torch.Tensor:
+    """A dyn value as an f32 tensor on `device`: 0-d for one value, [B, 1]
+    for one a row (made once, before the loop)."""
+    x = torch.tensor(np.asarray(_host_values(v), np.float32), device=device)
+    return x.reshape(-1, 1) if x.dim() else x
+
+
 def build_step_inputs(ci_trace, cfg: SimConfig, dyn: dict | None = None,
-                      device="cuda") -> StepInputs:
-    """The exogenous per-step series of a run.  Each trace (carbon, and
+                      device="cuda", n_hosts: int | None = None
+                      ) -> StepInputs:
+    """The exogenous per-step inputs of a run.  Each trace (carbon, and
     the dyn `wet_bulb_trace`, `price_trace`, `pv_cf_trace`) is [S] or one
     row a scenario, [B, S]; a swept `shift_quantile_value` ([B] levels)
     gives [B, S] thresholds.  Every signal is computed row by row, and a
-    field is [B, S] only where its own inputs are."""
+    field is [B, S] only where its own inputs are.
+
+    With resilience on, the facility failure series come from the dyn
+    `seed` (else `cfg.seed`), `failure_hazard_scale` and `pdu_cap_kw` (one
+    value, or one a row).  With host failures on and `n_hosts` given, the
+    step's host failure draws and keys too (`StepInputs.host_fail`,
+    `rng_keys`)."""
     dyn = dyn or {}
     s = cfg.n_steps
     ci = _trace(ci_trace, s, "carbon", device)
@@ -175,16 +212,74 @@ def build_step_inputs(ci_trace, cfg: SimConfig, dyn: dict | None = None,
                 "False: the PV trace would be silently ignored — enable the "
                 "renewables subsystem (core/renewables.py)")
         cf = zeros
+    seed = _host_values(dyn.get("seed", cfg.seed))
+    hz = dyn.get("failure_hazard_scale")
+    if cfg.resilience.enabled:
+        derate, pdu_down = resilience_mod.facility_failure_series(
+            seed, s, cfg.dt_h, cfg.resilience,
+            hazard_scale=None if hz is None else _host_values(hz),
+            device=device)
+        cap = _column(dyn.get("pdu_cap_kw", cfg.resilience.pdu_cap_kw),
+                      device)
+        pdu_cap = torch.where(pdu_down, cap, float("inf"))
+    else:
+        derate = torch.ones_like(ci)
+        pdu_cap = torch.full_like(ci, float("inf"))
+    fail = keys = None
+    if cfg.failures.enabled and n_hosts is not None:
+        hazard = None
+        if cfg.resilience.enabled:  # one hazard a row and step
+            hazard = (1.0 if hz is None else _column(hz, device)
+                      ) * torch.ones_like(derate)
+            heat = cfg.resilience.heat_hazard_mult
+            if heat > 0.0:  # a derated chiller cooks the hosts
+                hazard = hazard * (1.0 + heat * (1.0 - derate))
+        p_fail = failures_mod.failure_probability(
+            hazard, cfg.dt_h, cfg.failures.mtbf_h).to(device)
+        if not p_fail.dim():
+            p_fail = p_fail.expand(s)
+        keys, fail = failures_mod.draw_host_failures(seed, p_fail, n_hosts,
+                                                     device)
     return StepInputs(ci=ci, batt_threshold=bt, ci_rising=rising,
                       shift_threshold=st, wet_bulb_c=wb, price=pr,
                       price_lo=plo, price_hi=phi, pv_cf=cf,
-                      chiller_derate=torch.ones_like(ci),
-                      pdu_cap_kw=torch.full_like(ci, float("inf")))
+                      chiller_derate=derate, pdu_cap_kw=pdu_cap,
+                      host_fail=fail, rng_keys=keys)
 
 
 # --------------------------------------------------------------------------
 # stages
 # --------------------------------------------------------------------------
+
+def stage_failures(cfg: SimConfig) -> Stage:
+    """Host failures and repairs from the step's precomputed draws
+    (`ctx["host_fail"]`), the key advanced to the step's next key, and the
+    tasks on failed hosts requeued."""
+    def fn(state: SimState, ctx: dict):
+        hosts, newly_down = failures_mod.host_failure_transition(
+            state.hosts, state.t, ctx["host_fail"], cfg.failures)
+        tasks, n_int = failures_mod.interrupt_tasks(state.tasks, newly_down,
+                                                    cfg.failures)
+        metrics = state.metrics._replace(
+            n_interrupts=state.metrics.n_interrupts + n_int[..., None])
+        return state._replace(rng=ctx["rng_next"], hosts=hosts, tasks=tasks,
+                              metrics=metrics), ctx
+    return fn
+
+
+def stage_checkpoint(cfg: SimConfig) -> Stage:
+    """Snapshot running tasks on the checkpoint boundaries; the step index
+    comes from the loop (`ctx["step_index"]`), so other steps launch
+    nothing."""
+    isteps = failures_mod.checkpoint_interval_steps(cfg.failures, cfg.dt_h)
+
+    def fn(state: SimState, ctx: dict):
+        tasks = failures_mod.checkpoint_tick(
+            state.tasks, ctx.get("step_index", state.step), isteps,
+            cfg.failures)
+        return state._replace(tasks=tasks), ctx
+    return fn
+
 
 def stage_task_stopper(cfg: SimConfig) -> Stage:
     def fn(state: SimState, ctx: dict):
@@ -213,6 +308,7 @@ def _presort_enabled(cfg: SimConfig) -> bool:
 
 
 def stage_scheduler(cfg: SimConfig) -> Stage:
+    reactive = cfg.resilience.enabled and cfg.resilience.reactive_placement
     presorted = _presort_enabled(cfg)
 
     def fn(state: SimState, ctx: dict):
@@ -222,9 +318,12 @@ def stage_scheduler(cfg: SimConfig) -> Stage:
             cfg.shifting, shiftable=tasks.shiftable)
         n_delayed = ((tasks.status == PENDING) & (tasks.arrival <= state.t)
                      & ~shift_ok).to(F32).sum(-1, keepdim=True)
+        order = (resilience_mod.host_rank(state.hosts, state.t)
+                 if reactive else None)
         tasks = scheduler_mod.schedule_step(
             tasks, state.hosts, state.t, shift_ok, cfg.scheduler,
-            slots=ctx.get("slots_per_step"), presorted=presorted)
+            slots=ctx.get("slots_per_step"), host_order=order,
+            presorted=presorted)
         metrics = state.metrics._replace(
             n_shift_delays=state.metrics.n_shift_delays + n_delayed)
         return state._replace(tasks=tasks, metrics=metrics), ctx
@@ -232,12 +331,16 @@ def stage_scheduler(cfg: SimConfig) -> Stage:
 
 
 def stage_progress(cfg: SimConfig) -> Stage:
+    resil = cfg.resilience.enabled
+
     def fn(state: SimState, ctx: dict):
         tasks = state.tasks
         running = tasks.status == RUNNING
         h = state.hosts.speed.shape[-1]
         speed = scheduler_mod.take(state.hosts.speed,
                                    torch.clamp(tasks.host, 0, h - 1).long())
+        if resil:  # the throttle computed at the end of the previous step
+            speed = speed * state.throttle
         advance = cfg.dt_h * torch.where(running, speed, 1.0)
         done_now = running & (tasks.remaining <= advance)
         finish = torch.where(
@@ -274,19 +377,42 @@ def _host_inputs(hosts, cpu_u):
             (hosts.active & hosts.up).to(F32).expand_as(cpu_u))
 
 
+def _throttled_it_kw(state: SimState, cfg: SimConfig, ctx: dict):
+    """(per-host power, raw IT sum [B, 1], the IT draw after the PDU clamp,
+    utilizations) of the resilience route: the utilizations capped by the
+    step's throttle, kernel 1 for power and its sum, then the clamp."""
+    hosts = state.hosts
+    cpu_u, gpu_u = scheduler_mod.host_utilization(state.tasks, hosts)
+    cpu_u, gpu_u = cpu_u * state.throttle, gpu_u * state.throttle
+    p, it_kw = ops.host_power(cpu_u, gpu_u, *_host_inputs(hosts, cpu_u),
+                              cfg.cpu_power, cfg.gpu_power)
+    raw = it_kw[:, None]
+    return p, raw, torch.minimum(raw, ctx["pdu_cap_kw"]), cpu_u, gpu_u
+
+
 def stage_power(cfg: SimConfig) -> Stage:
     """Writes `flow.it_kw` (and provisionally `flow.grid_import_kw`).
 
     With cooling on, one fused call yields per-host power, the IT sum and
-    the cooling tail, which `stage_cooling` then reads from ctx."""
+    the cooling tail, which `stage_cooling` then reads from ctx.  With
+    resilience on, the step's throttle caps the utilizations, kernel 1
+    sums the power and the PDU failure process clamps the sum (`flow.it_kw`
+    is the clamped draw; the raw one goes to ctx for the next throttle)."""
     cache: dict = {}
+    resil = cfg.resilience.enabled
 
     def fn(state: SimState, ctx: dict):
         hosts = state.hosts
-        cpu_u, gpu_u = scheduler_mod.host_utilization(state.tasks, hosts)
-        n_gpus, on = _host_inputs(hosts, cpu_u)
         if cfg.collect_series:  # capacity-invariant probe for tests
             ctx["max_overcommit"] = _max_overcommit(state.tasks, hosts)
+        if resil:
+            p, raw, it_kw, cpu_u, gpu_u = _throttled_it_kw(state, cfg, ctx)
+            flow = ctx["flow"]._replace(it_kw=it_kw, grid_import_kw=it_kw)
+            return state, dict(ctx, flow=flow, raw_it_kw=raw,
+                               host_power_kw=p, host_cpu_util=cpu_u,
+                               host_gpu_util=gpu_u)
+        cpu_u, gpu_u = scheduler_mod.host_utilization(state.tasks, hosts)
+        n_gpus, on = _host_inputs(hosts, cpu_u)
         if cfg.cooling.enabled:
             sp = _row_param(cache, "setpoint", ctx.get(
                 "cooling_setpoint", cfg.cooling.setpoint_c), cpu_u)
@@ -310,22 +436,28 @@ def stage_cooling(cfg: SimConfig) -> Stage:
     `flow.grid_import_kw` to the facility draw.  With heat reuse, that
     share of the chiller-path heat is reclaimed and stops evaporating."""
     reuse = cfg.cooling.heat_reuse_fraction
+    resil = cfg.resilience.enabled
 
     def fn(state: SimState, ctx: dict):
         flow = ctx["flow"]
         it_kw = flow.it_kw
+        # None (not ones) when resilience is off: the derated expressions
+        # round differently from the healthy ones
+        derate = ctx["chiller_derate"] if resil else None
         if "fused_cooling_kw" in ctx:   # computed by stage_power
             cooling_kw = ctx["fused_cooling_kw"]
             water_l_per_h = ctx["fused_water_l_per_h"]
         else:
             cooling_kw, water_l_per_h = thermal_mod.cooling_step(
                 it_kw, ctx["wet_bulb_c"], cfg.cooling,
-                setpoint_c=ctx.get("cooling_setpoint"))
+                setpoint_c=ctx.get("cooling_setpoint"),
+                chiller_derate=derate)
         m = state.metrics
         if reuse > 0.0:
             heat_kw = thermal_mod.reclaimable_heat_kw(
                 it_kw, cooling_kw, ctx["wet_bulb_c"], cfg.cooling,
-                setpoint_c=ctx.get("cooling_setpoint"))
+                setpoint_c=ctx.get("cooling_setpoint"),
+                chiller_derate=derate)
             water_l_per_h = water_l_per_h * (1.0 - reuse)
             m = m._replace(heat_reuse=m.heat_reuse
                            + reuse * heat_kw * cfg.dt_h)
@@ -468,9 +600,49 @@ def stage_carbon(cfg: SimConfig) -> Stage:
     return fn
 
 
+def _resilience_update(state: SimState, cfg: SimConfig, it_kw, raw_it_kw,
+                       ctx: dict) -> SimState:
+    """The resilience metrics of the step (hours throttled, hours with
+    facility equipment derated) and the throttle of the next step, from
+    this step's clamped and raw IT draw."""
+    dt = np.float32(cfg.dt_h)
+    derate, cap = ctx["chiller_derate"], ctx["pdu_cap_kw"]
+    m = state.metrics
+    m = m._replace(
+        throttled_h=m.throttled_h + dt * (state.throttle < 1.0).to(F32),
+        derate_h=m.derate_h
+        + dt * ((derate < 1.0) | torch.isfinite(cap)).to(F32))
+    throttle = resilience_mod.next_throttle(
+        it_kw, raw_it_kw, ctx["wet_bulb_c"], derate, cap, cfg.resilience,
+        threshold_c=ctx.get("throttle_inlet_c"))
+    return state._replace(metrics=m, throttle=throttle)
+
+
+def stage_resilience(cfg: SimConfig) -> Stage:
+    """Close the thermal loop from the step's settled ledger: account the
+    resilience metrics and compute the throttle the NEXT step runs under
+    (a one-step delay).  Runs last, so it sees the clamped `flow.it_kw`."""
+    def fn(state: SimState, ctx: dict):
+        state = _resilience_update(state, cfg, ctx["flow"].it_kw,
+                                   ctx["raw_it_kw"], ctx)
+        return state, ctx
+    return fn
+
+
+def _failure_stages(cfg: SimConfig) -> list[Stage]:
+    """Checkpoint BEFORE failures: a boundary snapshot at time t holds all
+    work done by t, so a failure in the same step rolls back no further."""
+    stages: list[Stage] = []
+    if cfg.failures.enabled:
+        if cfg.failures.checkpointing:
+            stages.append(stage_checkpoint(cfg))
+        stages.append(stage_failures(cfg))
+    return stages
+
+
 def default_pipeline(cfg: SimConfig) -> list[Stage]:
     """Technique composition: each enabled technique contributes its stage."""
-    stages: list[Stage] = []
+    stages: list[Stage] = _failure_stages(cfg)
     if cfg.shifting.enabled and cfg.shifting.stop_running:
         stages.append(stage_task_stopper(cfg))
     stages += [stage_scheduler(cfg), stage_progress(cfg), stage_power(cfg)]
@@ -485,6 +657,8 @@ def default_pipeline(cfg: SimConfig) -> list[Stage]:
     if cfg.pricing.enabled:
         stages.append(stage_pricing(cfg))
     stages.append(stage_carbon(cfg))
+    if cfg.resilience.enabled:
+        stages.append(stage_resilience(cfg))
     return stages
 
 
@@ -511,17 +685,26 @@ def _max_overcommit(tasks: TaskTable, hosts: HostTable):
 
 
 def _rows(inputs: StepInputs, b: int) -> StepInputs:
-    """Every input as [B, S] (a view where it is shared by the rows)."""
+    """Every series as [B, S] (a view where it is shared by the rows)."""
     s = inputs.ci.shape[-1]
-    return StepInputs(*(x.reshape(-1, s).expand(b, s) for x in inputs))
+    return inputs._replace(**{f: getattr(inputs, f).reshape(-1, s).expand(
+        b, s) for f in SERIES})
 
 
 def _per_step(inputs: StepInputs, b: int):
-    """Per-step [B, 1] columns of the inputs, each contiguous (one copy
-    per run, not an index per stage and step)."""
-    cols = [x.t().contiguous()[..., None].unbind(0)
-            for x in _rows(inputs, b)]
-    return [StepInputs(*step) for step in zip(*cols)]
+    """Per-step inputs: [B, 1] columns of the series, each contiguous (one
+    copy per run, not an index per stage and step), and the step's failure
+    draws [B, H] and next key [B, 2] (views)."""
+    rows = _rows(inputs, b)
+    cols = [getattr(rows, f).t().contiguous()[..., None].unbind(0)
+            for f in SERIES]
+    s = inputs.ci.shape[-1]
+    fail = keys = [None] * s
+    if inputs.host_fail is not None:
+        fail = inputs.host_fail.expand(s, b, -1).unbind(0)
+        keys = inputs.rng_keys[1:].expand(s, b, 2).unbind(0)
+    return [StepInputs(*step, host_fail=f, rng_keys=k)
+            for *step, f, k in zip(*cols, fail, keys)]
 
 
 def _stack_series(ys: list[dict]) -> dict:
@@ -541,7 +724,8 @@ def build_step_fn(cfg: SimConfig, stages: Sequence[Stage] | None = None,
     stages = default_pipeline(cfg) if stages is None else list(stages)
     dyn = dyn or {}
 
-    def step(state: SimState, inputs: StepInputs, flow0: EnergyFlow):
+    def step(state: SimState, inputs: StepInputs, flow0: EnergyFlow,
+             index: int | None = None):
         ctx = {"ci": inputs.ci, "batt_threshold": inputs.batt_threshold,
                "ci_rising": inputs.ci_rising,
                "shift_threshold": inputs.shift_threshold,
@@ -550,7 +734,10 @@ def build_step_fn(cfg: SimConfig, stages: Sequence[Stage] | None = None,
                "pv_cf": inputs.pv_cf,
                "chiller_derate": inputs.chiller_derate,
                "pdu_cap_kw": inputs.pdu_cap_kw,
+               "host_fail": inputs.host_fail, "rng_next": inputs.rng_keys,
                "flow": flow0, **dyn}
+        if index is not None:
+            ctx["step_index"] = index
         for stage in stages:
             state, ctx = stage(state, ctx)
         state = _advance_clock(state, cfg)
@@ -580,28 +767,39 @@ def _simulate_stage_pipeline(state0: SimState, inputs: StepInputs,
     b = state0.tasks.status.shape[0]
     flow0 = init_energy_flow(inputs.ci.device, (b, 1))
     state, ys = state0, []
-    for x in _per_step(inputs, b):
-        state, y = step(state, x, flow0)
+    for i, x in enumerate(_per_step(inputs, b)):
+        state, y = step(state, x, flow0, i)
         ys.append(y)
     return state, (_stack_series(ys) if cfg.collect_series else None)
 
 
 def _build_demand_step(cfg: SimConfig, dyn: dict):
     """Loop step of the megakernel's demand phase: the recurrent stages
-    (stopper -> scheduler -> progress) plus the IT power of the step."""
-    stages: list[Stage] = []
+    (checkpoint -> failures -> stopper -> scheduler -> progress) plus the
+    IT power of the step; with resilience on, the stage pipeline's throttle
+    recurrence too (the throttled power, the PDU clamp, the metrics and the
+    next throttle, in the same order), so the emitted IT series is the
+    clamped draw."""
+    stages: list[Stage] = _failure_stages(cfg)
     if cfg.shifting.enabled and cfg.shifting.stop_running:
         stages.append(stage_task_stopper(cfg))
     stages += [stage_scheduler(cfg), stage_progress(cfg)]
+    resil = cfg.resilience.enabled
 
     def step(state: SimState, xs: dict):
         ctx = {**xs, **dyn}
         for stage in stages:
             state, ctx = stage(state, ctx)
         hosts = state.hosts
-        cpu_u, gpu_u = scheduler_mod.host_utilization(state.tasks, hosts)
-        _, it_kw = ops.host_power(cpu_u, gpu_u, *_host_inputs(hosts, cpu_u),
-                                  cfg.cpu_power, cfg.gpu_power)
+        if resil:
+            _, raw, it_kw, _, _ = _throttled_it_kw(state, cfg, ctx)
+            state = _resilience_update(state, cfg, it_kw, raw, ctx)
+            it_kw = it_kw[:, 0]
+        else:
+            cpu_u, gpu_u = scheduler_mod.host_utilization(state.tasks, hosts)
+            _, it_kw = ops.host_power(cpu_u, gpu_u,
+                                      *_host_inputs(hosts, cpu_u),
+                                      cfg.cpu_power, cfg.gpu_power)
         state = _advance_clock(state, cfg)
         ys = {"it_kw": it_kw}
         if cfg.collect_series:
@@ -711,11 +909,15 @@ def _simulate_megakernel(state0: SimState, inputs: StepInputs,
     dev = inputs.ci.device
     b = state0.tasks.status.shape[0]
     inputs = _rows(inputs, b)
-    # shifting off: the gate never reads the carbon intensity or threshold
-    if cfg.shifting.enabled:
-        xs = ({"ci": x.ci, "shift_threshold": x.shift_threshold}
-              for x in _per_step(inputs, b))
+    failures, resil = cfg.failures.enabled, cfg.resilience.enabled
+    if cfg.shifting.enabled or failures or resil:
+        xs = [{"ci": x.ci, "shift_threshold": x.shift_threshold,
+               "host_fail": x.host_fail, "rng_next": x.rng_keys,
+               "wet_bulb_c": x.wet_bulb_c, "chiller_derate": x.chiller_derate,
+               "pdu_cap_kw": x.pdu_cap_kw, "step_index": i}
+              for i, x in enumerate(_per_step(inputs, b))]
     else:
+        # the gate never reads the carbon intensity or threshold
         zero = torch.zeros((), dtype=F32, device=dev)
         xs = ({"ci": zero, "shift_threshold": zero}
               for _ in range(cfg.n_steps))
@@ -735,6 +937,8 @@ def _simulate_megakernel(state0: SimState, inputs: StepInputs,
         batt_rate_kw=dyn.get("batt_rate_kw"),
         dispatch_lambda=dyn.get("dispatch_lambda"),
         pv_capacity_kw=dyn.get("pv_capacity_kw"))
+    if resil:  # kernel 3's derate route (its plain chain on the CPU)
+        chain_kwargs["chiller_derate"] = inputs.chiller_derate
     trace_args = (inputs.ci, inputs.wet_bulb_c, inputs.price, inputs.price_lo,
                   inputs.price_hi, inputs.pv_cf, inputs.batt_threshold,
                   inputs.ci_rising)
@@ -765,21 +969,20 @@ def _simulate_megakernel(state0: SimState, inputs: StepInputs,
     return final, ys
 
 
-def _refuse_unported(cfg: SimConfig, dyn: dict) -> None:
-    for on, what in ((cfg.failures.enabled, "cfg.failures.enabled"),
-                     (cfg.resilience.enabled, "cfg.resilience.enabled")):
-        if on:
-            raise NotImplementedError(
-                f"{what}: failures and the resilience loop draw JAX threefry "
-                f"bits and are not ported yet ({_THREEFRY})")
+def _check_run(cfg: SimConfig, dyn: dict) -> None:
+    """What the port refuses (the probe bus) and the reference's check
+    that resilience keys do not go unread."""
     if cfg.probes.enabled:
         raise NotImplementedError(
             "cfg.probes.enabled: the probe bus is not ported yet (ROADMAP "
             "Queue 1, telemetry)")
-    for key, item in _UNPORTED_DYN.items():
-        if key in dyn:
-            raise NotImplementedError(
-                f"dyn key '{key}' is not ported yet ({item})")
+    if not cfg.resilience.enabled:
+        bad = [k for k in _RESILIENCE_KEYS if k in dyn]
+        if bad:
+            raise ValueError(
+                f"dyn key(s) {bad} belong to the resilience loop but "
+                "cfg.resilience.enabled is False: they would be silently "
+                "ignored — enable the subsystem (core/resilience.py)")
 
 
 def _to_device(table, device):
@@ -827,30 +1030,42 @@ def run_cells(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
             "megakernel fuses the default facility chain and cannot honour "
             "a replacement pipeline")
     dyn = dict(dyn) if dyn else {}
-    _refuse_unported(cfg, dyn)
+    _check_run(cfg, dyn)
     tasks, hosts = _to_device(tasks, device), _to_device(hosts, device)
     arrival = dyn.pop("arrival_trace", None)
     if arrival is not None:
         tasks = state_mod.retime_task_table(tasks, arrival)
+    frac = dyn.pop("interactive_frac", None)
+    if frac is not None:
+        tasks = state_mod.with_interactive_frac(
+            tasks, _column(frac, device), cfg.interactive_grace_h,
+            seed=cfg.seed)
     # priority scheduling: permute rows into (priority desc, arrival) order
-    # once, before the loop (the same order in every scenario row); the
-    # final table is un-permuted below
+    # once, before the loop (one order for all scenario rows, or one a row
+    # where their priorities differ); the final table is un-permuted below
     inv = None
     if _presort_enabled(cfg):
         order = state_mod.priority_schedule_order(
             tasks, cfg.scheduler.priority_levels)
         tasks = state_mod.permute_task_table(tasks, order)
         inv = state_mod.inverse_permutation(order)
-    inputs = build_step_inputs(ci_trace, cfg, dyn=dyn, device=device)
-    for k in ("wet_bulb_trace", "price_trace", "pv_cf_trace"):
-        dyn.pop(k, None)  # consumed by the inputs, not ctx keys
+    inputs = build_step_inputs(ci_trace, cfg, dyn=dyn, device=device,
+                               n_hosts=hosts.cores.shape[-1])
+    seed = _host_values(dyn.get("seed", cfg.seed))
+    # consumed by the inputs, not ctx keys
+    for k in ("wet_bulb_trace", "price_trace", "pv_cf_trace", "seed",
+              "failure_hazard_scale", "pdu_cap_kw"):
+        dyn.pop(k, None)
     dyn = _cell_values(dyn, n_cells, device)
     if "n_active_hosts" in dyn:
         n = dyn["n_active_hosts"]
         hosts = scaling_mod.with_scale(
             hosts, n.reshape(-1) if isinstance(n, torch.Tensor) else n)
     tasks, hosts = state_mod.cell_tables(tasks, hosts, n_cells)
-    state0 = init_sim_state(tasks, hosts, cfg.seed)
+    state0 = init_sim_state(tasks, hosts, seed)
+    if cfg.resilience.enabled:  # a healthy start: no throttle on step 0
+        state0 = state0._replace(throttle=torch.ones(
+            (n_cells, 1), dtype=F32, device=device))
     if cfg.backend == "megakernel":
         final, ys = _simulate_megakernel(state0, inputs, cfg, dyn)
     else:
@@ -863,12 +1078,15 @@ def run_cells(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
 
 def _one_cell(state: SimState) -> SimState:
     """The state of a one-row run in the layout of one scenario: [T] / [H]
-    tables, 0-d battery and accumulators."""
+    tables, a [2] key, 0-d battery, accumulators and throttle."""
     return state._replace(
         tasks=TaskTable(*(col[0] for col in state.tasks)),
         hosts=HostTable(*(col[0] for col in state.hosts)),
         battery=BatteryState(*(x.reshape(()) for x in state.battery)),
-        metrics=MetricsAcc(*(x.reshape(()) for x in state.metrics)))
+        metrics=MetricsAcc(*(x.reshape(()) for x in state.metrics)),
+        rng=state.rng[0],
+        throttle=(None if state.throttle is None
+                  else state.throttle.reshape(())))
 
 
 def simulate(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
@@ -883,9 +1101,16 @@ def simulate(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
     reference's dyn dict: `batt_capacity_kwh`, `batt_rate_kw`,
     `shift_quantile_value`, `n_active_hosts`, `cooling_setpoint`,
     `wet_bulb_trace` (also `weather_trace`), `price_trace`,
-    `dispatch_lambda`, `pv_cf_trace`, `pv_capacity_kw`, `slots_per_step`
-    and `arrival_trace`; each scalar is a host number or a 0-d tensor on
-    `device`.  This is `run_cells` at one scenario row, the row's axis
+    `dispatch_lambda`, `pv_cf_trace`, `pv_capacity_kw`, `slots_per_step`,
+    `arrival_trace`, `seed` (the failure model's PRNG seed) and
+    `interactive_frac` (a share of tasks re-typed as interactive, drawn
+    from `cfg.seed`); with `cfg.resilience.enabled` also
+    `failure_hazard_scale` (scales the host and facility hazards; 0.0 is a
+    healthy datacenter), `throttle_inlet_c` (the thermal trip point) and
+    `pdu_cap_kw` (the rack-power clamp while a PDU is derated).  Each
+    scalar is a host number or a 0-d tensor on `device`; `seed`,
+    `failure_hazard_scale` and `pdu_cap_kw` are read on the host once, before
+    the loop.  This is `run_cells` at one scenario row, the row's axis
     squeezed from the state and the series.
     """
     dyn = dict(dyn) if dyn else {}

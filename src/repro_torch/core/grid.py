@@ -25,14 +25,20 @@ Axis kinds:
     calls sweep as a product.  The keys are those of `engine.simulate`:
     `batt_capacity_kwh`, `batt_rate_kw`, `shift_quantile_value`,
     `n_active_hosts`, `cooling_setpoint`, `dispatch_lambda`,
-    `pv_capacity_kw`, `slots_per_step`.  Values are held on the host (a
-    `shift_quantile_value` level picks its order statistics there).
+    `pv_capacity_kw`, `slots_per_step`, `interactive_frac` (a share of
+    tasks re-typed as interactive: the class columns become [B, T]), and
+    with `cfg.resilience.enabled` `failure_hazard_scale`,
+    `throttle_inlet_c` and `pdu_cap_kw` (core/resilience.py).  Values are
+    held on the host (a `shift_quantile_value` level picks its order
+    statistics there).
+  * `seed_axis(seeds)` -- PRNG seeds of the failure model (host failures,
+    the facility failure series): each row walks its own key chain.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: `seed_axis` (item 1), `tasktrace_axis` (item 3b), `region_axis` and
-`fleet_axis` (item 4), and the mesh-sharded and shard_map executors and
-lowering (`mesh=`, `executor="shard_map"`, `run_shard_map`,
-`shard_map_callable`, `lower`; item 6f).
+item: `tasktrace_axis` (item 3b), `region_axis` and `fleet_axis` (item 4),
+and the mesh-sharded and shard_map executors and lowering (`mesh=`,
+`executor="shard_map"`, `run_shard_map`, `shard_map_callable`, `lower`;
+item 6f).
 
 Every trace axis takes `store='bf16'|'int8'` (core/quant.py): the series are
 held quantized and dequantized when a chunk's rows are gathered.
@@ -64,6 +70,7 @@ from .quant import STORES, QuantizedTrace, maybe_dequantize, quantize_trace
 from .state import WRITTEN_TASK_COLUMNS, HostTable, TaskTable
 
 TRACE_KEY = "ci_trace"
+SEED_KEY = "seed"
 WEATHER_KEY = "wet_bulb_trace"
 PRICE_KEY = "price_trace"
 PV_KEY = "pv_cf_trace"
@@ -71,15 +78,14 @@ PV_KEY = "pv_cf_trace"
 _REDUCERS = {"min": torch.amin, "max": torch.amax,
              "argmin": torch.argmin, "argmax": torch.argmax}
 _TRACE_KINDS = ("trace", "weather", "price", "renewable")
+_VALUE_KINDS = ("dyn", "seed")
 
 # what the port refuses, and the ROADMAP item that brings it
-_ITEM_1 = "ROADMAP Queue 1 item 1, threefry PRNG + failures + resilience"
 _ITEM_3B = "ROADMAP Queue 1 item 3b, trace generators and the public API"
 _ITEM_4 = "ROADMAP Queue 1 item 4, fleet and spatial"
 _ITEM_6F = ("ROADMAP Queue 1 item 6f, launch/ and distributed/: a multi-GPU "
             "executor for the grid")
-_REFUSED = {"seed": ("seed_axis", _ITEM_1),
-            "tasktrace": ("tasktrace_axis", _ITEM_3B),
+_REFUSED = {"tasktrace": ("tasktrace_axis", _ITEM_3B),
             "region": ("region_axis", _ITEM_4),
             "fleet": ("fleet_axis", _ITEM_4)}
 
@@ -183,9 +189,9 @@ def dyn_axis(**named_values) -> Axis:
 
 
 def seed_axis(seeds) -> Axis:
-    """PRNG-seed axis of the reference: refused (the failure model draws
-    JAX threefry bits)."""
-    _refuse("seed_axis", _ITEM_1)
+    """PRNG-seed axis: the failure model's seeds (32-bit integers), one
+    grid dim of their length."""
+    return Axis("seed", (SEED_KEY,), (host_values(seeds, np.int32),))
 
 
 def tasktrace_axis(arrivals) -> Axis:
@@ -236,7 +242,7 @@ class ScenarioGrid:
         for ax in axes:
             if ax.kind in _REFUSED:
                 _refuse(*_REFUSED[ax.kind])
-            if ax.kind not in (*_TRACE_KINDS, "dyn"):
+            if ax.kind not in (*_TRACE_KINDS, *_VALUE_KINDS):
                 raise ValueError(f"unknown axis kind '{ax.kind}'")
             for name in ax.names:
                 if name in seen:
@@ -288,7 +294,7 @@ class ScenarioGrid:
         idx[0] += start
         ci, dyn = ci_trace, dict(self.base_dyn)
         for ax, ix in zip(self.axes, idx):
-            if ax.kind == "dyn":
+            if ax.kind in _VALUE_KINDS:
                 dyn.update((n, v[ix]) for n, v in zip(ax.names, ax.values))
                 continue
             at = torch.as_tensor(ix, device=device)
@@ -363,14 +369,24 @@ class ScenarioGrid:
         [B, T] temporaries (`_SCRATCH_BYTES_PER_TASK`), [B, H] host rows
         and its [B, S] series: the step inputs twice (rows and per-step
         columns), the megakernel's IT series and the facility kernel's
-        copies.  Shared [1, T] columns are not per row."""
-        t, h = tasks.arrival.shape[-1], hosts.cores.shape[-1]
-        written = sum(getattr(tasks, f).element_size()
-                      for f in WRITTEN_TASK_COLUMNS)
+        copies.  Shared [1, T] columns are not per row.  Host failures add
+        the two columns they write ([B, T] `ckpt_remaining`, `lost_work`),
+        the hosts' `up` and `repair_at` rows, a step's bool failure draws
+        ([S, B, H]) and keys; a swept `interactive_frac` makes every task
+        column a row's own."""
+        t, h, s = (tasks.arrival.shape[-1], hosts.cores.shape[-1],
+                   cfg.n_steps)
+        swept = {n for ax in self.axes for n in ax.names}
+        cols = (TaskTable._fields if "interactive_frac" in swept
+                else WRITTEN_TASK_COLUMNS)
+        if cfg.failures.enabled:
+            cols = set(cols) | {"ckpt_remaining", "lost_work"}
+        written = sum(getattr(tasks, f).element_size() for f in cols)
         per_cell = ((2 * written + _SCRATCH_BYTES_PER_TASK) * t
                     + _HOST_ROW_BYTES * h
-                    + (2 * len(engine.StepInputs._fields) + 10) * 4
-                    * cfg.n_steps)
+                    + (2 * len(engine.SERIES) + 10) * 4 * s)
+        if cfg.failures.enabled:
+            per_cell += 2 * 5 * h + s * (h + 16)
         return per_cell * (self.n_scenarios / max(self.axes[0].length, 1))
 
     def _auto_chunk_size(self, tasks, hosts, cfg: SimConfig,

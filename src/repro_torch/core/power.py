@@ -23,6 +23,15 @@ JOB_CLASS_CPU_UTIL = (0.80, 0.55, 0.35)
 JOB_CLASS_GPU_UTIL = (0.30, 0.95, 0.60)
 
 
+def class_utilization(job_class):
+    """Per-task (cpu_util, gpu_util) f32 from the class profile tables;
+    out-of-range codes clamp to the nearest class."""
+    cls = torch.clamp(job_class.long(), 0, len(JOB_CLASS_CPU_UTIL) - 1)
+    table = torch.tensor((JOB_CLASS_CPU_UTIL, JOB_CLASS_GPU_UTIL),
+                         dtype=torch.float32, device=job_class.device)
+    return table[0][cls], table[1][cls]
+
+
 def host_power_kw(cpu_util, gpu_util, n_gpus, on_mask,
                   cpu_cfg: PowerModelConfig, gpu_cfg: PowerModelConfig):
     """Per-host draw in kW: (p_cpu + p_gpu * n_gpus) * on / 1000, with idle

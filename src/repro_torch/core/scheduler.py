@@ -8,6 +8,9 @@ one first-fit launch for all rows).  Placement is exact greedy first-fit: each
 of the K candidates takes the lowest-index usable host whose free cores and
 GPUs cover it, through `kernels/ops.first_fit_place` -- one launch of the
 hand-written kernel per step on the card, its plain version on the CPU.
+With a `host_order` (failure-reactive placement, core/resilience.py), the
+"lowest index" is the lowest place in that order: the free capacities go
+to the kernel gathered in that order, and the chosen places map back.
 
 Only mode 'first_fit' is ported; 'aggregate' raises.
 """
@@ -99,13 +102,16 @@ def _first_k_indices(mask, k: int):
 
 
 def schedule_first_fit(tasks: TaskTable, hosts: HostTable, now, shift_ok,
-                       cfg: SchedulerConfig, slots=None,
+                       cfg: SchedulerConfig, slots=None, host_order=None,
                        presorted: bool = False):
     """Exact bounded first-fit.  Returns the updated task table.
 
     `cfg.slots_per_step` bounds the candidates per step; `slots` (dyn
     `slots_per_step`: a host int, a 0-d tensor or a [B, 1] count a scenario
     row) masks the slots past it.
+    `host_order` (a permutation of the hosts, [H] or [B, H]) makes the
+    first fit the first fitting host in that order; down and inactive hosts
+    never fit either way.
     `presorted=True` asserts the rows are already in (priority desc,
     arrival) order (`state.priority_schedule_order`), so admission is the
     plain FIFO prefix; otherwise priority levels > 1 select from the
@@ -144,9 +150,16 @@ def schedule_first_fit(tasks: TaskTable, hosts: HostTable, now, shift_ok,
     inf = float("inf")
     need_c = torch.where(cand >= 0, take(tasks.cores, cj), inf)
     need_g = torch.where(cand >= 0, take(tasks.gpus, cj), inf)
-    sel_host, _, _ = ops.first_fit_place(
-        need_c, need_g, torch.where(usable, free_c, -inf),
-        torch.where(usable, free_g, -inf))
+    free_c = torch.where(usable, free_c, -inf)
+    free_g = torch.where(usable, free_g, -inf)
+    if host_order is not None:
+        free_c, free_g = take(free_c, host_order), take(free_g, host_order)
+    sel_host, _, _ = ops.first_fit_place(need_c, need_g, free_c, free_g)
+    if host_order is not None:  # a place in the order -> its host
+        sel_host = torch.where(
+            sel_host >= 0,
+            take(host_order, torch.clamp(sel_host, min=0).long()),
+            -1).to(I32)
     # deferred table writes through the inverse candidate map
     if multi:
         lvl_t = (cfg.priority_levels - 1
@@ -169,10 +182,12 @@ def schedule_first_fit(tasks: TaskTable, hosts: HostTable, now, shift_ok,
 
 
 def schedule_step(tasks: TaskTable, hosts: HostTable, now, shift_ok,
-                  cfg: SchedulerConfig, slots=None, presorted: bool = False):
+                  cfg: SchedulerConfig, slots=None, host_order=None,
+                  presorted: bool = False):
     if cfg.mode == "first_fit":
         return schedule_first_fit(tasks, hosts, now, shift_ok, cfg,
-                                  slots=slots, presorted=presorted)
+                                  slots=slots, host_order=host_order,
+                                  presorted=presorted)
     if cfg.mode == "aggregate":
         raise NotImplementedError(
             "scheduler mode 'aggregate' is not ported yet (ROADMAP Queue 1 "

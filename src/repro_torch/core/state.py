@@ -25,6 +25,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from . import threefry
+from .power import class_utilization
+
 # Task status codes (i32).  PENDING covers never-started, shifted and stopped
 # tasks alike: the scheduler only looks at eligibility.
 PENDING = 0
@@ -94,12 +97,12 @@ class TaskTable(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.arrival.shape[0]
+        return self.arrival.shape[-1]
 
 
 class HostTable(NamedTuple):
     """Host inventory.  `active` is the horizontal-scaling mask (fixed during
-    a run); `up` tracks failures (always True in this port so far)."""
+    a run); `up` and `repair_at` track host failures (core/failures.py)."""
 
     cores: torch.Tensor      # f32[H] total CPU cores per host
     n_gpus: torch.Tensor     # f32[H] GPUs per host
@@ -147,11 +150,13 @@ class SimState(NamedTuple):
     hosts: HostTable
     battery: BatteryState
     metrics: MetricsAcc
-    # the run seed (an int).  The reference carries a PRNG key here; no
-    # stage of this port draws random bits yet (failures wait for a
-    # bit-exact threefry port), so the seed travels as a plain integer.
-    rng: int
+    # the threefry key of each scenario row (core/threefry.py): int64
+    # [B, 2] holding uint32 words, [2] for one-scenario tables; host
+    # failures advance it once a step
+    rng: torch.Tensor
     probes: Any = None
+    # the host speed/utilization cap of the step (core/resilience.py), f32
+    # [B, 1]; None when cfg.resilience.enabled is False
     throttle: Any = None
 
 
@@ -199,6 +204,33 @@ def make_task_table(arrival, duration, cores, gpus=None, cpu_util=None,
         sla_grace=sla_grace)
 
 
+def with_interactive_frac(tasks: TaskTable, frac, grace_h,
+                          seed: int = 0) -> TaskTable:
+    """Re-type a `frac` share of tasks as interactive inference (dyn key
+    `interactive_frac`): each task draws a fixed uniform from `seed`
+    (`uniform(fold_in(prng_key(seed), 7), [T])`), and tasks with u < frac
+    become JOB_INTERACTIVE: top priority, not shiftable, `grace_h` SLA
+    grace and the interactive power profile.  `frac` is a host number or a
+    [B, 1] tensor (one share a scenario row: the class columns become
+    [B, T]); raising it only adds interactive tasks."""
+    dev = tasks.arrival.device
+    key = threefry.fold_in(threefry.prng_key(seed, dev), 7)
+    u = threefry.uniform(key, tasks.n)
+    frac = frac if isinstance(frac, torch.Tensor) else np.float32(frac)
+    inter = (u < frac) & (tasks.status != INVALID)
+    cls = torch.where(inter, JOB_INTERACTIVE, tasks.job_class).to(I32)
+    cpu_c, gpu_c = class_utilization(cls)
+    return tasks._replace(
+        job_class=cls,
+        priority=torch.where(inter, JOB_INTERACTIVE, tasks.priority).to(I32),
+        shiftable=tasks.shiftable & ~inter,
+        sla_grace=torch.where(inter, float(np.float32(grace_h)),
+                              tasks.sla_grace),
+        cpu_util=torch.where(inter, cpu_c, tasks.cpu_util),
+        gpu_util=torch.where(inter, torch.where(tasks.gpus > 0, gpu_c, 0.0),
+                             tasks.gpu_util))
+
+
 def retime_task_table(tasks: TaskTable, arrival) -> TaskTable:
     """Replace the arrival column with a pre-sorted one (dyn key
     `arrival_trace`); non-finite arrivals mark the row INVALID."""
@@ -221,10 +253,14 @@ def priority_schedule_order(tasks: TaskTable, levels: int) -> torch.Tensor:
 
 
 def permute_task_table(tasks: TaskTable, order) -> TaskTable:
-    """Reorder every column of the table by `order` (i32[T] permutation),
-    along the last axis (each scenario row of [B, T] columns alike)."""
+    """Reorder every column of the table by `order` along the last axis:
+    an i32[T] permutation (each scenario row of [B, T] columns alike), or
+    [B, T], one permutation a row (every column then comes out [B, T])."""
     idx = order.to(torch.int64)
-    return TaskTable(*(col[..., idx] for col in tasks))
+    if idx.dim() == 1:
+        return TaskTable(*(col[..., idx] for col in tasks))
+    return TaskTable(*(torch.gather(col.expand(*idx.shape), -1, idx)
+                       for col in tasks))
 
 
 def inverse_permutation(order) -> torch.Tensor:
@@ -268,13 +304,15 @@ def make_host_table(n_hosts: int, cores_per_host: float,
                     device="cuda") -> HostTable:
     """Homogeneous host inventory; `n_active` < n_hosts powers the rest off.
 
-    Straggler hosts draw their mask from the reference's JAX random bits,
-    which this port cannot reproduce yet (ROADMAP Queue 1, threefry PRNG)."""
-    if straggler_frac > 0.0:
-        raise NotImplementedError(
-            "straggler_frac > 0 draws hosts from jax.random bits; the port "
-            "needs the bit-exact threefry PRNG first (ROADMAP Queue 1 item 1)")
+    `straggler_frac` > 0 marks the hosts whose uniform from `seed` falls
+    below it (the reference's threefry draw) as stragglers running at
+    `straggler_speed`."""
     n_active = n_hosts if n_active is None else n_active
+    speed = torch.ones(n_hosts, dtype=F32, device=device)
+    if straggler_frac > 0.0:
+        u = threefry.uniform(threefry.prng_key(seed, device), n_hosts)
+        speed = torch.where(u < np.float32(straggler_frac),
+                            float(np.float32(straggler_speed)), 1.0).to(F32)
     return HostTable(
         cores=torch.full((n_hosts,), float(cores_per_host), dtype=F32,
                          device=device),
@@ -283,7 +321,7 @@ def make_host_table(n_hosts: int, cores_per_host: float,
         active=active_host_mask(n_hosts, n_active, device),
         up=torch.ones(n_hosts, dtype=torch.bool, device=device),
         repair_at=torch.zeros(n_hosts, dtype=F32, device=device),
-        speed=torch.ones(n_hosts, dtype=F32, device=device))
+        speed=speed)
 
 
 _TABLE_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
@@ -319,10 +357,14 @@ WRITTEN_TASK_COLUMNS = ("remaining", "status", "host", "first_start", "finish")
 def cell_tables(tasks: TaskTable, hosts: HostTable, n_cells: int):
     """The tables of a run of `n_cells` scenario rows: the written task
     columns as [B, T] (views of the one row, until a step writes them), the
-    rest as shared [1, T] / [1, H] rows; a host `active` mask that is
-    already [B, H] (per-row host counts) stays so."""
-    return (TaskTable(*(col[None].expand(n_cells, -1)
-                        if f in WRITTEN_TASK_COLUMNS else col[None]
+    rest as shared [1, T] / [1, H] rows; a column that is already [B, T]
+    (per-row class columns) or [B, H] (a per-row host count) stays so."""
+    def cell(f, col):
+        if col.dim() == 2:
+            return col
+        return (col[None].expand(n_cells, -1) if f in WRITTEN_TASK_COLUMNS
+                else col[None])
+    return (TaskTable(*(cell(f, col)
                         for f, col in zip(TaskTable._fields, tasks))),
             HostTable(*(col if col.dim() == 2 else col[None]
                         for col in hosts)))
@@ -341,14 +383,19 @@ def init_metrics(device="cuda", shape=()) -> MetricsAcc:
 
 
 def init_sim_state(tasks: TaskTable, hosts: HostTable,
-                   seed: int = 0) -> SimState:
+                   seed=0) -> SimState:
     """The state at t = 0.  Battery and accumulators are 0-d for [T]
-    tables, and [B, 1] for the [B, T] written columns of `cell_tables`."""
+    tables, and [B, 1] for the [B, T] written columns of `cell_tables`;
+    the key is `prng_key(seed)`, [2] or [B, 2] (`seed` one integer or one a
+    row)."""
     dev = tasks.arrival.device
     lead = tasks.status.shape[:-1]
     shape = (*lead, 1) if lead else ()
+    key = threefry.prng_key(seed, dev)
+    if lead:
+        key = key.reshape(-1, 2).expand(*lead, 2)
     return SimState(t=torch.zeros((), dtype=F32, device=dev),
                     step=torch.zeros((), dtype=I32, device=dev),
                     tasks=tasks, hosts=hosts,
                     battery=init_battery(dev, shape),
-                    metrics=init_metrics(dev, shape), rng=int(seed))
+                    metrics=init_metrics(dev, shape), rng=key)

@@ -7,6 +7,10 @@ recurrences -- over the whole horizon in one launch, reduced to the run
 totals of `engine.facility_totals_from_flows`.  The four exogenous traces
 (carbon intensity, wet-bulb, price, PV capacity factor) are stored as f32,
 bf16 or int8 affine (core/quant.py) and dequantized on read in the kernel.
+With `chiller_derate` (the resilience loop's series, core/resilience.py)
+the cooling model is derated step by step; the series takes two values,
+1.0 and `cfg.resilience.chiller_derate`, so it travels as one bit of each
+step's flag byte beside the carbon signal's rising bit, whatever the store.
 
 Series are f32 [S] or [B, S] (one scenario per thread block).  CUDA tensors
 only (kernels/ops.py routes CPU tensors to kernels/ref.py).  The kernel walks
@@ -47,11 +51,15 @@ RING = 3
 class _FacilityConfig(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_int) for f in (
         "n_steps", "wsteps", "tile", "cooling", "renewables",
-        "export_allowed", "battery", "pricing", "policy", "wait_for_trough")]
+        "export_allowed", "battery", "pricing", "policy", "wait_for_trough",
+        "derate")]
         + [(f, ctypes.c_float) for f in (
             "dt", "eff", "demand_charge", "heat_reuse", "one_minus_reuse",
             "econ_range", "tower_approach", "condenser_lift", "carnot_eff",
-            "max_cop", "fan_overhead", "evap_l_per_kwh")])
+            "max_cop", "fan_overhead", "evap_l_per_kwh", "chiller_derate")])
+
+# bits of the kernel's per-step flag byte
+RISING, DERATED = 1, 2
 
 
 def smem_bytes(tile: int) -> int:
@@ -69,7 +77,7 @@ def launch_plan(s: int) -> tuple[int, int, int]:
     return tile, -(-s // tile), smem_bytes(tile)
 
 
-def _facility_config(cfg, s: int) -> _FacilityConfig:
+def _facility_config(cfg, s: int, derate: bool) -> _FacilityConfig:
     b, c, p = cfg.battery, cfg.cooling, cfg.pricing
     if b.policy not in POLICY_CODES:
         raise ValueError(f"unknown battery dispatch policy '{b.policy}'")
@@ -82,6 +90,7 @@ def _facility_config(cfg, s: int) -> _FacilityConfig:
         export_allowed=int(cfg.renewables.export_allowed),
         battery=int(b.enabled), pricing=int(p.enabled),
         policy=POLICY_CODES[b.policy], wait_for_trough=int(b.wait_for_trough),
+        derate=int(derate), chiller_derate=cfg.resilience.chiller_derate,
         dt=cfg.dt_h, eff=b.round_trip_efficiency,
         demand_charge=p.demand_charge_per_kw, heat_reuse=reuse,
         one_minus_reuse=1.0 - reuse, econ_range=c.economizer_range_c,
@@ -110,10 +119,13 @@ def _scalar_rows(vals, b: int, dev) -> torch.Tensor:
 def prepare(it_kw, ci, wet_bulb_c, price, price_lo, price_hi, pv_cf,
             batt_threshold, ci_rising, cfg, *, trace_store: str = "f32",
             soc0=0.0, setpoint_c=None, batt_capacity_kwh=None,
-            batt_rate_kw=None, dispatch_lambda=None, pv_capacity_kw=None):
+            batt_rate_kw=None, dispatch_lambda=None, pv_capacity_kw=None,
+            chiller_derate=None):
     """Check the inputs and lay them out for `launch`: returns the tuple of
     tensors and the config block the kernel reads, ready to launch again
-    (timing runs reuse it)."""
+    (timing runs reuse it).  `chiller_derate` is None or an [S] / [B, S]
+    series of 1.0 and `cfg.resilience.chiller_derate` (as
+    `resilience.facility_failure_series` makes it)."""
     if trace_store not in STORES:
         raise ValueError(f"unknown trace store '{trace_store}'; pick one "
                          f"of {STORES}")
@@ -145,12 +157,17 @@ def prepare(it_kw, ci, wet_bulb_c, price, price_lo, price_hi, pv_cf,
         cfg.cooling.setpoint_c if setpoint_c is None else setpoint_c,
         soc0, bcfg.dispatch_lambda if dispatch_lambda is None
         else dispatch_lambda], b, dev)
-    tensors = (it, *qs, meta, _rows(batt_threshold, b, s, F32, dev),
-               _rows(ci_rising, b, s, torch.uint8, dev),
+    flags = _rows(ci_rising, b, s, torch.uint8, dev)
+    if chiller_derate is not None:
+        build.require_cuda("fused_facility_totals", chiller_derate)
+        derated = _rows(chiller_derate, b, s, F32, dev) != 1.0
+        flags = flags | (derated.to(torch.uint8) * DERATED)
+    tensors = (it, *qs, meta, _rows(batt_threshold, b, s, F32, dev), flags,
                _rows(price_lo, b, s, F32, dev),
                _rows(price_hi, b, s, F32, dev), params)
     store = STORES.index(trace_store)
-    return tensors, _facility_config(cfg, s), store, b
+    return (tensors, _facility_config(cfg, s, chiller_derate is not None),
+            store, b)
 
 
 def launch(tensors, fcfg: _FacilityConfig, store: int, b: int):

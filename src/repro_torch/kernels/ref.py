@@ -97,7 +97,7 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
                          pv_cf, batt_threshold, ci_rising, dt_h, cfg, *,
                          soc0=0.0, setpoint_c=None, batt_capacity_kwh=None,
                          batt_rate_kw=None, dispatch_lambda=None,
-                         pv_capacity_kw=None):
+                         pv_capacity_kw=None, chiller_derate=None):
     """The facility pipeline (cooling -> renewables -> battery -> net
     metering) vectorized over the time axis; a dict of f32 flow series plus
     the battery SoC trajectory.  Series are [S], or [B, S] rows (one a
@@ -107,6 +107,9 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
     Everything but the SoC recurrence is elementwise in t.  The dispatch
     decisions factor out of the recurrence: their only SoC dependence, the
     `charge > 0` discharge guard, is reapplied as `soc > 0` in the loop.
+    `chiller_derate` (the f32 [S] or [B, S] facility-failure series of
+    core/resilience.py) degrades the cooling model step by step as
+    `engine.stage_cooling` does; None is the healthy model bit for bit.
     Keys mirror `engine.EnergyFlow` plus `water_l_per_h`, `heat_reuse_kw`,
     `soc` and `want_charge`."""
     it_kw = it_kw.to(F32)
@@ -119,12 +122,13 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
 
     if cfg.cooling.enabled:
         cooling_kw, water_l_per_h = thermal_mod.cooling_step(
-            it_kw, wet_bulb_c, cfg.cooling, setpoint_c=setpoint_c)
+            it_kw, wet_bulb_c, cfg.cooling, setpoint_c=setpoint_c,
+            chiller_derate=chiller_derate)
         reuse = cfg.cooling.heat_reuse_fraction
         if reuse > 0.0:
             heat_reuse_kw = reuse * thermal_mod.reclaimable_heat_kw(
                 it_kw, cooling_kw, wet_bulb_c, cfg.cooling,
-                setpoint_c=setpoint_c)
+                setpoint_c=setpoint_c, chiller_derate=chiller_derate)
             water_l_per_h = water_l_per_h * (1.0 - reuse)
         else:
             heat_reuse_kw = zeros

@@ -12,7 +12,8 @@ Each kernel meets its plain version (repro_torch/kernels/ref.py, held to the
 reference package by the CPU tests) on the same CUDA inputs, at the CPU
 tests' tolerances; a whole simulation on the card meets the same one on the
 CPU, with exact launch counts, and so does a scenario grid (one launch a
-step for all its cells); a reduced zamba2 / mamba2 prefill launches
+step for all its cells) and a run with host failures and the resilience
+loop (threefry draws bit for bit, kernel 3's derate route); a reduced zamba2 / mamba2 prefill launches
 exactly its SSD and flash kernels, and serving never waits for the card.
 """
 from __future__ import annotations
@@ -426,6 +427,105 @@ def test_step_loop_never_waits_for_the_card(cuda_device, backend):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert float(P.summarize(final, cfg).n_done) > 0
+
+
+# ---------------------------------------------------------------------------
+# host failures and the resilience loop
+# ---------------------------------------------------------------------------
+
+def _res_cfg(**kw):
+    return _cfg(**kw).replace(
+        seed=42, failures=C.FailureConfig(enabled=True, mtbf_h=30.0),
+        resilience=C.ResilienceConfig(
+            enabled=True, chiller_mtbf_h=15.0, chiller_repair_h=3.0,
+            pdu_mtbf_h=25.0, pdu_repair_h=2.0, pdu_cap_kw=3.0,
+            throttle_inlet_c=24.0, heat_hazard_mult=2.0))
+
+
+@pytest.mark.cuda
+def test_threefry_on_card_matches_cpu(cuda_device):
+    """Threefry's known answers on the card, and its uniforms, the failure
+    probabilities and a run's failure draws equal the CPU's bit for bit."""
+    from repro_torch.core import failures, threefry
+    d, cpu = cuda_device, torch.device("cpu")
+    got = threefry.threefry2x32(*(torch.tensor(v, device=d) for v in (
+        0x13198a2e, 0x03707344, 0x243f6a88, 0x85a308d3)))
+    assert tuple(int(x) for x in got) == (0xc4923a9c, 0x483df7a0)
+    keys = [threefry.prng_key([0, 3, 12345, -1], dv) for dv in (d, cpu)]
+    u = [threefry.uniform(k, 192817) for k in keys]
+    assert torch.equal(u[0].cpu(), u[1])
+    hazard = torch.tensor([1.0, 2.0, 0.0, 1.5]).repeat(24)
+    p = [failures.failure_probability(hazard.to(dv), DT, 30.0)
+         for dv in (d, cpu)]
+    assert torch.equal(p[0].cpu(), p[1])
+    draws = [failures.draw_host_failures([7, -1], pi.expand(2, -1), 972, dv)
+             for pi, dv in ((p[0], d), (p[1], cpu))]
+    for a, b in zip(*draws):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["f32", "bf16", "int8"])
+def test_facility_kernel_derate_route_matches_plain(cuda_device, store):
+    """Kernel 3 with a chiller-derate series (one row, and four rows of
+    their own seeds) against the plain chain on the same series."""
+    from repro_torch.kernels import fused_step as fs
+    ci, dyn = _traces(7)
+    cfg = _res_cfg()
+    x = P.build_step_inputs(ci, cfg, dyn, device=cuda_device)
+    assert bool((x.chiller_derate < 1.0).any())
+    rows, _ = P.facility_failure_series(np.array([1, 2, 3, 42]), S, DT,
+                                        cfg.resilience, device=cuda_device)
+    gen = np.random.default_rng(3)
+    for derate, b in ((x.chiller_derate, 1), (rows, 4)):
+        it_kw = torch.tensor(gen.uniform(20.0, 80.0, (b, S)),
+                             dtype=torch.float32, device=cuda_device)
+        args = (x.ci, x.wet_bulb_c, x.price, x.price_lo, x.price_hi,
+                x.pv_cf, x.batt_threshold, x.ci_rising)
+        got = fs.fused_facility_totals(it_kw, *args, cfg, trace_store=store,
+                                       chiller_derate=derate)
+        for r in range(b):
+            want = ref.fused_facility_totals(
+                it_kw[r], *args, cfg, trace_store=store,
+                chiller_derate=derate.reshape(-1, S)[r])
+            for k in want:
+                torch.testing.assert_close(got[k][r].double(),
+                                           want[k].double(), rtol=1e-4,
+                                           atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", P.BACKENDS)
+def test_resilience_on_card_matches_cpu(cuda_device, backend):
+    """A run with host failures, checkpointing and the closed loop through
+    the kernels == the same run on the CPU (counts and interrupts exact,
+    the rest rtol 1e-4); kernel 1 and first-fit every step, kernel 2
+    never, kernel 3's derate route once a megakernel run."""
+    from repro_torch.workloads import make_workload
+    ci, dyn = _traces(11)
+    cfg = _res_cfg(backend=backend)
+    results = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tasks, hosts, _, _ = make_workload("marconi", scale=0.03, seed=1,
+                                           horizon_days=S * DT / 24,
+                                           device=dev)
+        ops.reset_launch_counts()
+        final, _ = P.simulate(tasks, hosts, ci, cfg,
+                              dyn={**dyn, "n_active_hosts": 20}, device=dev)
+        results[dev.type] = P.result_to_numpy(P.summarize(final, cfg))
+        counts = ops.launch_counts()
+    want = {"first_fit_place": S, "fused_power_carbon": S}
+    if backend == "megakernel":
+        want["fused_facility_totals"] = 1
+    assert {k: v for k, v in counts.items() if v} == want
+    got, ref_res = results["cuda"], results["cpu"]
+    assert ref_res["n_interrupts"] > 0 and ref_res["derate_h"] > 0
+    for k, v in ref_res.items():
+        if k.startswith("n_") or k.startswith("class_n_"):
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-4,
+                                       err_msg=k)
 
 
 # ---------------------------------------------------------------------------

@@ -362,22 +362,52 @@ def test_trace_validation():
     ("probes", ("ProbeConfig", {"enabled": True})),
 ])
 def test_unported_subsystems_raise(field, value):
+    """The probe bus is refused naming its ROADMAP item.  Failures and the
+    resilience loop are ported (tests/test_torch_resilience.py holds them
+    to the reference): they run."""
     cls, kw = value
     cfg = _base_cfg().replace(**{field: getattr(pconfig, cls)(**kw)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_port(cfg)
+    if field == "probes":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run_port(cfg)
+        return
+    got, _ = run_port(cfg)
+    assert np.isfinite(got["total_carbon_kg"]) and got["n_done"] > 0
 
 
 @pytest.mark.parametrize("key", ["interactive_frac", "failure_hazard_scale",
                                  "throttle_inlet_c", "pdu_cap_kw", "seed"])
 def test_unported_dyn_keys_raise(key):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_port(_base_cfg(), dyn={key: 1.0})
+    """The resilience loop's keys raise the reference's ValueError while
+    the loop is off; `interactive_frac` and `seed` are ported and give the
+    reference's result."""
+    if key in ("failure_hazard_scale", "throttle_inlet_c", "pdu_cap_kw"):
+        with pytest.raises(ValueError, match="resilience"):
+            run_port(_base_cfg(), dyn={key: 1.0})
+        return
+    value = {"interactive_frac": 0.5, "seed": 3}[key]
+    spec = dict(scheduler=dict(priority_levels=3),
+                failures=dict(enabled=True, mtbf_h=10.0))
+    cfgs = []
+    for C in (jconfig, pconfig):
+        cfg = make_cfg(C, False, False, False,
+                       scheduler=spec["scheduler"])
+        cfgs.append(cfg.replace(failures=C.FailureConfig(**spec["failures"])))
+    final, _ = J.simulate(J_TASKS, J_HOSTS, CI, cfgs[0], dyn={key: value})
+    got, _ = run_port(cfgs[1], dyn={key: value})
+    assert_results_match(got, J.summarize(final, cfgs[0]), rtol=1e-4,
+                         atol=1e-4)
 
 
 def test_unported_table_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.make_host_table(4, 4, straggler_frac=0.1, device="cpu")
+    """Scheduler mode 'aggregate' is refused naming its ROADMAP item;
+    straggler hosts (ported) carry the reference's speeds."""
+    for seed in (0, 5):
+        got = P.make_host_table(40, 4, straggler_frac=0.3, seed=seed,
+                                device="cpu")
+        want = J.make_host_table(40, 4, straggler_frac=0.3, seed=seed)
+        np.testing.assert_array_equal(got.speed.numpy(),
+                                      np.asarray(want.speed))
     cfg = _base_cfg(scheduler=dict(mode="aggregate"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_port(cfg)

@@ -402,12 +402,13 @@ def test_trace_axes_want_rows_of_series(traces):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("call,item", [
-    (lambda g, a: P.seed_axis([0, 1]), "item 1"),
+    (lambda g, a: P.ScenarioGrid([P.Axis("fleet", ("n_active_hosts",),
+                                         (np.ones((2, 2)),))]), "item 4"),
     (lambda g, a: P.tasktrace_axis(np.zeros((2, 12))), "item 3b"),
     (lambda g, a: P.region_axis(None), "item 4"),
     (lambda g, a: P.fleet_axis(n_active_hosts=np.ones((2, 2))), "item 4"),
-    (lambda g, a: P.ScenarioGrid([P.Axis("seed", ("seed",),
-                                         (np.arange(2),))]), "item 1"),
+    (lambda g, a: P.ScenarioGrid([P.Axis("tasktrace", ("arrival_trace",),
+                                         (np.zeros((2, 12)),))]), "item 3b"),
     (lambda g, a: g.run(*a, mesh=object(), device="cpu"), "item 6f"),
     (lambda g, a: P.sweep_grid(*a[:3], g.axes, executor="shard_map",
                                device="cpu"), "item 6f"),
@@ -427,14 +428,17 @@ def test_unported_grid_parts_raise(workload, traces, call, item):
 
 
 def test_engine_refusals_hold_per_grid(workload, traces):
+    """What the engine refuses it refuses per grid too: the probe bus
+    (naming its ROADMAP item), and the resilience loop's dyn keys while
+    the loop is off (the reference's ValueError)."""
     tasks, hosts = workload[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="resilience"):
         P.sweep_grid(tasks, hosts, pconfig.SimConfig(n_steps=N_STEPS),
-                     [P.dyn_axis(interactive_frac=np.array([0.1, 0.2]))],
+                     [P.dyn_axis(failure_hazard_scale=np.array([0.5, 1.0]))],
                      ci_trace=traces[0], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.sweep_grid(tasks, hosts, pconfig.SimConfig(
-            n_steps=N_STEPS, failures=pconfig.FailureConfig(enabled=True)),
+            n_steps=N_STEPS, probes=pconfig.ProbeConfig(enabled=True)),
             [P.trace_axis(traces)], device="cpu")
 
 
