@@ -39,7 +39,21 @@ Phases, each printing one JSON line:
                  the grid phase, a 192-step profile of each executor; after
                  the small phase, the same at a small scale on the card and
                  on the CPU.
-  4b. grid   -- the scenario grid of paper Fig 12 at the main phase's
+  4b. experiments -- the experiment tooling at full scale, each part a
+                 line with its wall time, peak memory and launch counts:
+                 (a) the main configuration with scheduler mode 'aggregate'
+                 through both executors (first-fit never launches; the
+                 counts are the reference's, AGG_COUNTS); (b) the §III
+                 analytical model over every task on the card against the
+                 CPU, beside the simulated shifting savings (megakernel,
+                 no other technique); (c) a task-trace grid of 8 arrival
+                 sets (launch counts a single run's, the executors
+                 equal); (d) `find_min_scale` at the targets 0.01 and 0.80
+                 over the default configuration, each pair the
+                 reference's (SCALING_KAT); (e) the CLI on 8 regions.
+                 After the grid phase, a small task-trace grid (with and
+                 without priority levels) on the card and on the CPU.
+  4c. grid   -- the scenario grid of paper Fig 12 at the main phase's
                  configuration: 8 carbon regions x battery capacities, as
                  B = 1, 16 and 64 cells in one step loop, through both
                  executors: wall time, aggregate simulated years a second,
@@ -83,6 +97,8 @@ cpu` it needs a card and fails without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -101,8 +117,11 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import config as C  # noqa: E402
 from repro_torch.core import (STORES, ScenarioGrid, battery,  # noqa: E402
                               dyn_axis, facility_failure_series, failures,
-                              pricing, result_to_numpy, seed_axis, simulate,
-                              summarize, sweep_grid, threefry, trace_axis)
+                              find_min_scale, pricing, result_to_numpy,
+                              seed_axis, simulate, summarize, sweep_grid,
+                              tasktrace_axis, threefry, trace_axis,
+                              with_scale)
+from repro_torch.core import analytical  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import first_fit as ff_k  # noqa: E402
 from repro_torch.kernels import flash_attn as fa_k  # noqa: E402
@@ -110,8 +129,10 @@ from repro_torch.kernels import fused_step as fs_k  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import power_carbon as pc_k  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_k  # noqa: E402
+from repro_torch.launch import simulate as cli  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.layers import flatten, tree_map  # noqa: E402
+from repro_torch.tasktraces import make_arrival_sets  # noqa: E402
 from repro_torch.workloads import make_workload  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) op/s
@@ -830,27 +851,54 @@ ENERGY_COST_CARBON = ("total_carbon_kg", "op_carbon_kg", "emb_carbon_kg",
                       "total_cost", "pv_energy_kwh", "grid_export_kwh")
 
 
-def run_backend(tasks, hosts, ci, cfg, dyn, backend, dev):
-    cfg = cfg.replace(backend=backend)
+def measured(fn, dev) -> tuple:
+    """(fn(), {wall_s, launches, max_memory_allocated}) of one call: the
+    launch counts and the peak memory are reset just before it and read
+    just after, the wall ends in a synchronise."""
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    final, _ = simulate(tasks, hosts, ci, cfg, dyn=dyn, device=dev)
-    res = summarize(final, cfg)
+    out = fn()
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    return out, {"wall_s": wall, "launches": ops.launch_counts(),
+                 "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                          if dev.type == "cuda" else None)}
+
+
+def run_launches(backend: str, n_steps: int, cooling: bool = False,
+                 runs: int = 1, n_chunks: int = 1) -> dict:
+    """The launches of `runs` first-fit runs (or grid runs of `n_chunks`
+    chunks): first-fit every step; the stage pipeline's power kernel
+    every step (kernel 2 with the cooling tail, else kernel 1); the
+    megakernel's kernel 1 every step and kernel 3 once a chunk."""
+    want = {"first_fit_place": n_steps}
+    if backend == "megakernel":
+        want.update(fused_power_carbon=n_steps,
+                    fused_facility_totals=n_chunks)
+    else:
+        want["fused_facility_power" if cooling
+             else "fused_power_carbon"] = n_steps
+    return {k: v * runs for k, v in want.items()}
+
+
+def expect_launches(info: dict, want: dict, what: str) -> None:
+    got = {k: v for k, v in info["launches"].items() if v}
+    check(got == want, f"{what}: launches {got} != {want}")
+
+
+def run_backend(tasks, hosts, ci, cfg, dyn, backend, dev):
+    cfg = cfg.replace(backend=backend)
+    res, info = measured(lambda: summarize(simulate(
+        tasks, hosts, ci, cfg, dyn=dyn, device=dev)[0], cfg), dev)
     out = result_to_numpy(res)
     years = cfg.n_steps * cfg.dt_h / C.HOURS_PER_YEAR
-    info = {"backend": backend, "wall_s": wall,
-            "sim_years_per_s": years / wall, "launches": counts,
-            "max_memory_allocated": (torch.cuda.max_memory_allocated()
-                                     if dev.type == "cuda" else None),
-            "headline": {k: out[k].tolist() for k in HEADLINE}}
-    return out, info
+    return out, {"backend": backend, **info,
+                 "sim_years_per_s": years / info["wall_s"],
+                 "headline": {k: out[k].tolist() for k in HEADLINE}}
 
 
 def compare_backends(a: dict, b: dict, rtol: float, what: str,
@@ -929,14 +977,8 @@ def main_path(dev, scale: float, n_steps: int, n_active: int,
         results[backend] = res
         infos.append(info)
         if check_counts:
-            want = {"first_fit_place": n_steps}
-            if backend == "stage-pipeline":
-                want["fused_facility_power"] = n_steps
-            else:
-                want.update(fused_power_carbon=n_steps,
-                            fused_facility_totals=1)
-            got = {k: v for k, v in info["launches"].items() if v}
-            check(got == want, f"{backend}: launches {got} != {want}")
+            expect_launches(info, run_launches(backend, n_steps, True),
+                            backend)
         for k in HEADLINE:
             check(bool(np.all(np.isfinite(res[k]))), f"{backend}: {k} "
                   "not finite")
@@ -948,7 +990,7 @@ def main_path(dev, scale: float, n_steps: int, n_active: int,
 
 
 # --------------------------------------------------------------------------
-# phase 4b: the scenario grid (paper Fig 12: regions x battery sizes)
+# phase 4c: the scenario grid (paper Fig 12: regions x battery sizes)
 # --------------------------------------------------------------------------
 
 GRID_REGIONS = 8
@@ -972,24 +1014,14 @@ def grid_run(tasks, hosts, cfg, dyn, axes, backend, dev) -> tuple:
     """One grid run: (numpy fields [R, C], info) with wall time, aggregate
     simulated years a second, launch counts and peak device memory."""
     cfg = cfg.replace(backend=backend)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = sweep_grid(tasks, hosts, cfg, axes, dyn=dyn, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    res, info = measured(lambda: sweep_grid(tasks, hosts, cfg, axes,
+                                            dyn=dyn, device=dev), dev)
     out = result_to_numpy(res)
     b = int(np.prod(out["n_done"].shape))
     years = b * cfg.n_steps * cfg.dt_h / C.HOURS_PER_YEAR
     return out, {"backend": backend, "cells": b,
-                 "shape": list(out["n_done"].shape), "wall_s": wall,
-                 "sim_years_per_s": years / wall, "launches": counts,
-                 "max_memory_allocated": (torch.cuda.max_memory_allocated()
-                                          if dev.type == "cuda" else None)}
+                 "shape": list(out["n_done"].shape), **info,
+                 "sim_years_per_s": years / info["wall_s"]}
 
 
 def cell(res: dict, idx) -> dict:
@@ -999,15 +1031,9 @@ def cell(res: dict, idx) -> dict:
 def check_grid_launches(info: dict, n_steps: int, n_chunks: int) -> None:
     """A grid run launches each kernel as often as one run does: once a
     step (the facility kernel once a chunk), whatever the number of cells."""
-    want = {"first_fit_place": n_steps}
-    if info["backend"] == "stage-pipeline":
-        want["fused_facility_power"] = n_steps
-    else:
-        want.update(fused_power_carbon=n_steps,
-                    fused_facility_totals=n_chunks)
-    got = {k: v for k, v in info["launches"].items() if v}
-    check(got == want, f"grid {info['shape']} {info['backend']}: launches "
-          f"{got} != {want}")
+    expect_launches(info, run_launches(info["backend"], n_steps, True,
+                                       n_chunks=n_chunks),
+                    f"grid {info['shape']} {info['backend']}")
 
 
 def grid_phase(dev, main: dict, scale: float, n_steps: int, n_active: int,
@@ -1139,6 +1165,47 @@ def small_grid_card_vs_cpu(dev) -> dict:
             "seconds": seconds}
 
 
+def small_tasktrace_card_vs_cpu(dev) -> dict:
+    """A task-trace grid at a small scale (0.05, 192 steps, 38 active
+    hosts): 4 arrival sets x 2 carbon regions, then the same with priority
+    levels and an interactive share (one admission order a cell), on `dev`
+    (the card) and with the plain versions on the CPU, cell by cell."""
+    out, seconds = {}, {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        tasks, hosts, _, meta = make_workload("marconi", scale=0.05, seed=0,
+                                              dt_h=DT_H, horizon_days=2.0,
+                                              device=d)
+        cfg = main_config(192, meta["embodied"], meta["n_hosts"])
+        _, wb, price, cf = facility_traces(192, d)
+        dyn = {"n_active_hosts": 38, "price_trace": price,
+               "wet_bulb_trace": wb, "pv_cf_trace": cf}
+        ci = make_region_traces(192, DT_H, GRID_REGIONS, seed=0)[:2]
+        axes = [tasktrace_axis(make_arrival_sets(tasks.n, 192, DT_H, 4,
+                                                 seed=0)), trace_axis(ci)]
+        prio = (cfg.replace(scheduler=C.SchedulerConfig(priority_levels=3)),
+                axes + [dyn_axis(interactive_frac=np.float32([0.0, 0.3]))])
+        for name, (c, ax) in (("plain", (cfg, axes)), ("priority", prio)):
+            for backend in ("stage-pipeline", "megakernel"):
+                out[(side, name, backend)] = result_to_numpy(sweep_grid(
+                    tasks, hosts, c.replace(backend=backend), ax, dyn=dyn,
+                    device=d))
+        seconds[side] = time.perf_counter() - t0
+    for name in ("plain", "priority"):
+        for backend in ("stage-pipeline", "megakernel"):
+            compare_backends(out[("card", name, backend)],
+                             out[("cpu", name, backend)], 1e-4,
+                             f"small task-trace grid ({name}) card vs cpu "
+                             f"({backend})")
+    done = out[("card", "plain", "megakernel")]["n_done"]
+    check(len(set(done[:, 0].tolist())) > 1,
+          "small task-trace grid: the arrival sets gave one outcome")
+    return {"shape": list(done.shape), "n_done": done.tolist(),
+            "priority_shape": list(
+                out[("card", "priority", "megakernel")]["n_done"].shape),
+            "seconds": seconds}
+
+
 def time_kernels_at_rows(dev, main_cfg, b: int) -> dict:
     """Device ms of kernels 1-4 a launch at the grid's row shapes: [b, 972]
     hosts (750 on), [b, 64] candidates, [b, 2880] steps with a battery per
@@ -1179,7 +1246,7 @@ def time_kernels_at_rows(dev, main_cfg, b: int) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 4c: host failures, checkpointing and the closed resilience loop
+# phase 4a: host failures, checkpointing and the closed resilience loop
 # --------------------------------------------------------------------------
 
 # the resilience phase's seed: within the 30 days its chiller is derated
@@ -1309,19 +1376,10 @@ def _res_checks(res: dict, what: str, acted: bool) -> None:
                   "did not act")
 
 
-def res_launches(backend: str, n_steps: int, n_chunks: int = 1) -> dict:
-    """The resilience path's launches: kernel 1 (power without the cooling
-    tail) and first-fit every step; kernel 2 never; kernel 3 (its derate
-    route) once a megakernel run."""
-    want = {"first_fit_place": n_steps, "fused_power_carbon": n_steps}
-    if backend == "megakernel":
-        want["fused_facility_totals"] = n_chunks
-    return want
-
-
 def compare_resilience(a: dict, b: dict, what: str, open_a: dict,
                        open_b: dict) -> None:
-    """The resilience path's executors `a` and `b`: counts and
+    """Two executors' results `a` and `b` (the resilience path's, and the
+    experiments phase's at the main run's active hosts): counts and
     `n_interrupts` exact; energy, cost and operational carbon within rtol
     1e-5, atol 1e-4.  Embodied carbon is load-independent: the stage
     pipeline sums it a step at a time in f32 and the megakernel takes the
@@ -1385,11 +1443,11 @@ def resilience_path(dev, scale: float, n_steps: int, n_active: int,
     results = {}
     for backend in ("stage-pipeline", "megakernel"):
         res, info = run_backend(tasks, hosts, ci, cfg, dyn, backend, dev)
+        # kernel 1 (the PDU clamp sits between the IT sum and the cooling
+        # model: no kernel 2), kernel 3 on its derate route
         if check_counts:
-            got = {k: v for k, v in info["launches"].items() if v}
-            want = res_launches(backend, n_steps)
-            check(got == want, f"resilience {backend}: launches {got} != "
-                  f"{want}")
+            expect_launches(info, run_launches(backend, n_steps),
+                            f"resilience {backend}")
         for k, n in info["launches"].items():
             out["launches"][k] += n
         _res_checks(res, f"resilience {backend}", acted)
@@ -1415,21 +1473,13 @@ def resilience_path(dev, scale: float, n_steps: int, n_active: int,
         res_g = {}
         for backend in ("stage-pipeline", "megakernel"):
             c = cfg.replace(backend=backend)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            g = result_to_numpy(sweep_grid(tasks, hosts, c, axes, ci_trace=ci,
-                                           dyn=dyn, device=dev))
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = ops.launch_counts()
+            g, ginfo = measured(lambda: sweep_grid(
+                tasks, hosts, c, axes, ci_trace=ci, dyn=dyn, device=dev), dev)
+            g = result_to_numpy(g)
+            wall, counts = ginfo["wall_s"], ginfo["launches"]
             if check_counts:
-                got = {k: v for k, v in counts.items() if v}
-                want = res_launches(backend, n_steps)
-                check(got == want, f"resilience grid {backend}: launches "
-                      f"{got} != {want}")
+                expect_launches(ginfo, run_launches(backend, n_steps),
+                                f"resilience grid {backend}")
             for k, n in counts.items():
                 out["launches"][k] += n
             compare_backends(cell(g, (0, 0)), results[backend], 1e-4,
@@ -1486,6 +1536,232 @@ def small_resilience_card_vs_cpu(dev, small: dict) -> dict:
                          f"resilience card vs cpu ({backend})",
                          counts=RES_COUNTS)
     return {"pdu_cap_kw": cap, **info}
+
+
+# --------------------------------------------------------------------------
+# phase 4b: the paper's experiment tooling (aggregate scheduling, the §III
+# gap, a task-trace grid, the scaling search, the CLI)
+# --------------------------------------------------------------------------
+
+# the reference package's answers at full-scale Marconi on the CPU
+# (scripts/reference_experiments.py): the main configuration with
+# scheduler mode 'aggregate', 750 active hosts, both executors
+AGG_COUNTS = {"n_done": 143947.0, "n_started": 145227.0,
+              "n_decided": 185230.0, "n_tasks": 192817.0}
+# `find_min_scale` over the default configuration (no techniques, carbon
+# region 0, megakernel), lo 1, hi 972: at the paper's 1 % target no scale
+# is enough (972 hosts violate 66.6 %); at 80 % the search bisects
+SCALING_LO, SCALING_TARGETS = 1, (0.01, 0.80)
+SCALING_KAT = {
+    0.01: (973, {972: 0.6662365794181824}),
+    0.80: (943, {486: 0.9558602571487427, 729: 0.9061059355735779,
+                 851: 0.8608055114746094, 912: 0.832721471786499,
+                 942: 0.8014576435089111, 957: 0.7222102284431458,
+                 950: 0.755336582660675, 946: 0.7879339456558228,
+                 944: 0.7944339513778687, 943: 0.7992441654205322})}
+# the SLA-violation fraction of that configuration at three scales
+SLA_CURVE_KAT = {972: 0.6662365794181824, 750: 0.9007720351219177,
+                 600: 0.9365869164466858}
+TASKTRACE_SETS = 8
+ANALYTICAL_RTOL, ANALYTICAL_ATOL = 1e-5, 1e-4
+
+
+def experiments_phase(dev, main: dict, scale: float, n_steps: int,
+                      n_active: int, full: bool) -> tuple:
+    """Phase 4b at `scale` on `dev`.  `main` holds the main phase's results
+    ({backend: fields}) at the same scale.  On the card every run's launch
+    counts are checked; `full` checks the reference's known answers too
+    (full-scale Marconi).  Returns (one line per part, launch counts
+    summed over the phase)."""
+    on = dev.type == "cuda"
+    tasks, hosts, _, meta = make_workload("marconi", scale=scale, seed=0,
+                                          dt_h=DT_H,
+                                          horizon_days=n_steps * DT_H / 24,
+                                          device=dev)
+    n_hosts = meta["n_hosts"]
+    cfg = main_config(n_steps, meta["embodied"], n_hosts)
+    ci, wb, price, cf = facility_traces(n_steps, dev)
+    dyn = {"n_active_hosts": n_active, "price_trace": price,
+           "wet_bulb_trace": wb, "pv_cf_trace": cf}
+    lines, total = [], dict.fromkeys(build.KERNELS, 0)
+
+    def add(part: str, info: dict, **kw):
+        for k, n in info["launches"].items():
+            total[k] += n
+        lines.append({"phase": "experiments", "part": part, **info, **kw})
+
+    # (a) aggregate scheduling through both executors: first-fit never
+    # launches, the counts are the reference's
+    agg_cfg = cfg.replace(scheduler=C.SchedulerConfig(mode="aggregate"))
+    # its f32 cumsums of core needs are exact in any order, and its
+    # half-integer midpoints too, while every task's cores sum below 2^23
+    core_sum = float(tasks.cores.double().sum())
+    check(core_sum < 2.0 ** 23, f"aggregate: the core needs sum to "
+          f"{core_sum}, past f32's exact half-integers")
+    agg = {}
+    for backend in ("stage-pipeline", "megakernel"):
+        c = agg_cfg.replace(backend=backend)
+        out, info = measured(lambda: result_to_numpy(summarize(simulate(
+            tasks, hosts, ci, c, dyn=dyn, device=dev)[0], c)), dev)
+        want = run_launches(backend, n_steps, True)
+        want.pop("first_fit_place")
+        if on:
+            expect_launches(info, want, f"aggregate {backend}")
+        for k in HEADLINE:
+            check(bool(np.all(np.isfinite(out[k]))),
+                  f"aggregate {backend}: {k} not finite")
+        if full:
+            got = {k: float(out[k]) for k in AGG_COUNTS}
+            check(got == AGG_COUNTS, f"aggregate {backend}: counts {got} "
+                  f"!= the reference's {AGG_COUNTS}")
+        agg[backend] = out
+        add("aggregate", info, backend=backend, core_sum=core_sum,
+            n_done=float(out["n_done"]),
+            sla_violation_frac=float(out["sla_violation_frac"]),
+            first_fit_n_done=float(main[backend]["n_done"]),
+            first_fit_sla_violation_frac=float(
+                main[backend]["sla_violation_frac"]))
+    compare_resilience(agg["stage-pipeline"], agg["megakernel"],
+                       "aggregate backends", main["stage-pipeline"],
+                       main["megakernel"])
+
+    # (b) the §III gap: the analytical model over every task against the
+    # simulated shifting savings (no other technique, every host on)
+    arrival, duration = tasks.arrival, tasks.duration
+    valid = torch.isfinite(arrival)
+    savings = analytical.analytical_shifting_savings
+    (a_mean, a_tasks), info = measured(lambda: savings(
+        arrival[valid], duration[valid], ci, DT_H, device=dev), dev)
+    card_s = info["wall_s"]
+    t0 = time.perf_counter()
+    c_mean, c_tasks = savings(
+        arrival[valid].cpu(), duration[valid].cpu(), ci.cpu(), DT_H,
+        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = _close(a_tasks.cpu().double(), c_tasks.double(), ANALYTICAL_RTOL,
+                 ANALYTICAL_ATOL, "analytical savings, card vs cpu")
+    _close(a_mean.cpu().double(), c_mean.double(), ANALYTICAL_RTOL,
+           ANALYTICAL_ATOL, "analytical mean savings, card vs cpu")
+    plain = C.SimConfig(dt_h=DT_H, n_steps=n_steps, embodied=meta["embodied"],
+                        backend="megakernel")
+    op = {}
+    for shift in (False, True):
+        c = plain.replace(shifting=C.ShiftingConfig(enabled=shift))
+        out, sinfo = measured(lambda: result_to_numpy(summarize(simulate(
+            tasks, hosts, ci, c, device=dev)[0], c)), dev)
+        if on:
+            expect_launches(sinfo, run_launches("megakernel", n_steps),
+                            f"analytical gap run (shifting {shift})")
+        for k, n in sinfo["launches"].items():
+            info["launches"][k] += n
+        info["wall_s"] += sinfo["wall_s"]
+        if on:
+            info["max_memory_allocated"] = max(
+                info["max_memory_allocated"], sinfo["max_memory_allocated"])
+        op[shift] = float(out["op_carbon_kg"])
+    sim = 100.0 * (1.0 - op[True] / op[False])
+    check(math.isfinite(float(a_mean)) and float(a_mean) > 0.0,
+          f"analytical savings {float(a_mean)}")
+    add("analytical_gap", info, n_tasks=int(valid.sum()),
+        analytical_savings_pct=float(a_mean),
+        analytical_cpu_savings_pct=float(c_mean),
+        analytical_max_abs_err=err, analytical_card_s=card_s,
+        analytical_cpu_s=cpu_s,
+        simulated_savings_pct=sim,
+        op_carbon_kg={"base": op[False], "shifting": op[True]},
+        ratio=float(a_mean) / sim if sim else None)
+
+    # (c) a task-trace grid: the workload re-timed on 8 regions' traffic
+    # curves, one step loop for the 8 cells
+    arrivals = make_arrival_sets(tasks.n, n_steps, DT_H, TASKTRACE_SETS,
+                                 seed=0)
+    axes = [tasktrace_axis(arrivals)]
+    grid = ScenarioGrid(axes, base_dyn=dyn)
+    n_chunks = -(-TASKTRACE_SETS // grid._auto_chunk_size(tasks, hosts, cfg,
+                                                          None))
+    tt = {}
+    for backend in ("stage-pipeline", "megakernel"):
+        c = cfg.replace(backend=backend)
+        out, info = measured(lambda: result_to_numpy(sweep_grid(
+            tasks, hosts, c, axes, ci_trace=ci, dyn=dyn, device=dev)), dev)
+        if on:
+            expect_launches(info, run_launches(backend, n_steps, True,
+                                               n_chunks=n_chunks),
+                            f"task-trace grid {backend}")
+        for k in HEADLINE:
+            check(bool(np.all(np.isfinite(out[k]))),
+                  f"task-trace grid {backend}: {k} not finite")
+        check(len(set(out["n_done"].tolist())) > 1,
+              f"task-trace grid {backend}: every cell the same")
+        tt[backend] = out
+        add("tasktrace_grid", info, backend=backend, cells=TASKTRACE_SETS,
+            n_chunks=n_chunks, n_done=out["n_done"].tolist(),
+            sla_violation_frac=out["sla_violation_frac"].tolist())
+    compare_resilience(tt["stage-pipeline"], tt["megakernel"],
+                       "task-trace grid backends", main["stage-pipeline"],
+                       main["megakernel"])
+
+    # (d) the scaling search over `with_scale` runs of the default
+    # configuration: first at the paper's 1 % target, then at 80 %; then
+    # the SLA curve at three scales
+    evals = []
+
+    def sla(n: int) -> float:
+        evals.append(n)
+        final, _ = simulate(tasks, with_scale(hosts, n), ci, plain,
+                            device=dev)
+        return float(summarize(final, plain).sla_violation_frac)
+
+    for target in SCALING_TARGETS:
+        evals.clear()
+
+        (best, evaluated), info = measured(
+            lambda: find_min_scale(sla, SCALING_LO, n_hosts, target), dev)
+        if on:
+            expect_launches(info, run_launches("megakernel", n_steps,
+                                               runs=len(evals)),
+                            f"scaling search at {target}")
+        if full:
+            check((best, evaluated) == SCALING_KAT[target],
+                  f"scaling search at {target}: {(best, evaluated)} != the "
+                  f"reference's {SCALING_KAT[target]}")
+        check(best == n_hosts + 1 or evaluated[best] <= target,
+              f"scaling search at {target}: best {best}")
+        add("scaling", info, target=target, lo=SCALING_LO, hi=n_hosts,
+            best=best, runs=len(evals),
+            evaluated={str(k): v for k, v in evaluated.items()})
+    scales = [round(n_hosts * f) for f in (1.0, 750 / 972, 600 / 972)]
+    evals.clear()
+    curve, info = measured(lambda: {n: sla(n) for n in scales}, dev)
+    if on:
+        expect_launches(info, run_launches("megakernel", n_steps,
+                                           runs=len(scales)), "SLA curve")
+    if full:
+        check(curve == SLA_CURVE_KAT, f"SLA curve {curve} != the "
+              f"reference's {SLA_CURVE_KAT}")
+    add("sla_curve", info, sla={str(k): v for k, v in curve.items()})
+
+    # (e) the CLI: 8 carbon regions with and without battery and shifting,
+    # 750 active hosts, the whole Marconi workload
+    days = n_steps * DT_H / 24
+    argv = ["--workload", "marconi", "--scale", str(scale), "--days",
+            str(days), "--regions", "8", "--techniques", "B,TS",
+            "--active-hosts", str(n_active), "--tasks-cap", "200000",
+            "--device", dev.type]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out, info = measured(lambda: cli.main(argv), dev)
+    check(json.loads(buf.getvalue()) == out, "the CLI printed another JSON")
+    check(out["n_tasks"] == meta["n_tasks"] and out["n_hosts"] == n_hosts,
+          f"the CLI ran {out['n_tasks']} tasks on {out['n_hosts']} hosts")
+    if on:
+        expect_launches(info, run_launches("stage-pipeline",
+                                           int(days * 24 / DT_H), runs=2),
+                        "the CLI")
+    check(all(math.isfinite(v) for v in out.values()
+              if isinstance(v, float)), f"the CLI: {out}")
+    add("cli", info, argv=argv, cli=out)
+    return lines, total
 
 
 # --------------------------------------------------------------------------
@@ -1792,6 +2068,10 @@ def main() -> int:
                               results, False, False)
         for info in res["runs"] + res["grid"]:
             emit({"phase": "resilience", "rehearsal": True, **info})
+        for line in experiments_phase(cpu, results, 0.02, 192, 15, False)[0]:
+            emit({"rehearsal": True, **line})
+        emit({"phase": "small_tasktrace_card_vs_cpu", "rehearsal": True,
+              **small_tasktrace_card_vs_cpu(cpu)})
         for row in grid_phase(cpu, results, 0.02, 192, 15, False)[0]:
             emit({"phase": "grid", "rehearsal": True, **row})
         emit({"phase": "small_grid_card_vs_cpu", "rehearsal": True,
@@ -1881,6 +2161,20 @@ def main() -> int:
           "open_loop_vs_closed": resil["open_loop_vs_closed"]})
     res_seconds = time.perf_counter() - t0
 
+    # the experiment tooling at full scale: aggregate scheduling, the §III
+    # gap, a task-trace grid, the scaling searches and the CLI (before any
+    # profile)
+    t0 = time.perf_counter()
+    exp_lines, exp_launches = experiments_phase(dev, results, 1.0,
+                                                MAIN_STEPS, MARCONI_ACTIVE,
+                                                True)
+    for line in exp_lines:
+        emit(line)
+    emit({"phase": "experiments_summary",
+          "seconds": time.perf_counter() - t0,
+          "seconds_by_part": [[x["part"], x["wall_s"]] for x in exp_lines],
+          "launches": exp_launches})
+
     # the scenario grid at the main configuration: B = 1, 16, 64 cells in
     # one step loop each, on both backends; then the profiles of the main
     # run and of each grid
@@ -1896,6 +2190,8 @@ def main() -> int:
     emit({"phase": "small_grid_card_vs_cpu", "ok": True,
           **small_grid_card_vs_cpu(dev), "grid_phase_seconds": seconds,
           "grid_phase_s": time.perf_counter() - t0})
+    emit({"phase": "small_tasktrace_card_vs_cpu", "ok": True,
+          **small_tasktrace_card_vs_cpu(dev)})
     # where the resilience path's time goes: 192 steps of each executor
     # under the profiler
     t0 = time.perf_counter()
@@ -1903,8 +2199,13 @@ def main() -> int:
                                                    MARCONI_ACTIVE, cap)
     for row in profile_window(tasks, hosts, cfg, dyn, ci, 192, dev):
         emit({"phase": "resilience_profile", **row})
-    del tasks, hosts
     res_seconds += time.perf_counter() - t0
+    # where aggregate scheduling's time goes: the same 192 steps
+    cfg = main_config(MAIN_STEPS, meta["embodied"], meta["n_hosts"]).replace(
+        scheduler=C.SchedulerConfig(mode="aggregate"))
+    for row in profile_window(tasks, hosts, cfg, dyn, ci, 192, dev):
+        emit({"phase": "experiments_profile", "mode": "aggregate", **row})
+    del tasks, hosts
 
     # the small run on the card against the plain versions on the CPU
     small = {}
@@ -1926,7 +2227,8 @@ def main() -> int:
     # decode), then mamba2-2.7b's prefill; each timed prefill's launch
     # counts are reset just before it and read just after
     launches = {k: sum(i["launches"][k] for i in infos) + grid_launches[k]
-                + resil["launches"][k] for k in build.KERNELS}
+                + resil["launches"][k] + exp_launches[k]
+                for k in build.KERNELS}
     # kernel 3's derate route: its launches on the resilience path
     launches["fused_facility_totals_derate"] = resil["launches"][
         "fused_facility_totals"]

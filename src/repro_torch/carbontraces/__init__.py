@@ -1,5 +1,5 @@
 from .synthetic import (N_REGIONS, RegionParams, make_region_traces,
-                        sample_region_params)
+                        sample_region_params, trace_stats)
 
 __all__ = ["N_REGIONS", "RegionParams", "make_region_traces",
-           "sample_region_params"]
+           "sample_region_params", "trace_stats"]

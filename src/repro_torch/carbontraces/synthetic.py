@@ -81,3 +81,13 @@ def make_region_traces(n_steps: int, dt_h: float = 0.25,
         noise[:, s:s + 1] = acc
     ci = p.mean[:, None] * np.maximum(base + noise, 0.05)
     return ci.astype(np.float32)
+
+
+def trace_stats(traces: np.ndarray, dt_h: float = 0.25):
+    """(mean, mean daily variability) per region: the paper Fig 13 axes."""
+    steps_per_day = max(int(round(24.0 / dt_h)), 1)
+    s = traces.shape[1] - traces.shape[1] % steps_per_day
+    days = traces[:, :s].reshape(traces.shape[0], -1, steps_per_day)
+    daily_var = (days.std(axis=2)
+                 / np.maximum(days.mean(axis=2), 1e-9)).mean(axis=1)
+    return traces.mean(axis=1), daily_var

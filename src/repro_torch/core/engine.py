@@ -975,7 +975,7 @@ def _check_run(cfg: SimConfig, dyn: dict) -> None:
     if cfg.probes.enabled:
         raise NotImplementedError(
             "cfg.probes.enabled: the probe bus is not ported yet (ROADMAP "
-            "Queue 1, telemetry)")
+            "Queue 1 item 5, telemetry)")
     if not cfg.resilience.enabled:
         bad = [k for k in _RESILIENCE_KEYS if k in dyn]
         if bad:

@@ -33,9 +33,14 @@ Axis kinds:
     statistics there).
   * `seed_axis(seeds)` -- PRNG seeds of the failure model (host failures,
     the facility failure series): each row walks its own key chain.
+  * `tasktrace_axis(arrivals)` -- per-task arrival sets f32[A, T]
+    (tasktraces/synthetic.py `make_arrival_sets`): each point re-times the
+    task table with one row of arrival hours (dyn key `arrival_trace`), so
+    a row's `arrival` and `status` columns are its own [B, T] rows.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: `tasktrace_axis` (item 3b), `region_axis` and `fleet_axis` (item 4),
+item: `region_axis` and `fleet_axis` (item 4; a fleet grid, and with it a
+fleet crossed with a task-trace axis),
 and the mesh-sharded and shard_map executors and lowering (`mesh=`,
 `executor="shard_map"`, `run_shard_map`, `shard_map_callable`, `lower`;
 item 6f).
@@ -74,19 +79,18 @@ SEED_KEY = "seed"
 WEATHER_KEY = "wet_bulb_trace"
 PRICE_KEY = "price_trace"
 PV_KEY = "pv_cf_trace"
+TASKTRACE_KEY = "arrival_trace"
 
 _REDUCERS = {"min": torch.amin, "max": torch.amax,
              "argmin": torch.argmin, "argmax": torch.argmax}
-_TRACE_KINDS = ("trace", "weather", "price", "renewable")
+_TRACE_KINDS = ("trace", "weather", "price", "renewable", "tasktrace")
 _VALUE_KINDS = ("dyn", "seed")
 
 # what the port refuses, and the ROADMAP item that brings it
-_ITEM_3B = "ROADMAP Queue 1 item 3b, trace generators and the public API"
 _ITEM_4 = "ROADMAP Queue 1 item 4, fleet and spatial"
 _ITEM_6F = ("ROADMAP Queue 1 item 6f, launch/ and distributed/: a multi-GPU "
             "executor for the grid")
-_REFUSED = {"tasktrace": ("tasktrace_axis", _ITEM_3B),
-            "region": ("region_axis", _ITEM_4),
+_REFUSED = {"region": ("region_axis", _ITEM_4),
             "fleet": ("fleet_axis", _ITEM_4)}
 
 
@@ -195,8 +199,19 @@ def seed_axis(seeds) -> Axis:
 
 
 def tasktrace_axis(arrivals) -> Axis:
-    """Workload-arrival axis of the reference: refused."""
-    _refuse("tasktrace_axis", _ITEM_3B)
+    """Workload-arrival axis: per-task arrival sets f32[A, T] -> one grid
+    dim of length A.  Each point re-times the task table with one row of
+    arrival hours (`state.retime_task_table` through the `arrival_trace`
+    dyn key): the same task population, arriving on another traffic curve.
+    Rows are sorted here, on the host, since the table's FIFO order is its
+    row order; the other columns keep theirs.  T must equal `tasks.n`
+    (checked when the grid runs)."""
+    x = (arrivals.detach().cpu().numpy() if isinstance(arrivals, torch.Tensor)
+         else arrivals)
+    arr = np.sort(np.asarray(x, np.float32), axis=-1)
+    if arr.ndim != 2:
+        raise ValueError(f"tasktrace_axis wants f32[A, T], got {arr.shape}")
+    return Axis("tasktrace", (TASKTRACE_KEY,), (torch.from_numpy(arr),))
 
 
 def region_axis(fleet) -> Axis:
@@ -277,6 +292,15 @@ class ScenarioGrid:
                                  f"enabled is False: {what} would be "
                                  "ignored")
 
+    def _check_tasks(self, tasks: TaskTable):
+        for ax in self.axes:
+            if ax.kind == "tasktrace" and ax.values[0].shape[1] != tasks.n:
+                raise ValueError(
+                    f"tasktrace_axis carries {ax.values[0].shape[1]} "
+                    f"arrivals per point but the task table has {tasks.n} "
+                    "rows: generate the arrival sets with "
+                    "n_tasks == tasks.n (retiming is a bijection on rows)")
+
     def _check_trace(self, ci_trace):
         if self.has_trace_axis():
             if ci_trace is not None:
@@ -331,6 +355,7 @@ class ScenarioGrid:
         if chunk_size is not None and chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self._check_cfg(cfg)
+        self._check_tasks(tasks)
         red = _normalize_reduce(reduce, len(self.shape))
         self._check_trace(ci_trace)
         auto_chunked = chunk_size is None
@@ -372,13 +397,18 @@ class ScenarioGrid:
         copies.  Shared [1, T] columns are not per row.  Host failures add
         the two columns they write ([B, T] `ckpt_remaining`, `lost_work`),
         the hosts' `up` and `repair_at` rows, a step's bool failure draws
-        ([S, B, H]) and keys; a swept `interactive_frac` makes every task
-        column a row's own."""
+        ([S, B, H]) and keys.  A swept `arrival_trace` makes `arrival` (and
+        `status`) a row's own; a swept `interactive_frac`, or an
+        `arrival_trace` under priority levels, every task column."""
         t, h, s = (tasks.arrival.shape[-1], hosts.cores.shape[-1],
                    cfg.n_steps)
         swept = {n for ax in self.axes for n in ax.names}
-        cols = (TaskTable._fields if "interactive_frac" in swept
-                else WRITTEN_TASK_COLUMNS)
+        retimed = TASKTRACE_KEY in swept
+        if "interactive_frac" in swept or (
+                retimed and cfg.scheduler.priority_levels > 1):
+            cols = TaskTable._fields
+        else:
+            cols = WRITTEN_TASK_COLUMNS + (("arrival",) if retimed else ())
         if cfg.failures.enabled:
             cols = set(cols) | {"ckpt_remaining", "lost_work"}
         written = sum(getattr(tasks, f).element_size() for f in cols)

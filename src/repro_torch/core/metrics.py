@@ -156,3 +156,71 @@ def result_to_numpy(res: SimResult) -> dict:
     comparisons against the reference package's results."""
     return {k: v.detach().cpu().numpy() for k, v in res._asdict().items()
             if v is not None}
+
+
+def carbon_reduction_pct(baseline: SimResult, treated: SimResult):
+    """Positive = treated emits less total carbon than baseline."""
+    return 100.0 * (1.0 - treated.total_carbon_kg
+                    / torch.clamp(baseline.total_carbon_kg, min=1e-9))
+
+
+# ---------------------------------------------------------------------------
+# paper §XI: water consumption and monetary cost
+# ---------------------------------------------------------------------------
+
+class SustainabilityExtras(NamedTuple):
+    """Water, cost and the heat-reuse credit of a SimResult (paper §XI):
+    the simulated values where the thermal and pricing subsystems ran, the
+    flat-intensity estimates where they did not."""
+    water_l: torch.Tensor         # on-site + upstream water, litres
+    energy_cost: torch.Tensor     # electricity bill, currency units
+    heat_credit_kg: torch.Tensor  # CO2 displaced by reclaimed district heat
+
+
+def sustainability_extras(res: SimResult, *, cfg: SimConfig | None = None,
+                          wue_l_per_kwh: float = 1.8,
+                          water_intensity_l_per_kwh: float = 1.6,
+                          price_per_kwh: float = 0.12,
+                          displaced_heat_kg_per_kwh: float = 0.2,
+                          simulated_water: bool | None = None,
+                          simulated_cost: bool | None = None,
+                          ) -> SustainabilityExtras:
+    """On-site water: the simulated cooling-tower evaporation when the
+    thermal subsystem ran, else `dc_energy * wue_l_per_kwh`.  Cost: the
+    simulated bill when the pricing subsystem ran, else the flat tariff
+    `price_per_kwh * grid_energy`.  Upstream water (`grid_energy *
+    water_intensity_l_per_kwh`) is always an estimate.
+
+    Which subsystems ran comes from `cfg` (or `simulated_water` /
+    `simulated_cost`); without either it is inferred per cell, as the
+    reference does: water from `cooling_energy_kwh > 0`, cost from
+    `total_cost != 0 or export_revenue > 0` (a simulated bill may be zero
+    or negative once the export tariff runs; an all-zero price trace
+    still reads as "not simulated").  `heat_credit_kg` credits every
+    reclaimed kWh with `displaced_heat_kg_per_kwh`; it is reported beside
+    the carbon totals, never subtracted from them."""
+    if cfg is not None:
+        if simulated_water is None:
+            simulated_water = cfg.cooling.enabled
+        if simulated_cost is None:
+            simulated_cost = cfg.pricing.enabled
+    if simulated_water is None:
+        onsite = torch.where(res.cooling_energy_kwh > 0.0, res.water_l,
+                             res.dc_energy_kwh * wue_l_per_kwh)
+    elif simulated_water:
+        onsite = res.water_l
+    else:
+        onsite = res.dc_energy_kwh * wue_l_per_kwh
+    water = onsite + res.grid_energy_kwh * water_intensity_l_per_kwh
+    flat_cost = pricing_mod.flat_energy_cost(res.grid_energy_kwh,
+                                             price_per_kwh)
+    if simulated_cost is None:
+        simulated = (res.total_cost != 0.0) | (res.export_revenue > 0.0)
+        cost = torch.where(simulated, res.total_cost, flat_cost)
+    elif simulated_cost:
+        cost = res.total_cost
+    else:
+        cost = flat_cost
+    return SustainabilityExtras(
+        water_l=water, energy_cost=cost,
+        heat_credit_kg=res.heat_reuse_kwh * displaced_heat_kg_per_kwh)

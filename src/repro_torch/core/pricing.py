@@ -60,3 +60,9 @@ def export_revenue_step(export_revenue, grid_export_kw, price, dt_h: float,
 def settle_demand_charge(demand_cost, window_peak_kw, cfg: PricingConfig):
     """Total demand cost incl. the final open billing window's peak."""
     return demand_cost + window_peak_kw * np.float32(cfg.demand_charge_per_kw)
+
+
+def flat_energy_cost(grid_energy_kwh, price_per_kwh: float):
+    """The flat-tariff estimate (`metrics.sustainability_extras`'s
+    fallback)."""
+    return grid_energy_kwh * price_per_kwh

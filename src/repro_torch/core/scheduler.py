@@ -12,7 +12,8 @@ With a `host_order` (failure-reactive placement, core/resilience.py), the
 "lowest index" is the lowest place in that order: the free capacities go
 to the kernel gathered in that order, and the chosen places map back.
 
-Only mode 'first_fit' is ported; 'aggregate' raises.
+Mode 'aggregate' is the fragmentation-blind admission of the analytical
+models the paper critiques (§III): eager PyTorch ops, no kernel.
 """
 from __future__ import annotations
 
@@ -181,6 +182,55 @@ def schedule_first_fit(tasks: TaskTable, hosts: HostTable, now, shift_ok,
                                 tasks.first_start))
 
 
+def schedule_aggregate(tasks: TaskTable, hosts: HostTable, now, shift_ok,
+                       cfg: SchedulerConfig):
+    """Capacity-only admission (fragmentation-blind, analytical-model-like).
+
+    Admits the longest FIFO prefix of eligible tasks whose total core and
+    GPU demand fits the total free capacity, then maps each admitted task
+    onto a host by the position of its core-demand midpoint in the
+    cumulative free-core distribution over hosts (approximate placement).
+    Each scenario row searches its own [B, H] distribution.
+
+    The f32 cumsums run over integer-valued core and GPU needs, so they are
+    exact in any association while the eligible backlog's sum stays below
+    2^24 (the half-integer midpoints below 2^23); `torch.cumsum` then gives
+    the reference's bits.  Slots and host orders do not apply here."""
+    elig = _eligible(tasks, now, shift_ok)
+    free_c, free_g = free_capacity(tasks, hosts)
+    total_c = free_c.sum(-1, keepdim=True)
+    total_g = free_g.sum(-1, keepdim=True)
+    need_c = torch.where(elig, tasks.cores, 0.0)
+    need_g = torch.where(elig, tasks.gpus, 0.0)
+    cum_need_c = torch.cumsum(need_c, -1)
+    admit = (elig & (cum_need_c <= total_c)
+             & (torch.cumsum(need_g, -1) <= total_g))
+    cum_c = torch.cumsum(torch.clamp(free_c, min=0.0), -1)
+    pos = cum_need_c - need_c * 0.5
+    h = hosts.cores.shape[-1]
+    host = torch.clamp(torch.searchsorted(
+        cum_c.expand(*pos.shape[:-1], h).contiguous(), pos.contiguous(),
+        side="left"), 0, h - 1)
+    # a down or inactive host spans zero width of the cumsum, yet a
+    # zero-need task's midpoint can land exactly on it (0 >= 0): bump every
+    # task to the next usable host at or after its mapped position, and
+    # refuse admission when there is none
+    usable = hosts.active & hosts.up
+    idx = torch.arange(h, device=usable.device)
+    next_usable = torch.flip(torch.cummin(torch.flip(
+        torch.where(usable, idx, h), [-1]), -1).values, [-1])
+    bumped = take(next_usable, host)
+    ok = bumped < h
+    admit = admit & ok
+    host = torch.where(ok, bumped, 0)
+    return tasks._replace(
+        status=torch.where(admit, RUNNING, tasks.status).to(I32),
+        host=torch.where(admit, host, tasks.host).to(I32),
+        first_start=torch.where(admit, torch.clamp(tasks.first_start,
+                                                   max=now),
+                                tasks.first_start))
+
+
 def schedule_step(tasks: TaskTable, hosts: HostTable, now, shift_ok,
                   cfg: SchedulerConfig, slots=None, host_order=None,
                   presorted: bool = False):
@@ -189,7 +239,10 @@ def schedule_step(tasks: TaskTable, hosts: HostTable, now, shift_ok,
                                   slots=slots, host_order=host_order,
                                   presorted=presorted)
     if cfg.mode == "aggregate":
-        raise NotImplementedError(
-            "scheduler mode 'aggregate' is not ported yet (ROADMAP Queue 1 "
-            "item 3b: scheduler.schedule_aggregate)")
+        if cfg.priority_levels > 1:
+            raise ValueError(
+                "scheduler mode 'aggregate' admits the longest FIFO prefix "
+                "and cannot honor priority classes; use mode='first_fit' "
+                "with priority_levels > 1")
+        return schedule_aggregate(tasks, hosts, now, shift_ok, cfg)
     raise ValueError(f"unknown scheduler mode '{cfg.mode}'")

@@ -268,6 +268,15 @@ def inverse_permutation(order) -> torch.Tensor:
     return torch.argsort(order.to(torch.int64)).to(I32)
 
 
+def stack_task_tables(tables) -> TaskTable:
+    """Stack equal-width task tables along a new leading region axis, field
+    by field: [R, W] columns (the fleet and spatial splitting batch
+    per-region sub-workloads so)."""
+    tables = list(tables)
+    return type(tables[0])(*(torch.stack([torch.as_tensor(x) for x in xs])
+                             for xs in zip(*tables)))
+
+
 def pad_task_table(tasks: TaskTable, n: int) -> TaskTable:
     """Pad a task table to n rows with INVALID entries."""
     t = tasks.n

@@ -86,3 +86,14 @@ def reclaimable_heat_kw(it_power_kw, cooling_kw, wet_bulb_c,
                                availability=chiller_derate)
     chiller_kw = cooling_kw - cfg.fan_pump_overhead * it_power_kw
     return frac * it_power_kw + chiller_kw
+
+
+def dynamic_pue(it_power_kw, wet_bulb_c, cfg: CoolingConfig,
+                setpoint_c=None):
+    """Instantaneous PUE = facility / IT power (>= 1; load-independent,
+    since both cooling terms scale linearly with IT power)."""
+    it_kw = torch.as_tensor(it_power_kw, dtype=torch.float32)
+    wb = torch.as_tensor(wet_bulb_c, dtype=torch.float32, device=it_kw.device)
+    cooling_kw, _ = cooling_step(it_kw, wb, cfg, setpoint_c)
+    it = torch.clamp(it_kw, min=1e-9)
+    return (it + cooling_kw) / it

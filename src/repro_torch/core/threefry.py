@@ -59,10 +59,13 @@ def _words(key: torch.Tensor):
 
 def prng_key(seed, device="cpu") -> torch.Tensor:
     """`jax.random.PRNGKey(seed)` for a 32-bit seed: [2], or [B, 2] for a
-    sequence, array or tensor of B seeds."""
+    sequence, array or tensor of B seeds.  The words are made on the host
+    and copied without waiting for the device (a run's step loop never
+    waits for the card)."""
     s = torch.from_numpy(_seeds(seed.cpu().numpy()
                                 if isinstance(seed, torch.Tensor) else seed))
-    return torch.stack([torch.zeros_like(s), s & MASK], -1).to(device)
+    return torch.stack([torch.zeros_like(s), s & MASK], -1).to(
+        device, non_blocking=True)
 
 
 def _seeds(seed) -> np.ndarray:

@@ -13,7 +13,9 @@ reference package by the CPU tests) on the same CUDA inputs, at the CPU
 tests' tolerances; a whole simulation on the card meets the same one on the
 CPU, with exact launch counts, and so does a scenario grid (one launch a
 step for all its cells) and a run with host failures and the resilience
-loop (threefry draws bit for bit, kernel 3's derate route); a reduced zamba2 / mamba2 prefill launches
+loop (threefry draws bit for bit, kernel 3's derate route), and so do
+aggregate scheduling (no first-fit launch), a task-trace grid and the §III
+analytical model; a reduced zamba2 / mamba2 prefill launches
 exactly its SSD and flash kernels, and serving never waits for the card.
 """
 from __future__ import annotations
@@ -526,6 +528,72 @@ def test_resilience_on_card_matches_cpu(cuda_device, backend):
         else:
             np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-4,
                                        err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", P.BACKENDS)
+def test_aggregate_and_tasktrace_on_card_match_cpu(cuda_device, backend):
+    """Scheduler mode 'aggregate' on the card == the CPU (counts exact, the
+    rest rtol 1e-4) and never launches first-fit; a task-trace grid of
+    three arrival sets launches each kernel as one run does."""
+    from repro_torch.tasktraces import make_arrival_sets
+    from repro_torch.workloads import make_workload
+    ci, dyn = _traces(5)
+    agg = C.SimConfig(n_steps=S, dt_h=DT, backend=backend,
+                      scheduler=C.SchedulerConfig(mode="aggregate"),
+                      shifting=C.ShiftingConfig(enabled=True))
+    plain = agg.replace(scheduler=C.SchedulerConfig())
+    results, counts = {}, {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tasks, hosts, _, _ = make_workload("marconi", scale=0.03, seed=1,
+                                           horizon_days=S * DT / 24,
+                                           device=dev)
+        arr = make_arrival_sets(tasks.n, S, DT, 3, seed=2)
+        for name, run in (
+                ("aggregate", lambda: P.summarize(P.simulate(
+                    tasks, hosts, ci, agg, dyn={"n_active_hosts": 20},
+                    device=dev)[0], agg)),
+                ("tasktrace", lambda: P.sweep_grid(
+                    tasks, hosts, plain, [P.tasktrace_axis(arr)],
+                    ci_trace=ci, dyn={"n_active_hosts": 20}, device=dev))):
+            ops.reset_launch_counts()
+            results[(dev.type, name)] = P.result_to_numpy(run())
+            counts[name] = {k: v for k, v in ops.launch_counts().items()
+                            if v}
+    want = {"fused_power_carbon": S}
+    if backend == "megakernel":
+        want["fused_facility_totals"] = 1
+    assert counts["aggregate"] == want
+    assert counts["tasktrace"] == {**want, "first_fit_place": S}
+    for name in ("aggregate", "tasktrace"):
+        got, ref_res = results[("cuda", name)], results[("cpu", name)]
+        assert float(np.min(ref_res["n_done"])) > 0, name
+        for k, v in ref_res.items():
+            if k.startswith("n_") or k.startswith("class_n_"):
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
+            else:
+                np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-4,
+                                           err_msg=k)
+
+
+@pytest.mark.cuda
+def test_analytical_savings_on_card_match_cpu(cuda_device):
+    """The §III model on the card == the CPU, per task bit for bit (the
+    same elementwise f32 ops and the same blocked cumsum)."""
+    from repro_torch.core.analytical import analytical_shifting_savings
+    from repro_torch.workloads import make_workload
+    tasks, _, _, _ = make_workload("marconi", scale=0.2, seed=0,
+                                   device="cpu")
+    ci, _ = _traces(3, 2880)  # the workload's 30 days
+    n = tasks.n
+    for kw in ({}, {"oracle": False}):
+        m_c, cpu = analytical_shifting_savings(
+            tasks.arrival, tasks.duration, ci, DT, device="cpu", **kw)
+        m_g, card = analytical_shifting_savings(
+            tasks.arrival, tasks.duration, ci, DT, device=cuda_device, **kw)
+        assert card.shape == (n,) and card.is_cuda
+        assert torch.equal(card.cpu(), cpu)
+        torch.testing.assert_close(m_g.cpu(), m_c, rtol=1e-5, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

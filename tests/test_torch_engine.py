@@ -400,17 +400,15 @@ def test_unported_dyn_keys_raise(key):
 
 
 def test_unported_table_options_raise():
-    """Scheduler mode 'aggregate' is refused naming its ROADMAP item;
-    straggler hosts (ported) carry the reference's speeds."""
+    """Straggler hosts (ported) carry the reference's speeds.  Every table
+    option is ported now (scheduler mode 'aggregate' is held against the
+    reference in tests/test_torch_experiments.py)."""
     for seed in (0, 5):
         got = P.make_host_table(40, 4, straggler_frac=0.3, seed=seed,
                                 device="cpu")
         want = J.make_host_table(40, 4, straggler_frac=0.3, seed=seed)
         np.testing.assert_array_equal(got.speed.numpy(),
                                       np.asarray(want.speed))
-    cfg = _base_cfg(scheduler=dict(mode="aggregate"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_port(cfg)
 
 
 def test_tables_carry_over_exactly():

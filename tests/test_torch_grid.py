@@ -26,6 +26,7 @@ import repro_torch.core as P
 import repro_torch.core.config as pconfig
 from repro.pricetraces.synthetic import make_price_traces
 from repro.renewabletraces.synthetic import make_pv_traces
+from repro.tasktraces.synthetic import make_arrival_sets
 from repro.weathertraces.synthetic import make_weather_traces
 
 torch.set_num_threads(1)
@@ -67,6 +68,8 @@ def _ref_tables():
 WB = make_weather_traces(N_STEPS, 0.25, 3, seed=2)
 PRICES = make_price_traces(N_STEPS, 0.25, 2, seed=5)
 PV = make_pv_traces(N_STEPS, 0.25, 2, seed=5)
+# three arrival sets of the workload's 12 tasks, on three regions' traffic
+ARRIVALS = make_arrival_sets(12, N_STEPS, 0.25, 3, seed=4)
 
 
 def case(name: str, C, core, traces):
@@ -119,6 +122,23 @@ def case(name: str, C, core, traces):
                 [core.dyn_axis(n_active_hosts=np.array([1, 2, 3])),
                  core.dyn_axis(slots_per_step=np.array([1, 4]))],
                 traces[0], None)
+    if name == "tasktrace":
+        return (C.SimConfig(n_steps=N_STEPS, battery=battery,
+                            shifting=C.ShiftingConfig(enabled=True)),
+                [core.tasktrace_axis(ARRIVALS)], traces[0], None)
+    if name == "tasktrace_x_trace":
+        return (C.SimConfig(n_steps=N_STEPS, battery=battery),
+                [core.trace_axis(traces), core.tasktrace_axis(ARRIVALS),
+                 core.dyn_axis(batt_capacity_kwh=np.array([2.0, 6.0]))],
+                None, None)
+    if name == "tasktrace_priority":
+        return (C.SimConfig(n_steps=N_STEPS, battery=battery,
+                            shifting=C.ShiftingConfig(enabled=True),
+                            scheduler=C.SchedulerConfig(priority_levels=3,
+                                                        slots_per_step=4)),
+                [core.tasktrace_axis(ARRIVALS),
+                 core.dyn_axis(interactive_frac=np.array([0.0, 0.5]))],
+                traces[1], None)
     store = name.split("_")[-1]  # "stores_bf16", "stores_int8"
     return (C.SimConfig(n_steps=N_STEPS, battery=battery,
                         cooling=C.CoolingConfig(enabled=True),
@@ -131,7 +151,9 @@ def case(name: str, C, core, traces):
 
 CASES = ("trace_capacity_quantile", "weather_trace_setpoint", "price_lambda",
          "renewable_pv_capacity", "zipped_capacity_rate", "hosts_x_slots",
-         "stores_bf16", "stores_int8")
+         "stores_bf16", "stores_int8", "tasktrace", "tasktrace_x_trace",
+         "tasktrace_priority")
+TASKTRACE_CASES = ("tasktrace", "tasktrace_x_trace", "tasktrace_priority")
 
 
 @functools.lru_cache(maxsize=None)
@@ -237,6 +259,67 @@ def test_chunked_runs_match_reference(workload, traces, mode, backend):
                        device="cpu", **mode)
     assert got.total_carbon_kg.shape == (3, 2)
     assert_fields_match(as_numpy(got), chunk_reference())
+
+
+@pytest.mark.parametrize("backend", P.BACKENDS)
+@pytest.mark.parametrize("chunk", [1, 2])
+@pytest.mark.parametrize("name", TASKTRACE_CASES)
+def test_tasktrace_grids_chunked_match_reference(workload, traces, name,
+                                                 chunk, backend):
+    """A task-trace grid run a leading point (or two, with a ragged tail)
+    at a time equals the reference's unchunked grid."""
+    got = as_numpy(port(workload, traces, name, backend, chunk_size=chunk))
+    assert_fields_match(got, reference(name))
+
+
+def test_tasktrace_rows_differ_and_validate(workload, traces):
+    """Each arrival set is its own outcome; the axis sorts its rows; a
+    width other than the table's is the reference's ValueError; a fleet
+    grid stays refused."""
+    res = reference("tasktrace")
+    assert len({float(x) for x in res["mean_start_delay_h"]}) == 3
+    shuffled = ARRIVALS[:, ::-1]
+    ax = P.tasktrace_axis(shuffled)
+    np.testing.assert_array_equal(ax.values[0].numpy(),
+                                  np.sort(shuffled, axis=-1))
+    np.testing.assert_array_equal(ax.values[0].numpy(),
+                                  np.asarray(J.tasktrace_axis(shuffled)
+                                             .values[0]))
+    with pytest.raises(ValueError, match=r"f32\[A, T\]"):
+        P.tasktrace_axis(ARRIVALS[0])
+    (jt, jh), (tasks, hosts) = workload
+    wide = make_arrival_sets(13, N_STEPS, 0.25, 2, seed=4)
+    cfg = pconfig.SimConfig(n_steps=N_STEPS)
+    with pytest.raises(ValueError, match="arrivals per point"):
+        J.sweep_grid(jt, jh, jconfig.SimConfig(n_steps=N_STEPS),
+                     [J.tasktrace_axis(wide)], ci_trace=traces[0])
+    with pytest.raises(ValueError, match="arrivals per point"):
+        P.sweep_grid(tasks, hosts, cfg, [P.tasktrace_axis(wide)],
+                     ci_trace=traces[0], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        P.ScenarioGrid([P.tasktrace_axis(ARRIVALS),
+                        P.Axis("region", ("fleet",), (np.ones((2, 2)),))])
+
+
+def test_tasktrace_rows_count_in_the_memory_estimate(workload, traces):
+    """A swept arrival set makes `arrival` a row's own column; under
+    priority levels every task column is."""
+    tasks, hosts = workload[1]
+    cfg = pconfig.SimConfig(n_steps=N_STEPS)
+    t = tasks.n
+    base = P.ScenarioGrid([P.trace_axis(traces)])._per_lead_bytes(
+        tasks, hosts, cfg)
+    tt = P.ScenarioGrid([P.tasktrace_axis(ARRIVALS[:2])])._per_lead_bytes(
+        tasks, hosts, cfg)
+    assert tt - base == 2 * 4 * t
+    prio = cfg.replace(scheduler=pconfig.SchedulerConfig(priority_levels=2))
+    tp = P.ScenarioGrid([P.tasktrace_axis(ARRIVALS[:2])])._per_lead_bytes(
+        tasks, hosts, prio)
+    every = sum(c.element_size() for c in tasks) * t
+    written = sum(getattr(tasks, f).element_size()
+                  for f in ("remaining", "status", "host", "first_start",
+                            "finish")) * t
+    assert tp - base == 2 * (every - written)
 
 
 def test_auto_chunk_size_follows_the_budget(workload, traces):
@@ -404,11 +487,8 @@ def test_trace_axes_want_rows_of_series(traces):
 @pytest.mark.parametrize("call,item", [
     (lambda g, a: P.ScenarioGrid([P.Axis("fleet", ("n_active_hosts",),
                                          (np.ones((2, 2)),))]), "item 4"),
-    (lambda g, a: P.tasktrace_axis(np.zeros((2, 12))), "item 3b"),
     (lambda g, a: P.region_axis(None), "item 4"),
     (lambda g, a: P.fleet_axis(n_active_hosts=np.ones((2, 2))), "item 4"),
-    (lambda g, a: P.ScenarioGrid([P.Axis("tasktrace", ("arrival_trace",),
-                                         (np.zeros((2, 12)),))]), "item 3b"),
     (lambda g, a: g.run(*a, mesh=object(), device="cpu"), "item 6f"),
     (lambda g, a: P.sweep_grid(*a[:3], g.axes, executor="shard_map",
                                device="cpu"), "item 6f"),
