@@ -53,6 +53,25 @@ Phases, each printing one JSON line:
                  reference's (SCALING_KAT); (e) the CLI on 8 regions.
                  After the grid phase, a small task-trace grid (with and
                  without priority levels) on the card and on the CPU.
+  4d. fleet  -- the multi-datacenter fleet at full scale: Marconi placed
+                 over the 8 synthetic regions (carbon and weather of seed 0,
+                 750 active hosts a region, the main path's price and PV
+                 traces shared), each part a line with its wall time, peak
+                 memory and launch counts (exactly one run's): (a) greedy
+                 placement at `capacity_frac=1.5` through both executors
+                 (placement, per-region counts and totals the reference's,
+                 FLEET_REF_*; the executors equal); (b) `round_robin` and
+                 the online `spill` router (megakernel; placement and
+                 counts the reference's, the router's host seconds); (c) a
+                 fleet grid of 4 host plans x 2 batteries x 8 regions = 64
+                 rows through both executors (cells (0, 0) and (3, 1) equal
+                 to their own `simulate_fleet`); (d) the greedy fleet at
+                 full width under phase 4a's failures and loop with the
+                 cross-region spill (seeds 1-8, stage pipeline) and without
+                 it (counts, interrupts and spills the reference's).  After
+                 the grid phase, 192-step profiles of (c) (megakernel) and
+                 (d); after the small phase, a small greedy fleet, spill
+                 fleet and fleet grid on the card and on the CPU.
   4c. grid   -- the scenario grid of paper Fig 12 at the main phase's
                  configuration: 8 carbon regions x battery capacities, as
                  B = 1, 16 and 64 cells in one step loop, through both
@@ -98,6 +117,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -112,16 +132,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.carbontraces import make_region_traces  # noqa: E402
+from repro_torch.carbontraces import (make_region_traces,  # noqa: E402
+                                      trace_stats)
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import config as C  # noqa: E402
-from repro_torch.core import (STORES, ScenarioGrid, battery,  # noqa: E402
-                              dyn_axis, facility_failure_series, failures,
-                              find_min_scale, pricing, result_to_numpy,
-                              seed_axis, simulate, summarize, sweep_grid,
-                              tasktrace_axis, threefry, trace_axis,
-                              with_scale)
+from repro_torch.core import (STORES, FleetSpec, ScenarioGrid,  # noqa: E402
+                              battery, dyn_axis, facility_failure_series,
+                              failures, find_min_scale, fleet_axis, pricing,
+                              region_axis, result_to_numpy, seed_axis,
+                              simulate, simulate_fleet, split_by_region,
+                              summarize, sweep_grid, tasktrace_axis,
+                              threefry, trace_axis, with_scale)
 from repro_torch.core import analytical  # noqa: E402
+from repro_torch.core.fleet import fleet_place  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import first_fit as ff_k  # noqa: E402
 from repro_torch.kernels import flash_attn as fa_k  # noqa: E402
@@ -133,6 +156,7 @@ from repro_torch.launch import simulate as cli  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.layers import flatten, tree_map  # noqa: E402
 from repro_torch.tasktraces import make_arrival_sets  # noqa: E402
+from repro_torch.weathertraces import make_weather_traces  # noqa: E402
 from repro_torch.workloads import make_workload  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) op/s
@@ -1765,6 +1789,430 @@ def experiments_phase(dev, main: dict, scale: float, n_steps: int,
 
 
 # --------------------------------------------------------------------------
+# phase 4d: the multi-datacenter fleet and spatial shifting
+# --------------------------------------------------------------------------
+
+FLEET_REGIONS = 8
+FLEET_CAPACITY_FRAC = 1.5
+# the fleet's PDU clamp while a PDU is down (kW a region): about 0.8 of a
+# region's mean IT draw in the greedy fleet (291 kW, the reference's)
+FLEET_PDU_CAP_KW = 240.0
+FLEET_SEEDS = np.arange(1, FLEET_REGIONS + 1, dtype=np.int32)
+FLEET_CAPS = np.float32([8748.0, 2187.0])
+FLEET_GRID_CELLS = ((0, 0), (3, 1))
+FLEET_COUNTS = ("n_done", "n_started", "n_decided", "n_tasks")
+# the reference package's answers at full-scale Marconi on the CPU
+# (scripts/reference_experiments.py, lines fleet_greedy, fleet_policies,
+# fleet_spill): tasks placed a region, the sha1 of the i32 region ids, each
+# region's counts; the greedy fleet's totals by executor; the spill fleet's
+# counts, interrupts and spills with the spill on and off
+FLEET_REF_PLACED = {
+    "greedy": [33922, 28886, 35587, 37183, 40521, 9222, 0, 7496],
+    "round_robin": [24103, 24102, 24102, 24102, 24102, 24102, 24102, 24102],
+    "spill": [0, 132026, 0, 29291, 31500, 0, 0, 0]}
+FLEET_REF_SHA1 = {"greedy": "66d558b75143a463a35f676edf6143873720907d",
+                  "round_robin": "e09360bdac70bbece39c968bf69ee3d929d68eb7",
+                  "spill": "7ec36e798a96617e2bb14befc29507f5f736e25d"}
+FLEET_REF_COUNTS = {
+    "greedy": {
+        "n_done": [33922, 28886, 32595, 37183, 40521, 8117, 0, 5938],
+        "n_started": [33922, 28886, 33743, 37183, 40521, 8895, 0, 7141],
+        "n_decided": [33922, 28886, 34831, 37183, 40521, 8117, 0, 5938],
+        "n_tasks": [33922, 28886, 35587, 37183, 40521, 9222, 0, 7496]},
+    "round_robin": {
+        "n_done": [23240, 23633, 23503, 23874, 23822, 23860, 23753, 23822],
+        "n_started": [23706, 23754, 23619, 24094, 24093, 24086, 23895,
+                      24093],
+        "n_decided": [23244, 23633, 23503, 23874, 23822, 23860, 23753,
+                      23822],
+        "n_tasks": [24103, 24102, 24102, 24102, 24102, 24102, 24102, 24102]},
+    "spill": {
+        "n_done": [0, 107778, 0, 28997, 30999, 0, 0, 0],
+        "n_started": [0, 108961, 0, 29291, 31500, 0, 0, 0],
+        "n_decided": [0, 127583, 0, 28997, 30999, 0, 0, 0],
+        "n_tasks": [0, 132026, 0, 29291, 31500, 0, 0, 0]}}
+FLEET_REF_TOTALS = {
+    "stage-pipeline": {
+        "total_carbon_kg": 585637.375, "op_carbon_kg": 179040.5625,
+        "emb_carbon_kg": 406596.8125, "grid_energy_kwh": 1178924.25,
+        "dc_energy_kwh": 1787159.5, "it_energy_kwh": 1675052.25,
+        "cooling_energy_kwh": 112106.796875, "water_l": 267946.9375,
+        "energy_cost": 125921.375, "demand_cost": 17774608.0,
+        "total_cost": 17891332.0, "pv_energy_kwh": 916404.9375,
+        "grid_export_kwh": 191668.953125, "peak_power_kw": 213819.609375,
+        "batt_discharged_kwh": 534262.5625,
+        "sla_violation_frac": 0.6495369672775269,
+        "done_frac": 0.9706716537475586},
+    "megakernel": {
+        "total_carbon_kg": 585631.0625, "op_carbon_kg": 179040.53125,
+        "emb_carbon_kg": 406590.53125, "grid_energy_kwh": 1178924.5,
+        "dc_energy_kwh": 1787160.0, "it_energy_kwh": 1675053.25,
+        "cooling_energy_kwh": 112106.734375, "water_l": 267946.03125,
+        "energy_cost": 125921.4140625, "demand_cost": 17774606.0,
+        "total_cost": 17891332.0, "pv_energy_kwh": 916405.25,
+        "grid_export_kwh": 191669.140625, "peak_power_kw": 213819.609375,
+        "batt_discharged_kwh": 534262.375,
+        "sla_violation_frac": 0.6495369672775269,
+        "done_frac": 0.9706716537475586}}
+FLEET_REF_SPILL = {
+    True: {"n_done": [33848, 28876, 25861, 37162, 40520, 6880, 5, 5291],
+           "n_started": [33928, 28876, 27119, 37166, 40520, 7909, 5, 6561],
+           "n_decided": [33928, 28876, 34841, 37162, 40520, 6880, 5, 5291],
+           "n_tasks": [33928, 28876, 35597, 37166, 40520, 9229, 5, 7496],
+           "n_interrupts": [379, 464, 260, 329, 290, 61, 0, 27],
+           "n_spills": [17, 28, 7, 26, 11, 10, 3, 4]},
+    False: {"n_done": [33839, 28886, 25861, 37183, 40521, 6867, 0, 5292],
+            "n_started": [33922, 28886, 27119, 37183, 40521, 7895, 0, 6557],
+            "n_decided": [33922, 28886, 34831, 37183, 40521, 6867, 0, 5292],
+            "n_tasks": [33922, 28886, 35587, 37183, 40521, 9222, 0, 7496],
+            "n_interrupts": [367, 449, 255, 335, 295, 61, 0, 27],
+            "n_spills": [0, 0, 0, 0, 0, 0, 0, 0]}}
+# the small fleets' failure_hazard_scale: two days see interrupts, so
+# tasks spill
+SMALL_FLEET_HAZARD = 20.0
+
+
+def fleet_spec(n_steps: int, n_active: int,
+               policy: str = "greedy") -> FleetSpec:
+    """The smoke test's fleet: the 8 synthetic regions' carbon and weather
+    (seed 0), `n_active` hosts a region, `capacity_frac=1.5`."""
+    return FleetSpec(
+        ci_traces=make_region_traces(n_steps, DT_H, FLEET_REGIONS, seed=0),
+        wb_traces=make_weather_traces(n_steps, DT_H, FLEET_REGIONS, seed=0),
+        n_active_hosts=n_active, capacity_frac=FLEET_CAPACITY_FRAC,
+        policy=policy)
+
+
+def fleet_resilience(cfg: C.SimConfig, spill: bool = True) -> C.SimConfig:
+    """Phase 4a's failures, checkpointing and closed loop (seed 1, heat-
+    correlated failures x2, reactive placement) with the fleet's PDU clamp
+    and the cross-region spill, 4 tasks a step."""
+    return resilience_config(cfg, FLEET_PDU_CAP_KW).replace(
+        resilience=C.ResilienceConfig(
+            enabled=True, reactive_placement=True, heat_hazard_mult=2.0,
+            pdu_cap_kw=FLEET_PDU_CAP_KW, spill_interrupted=spill,
+            max_spills_per_step=4))
+
+
+def fleet_counts(region: np.ndarray) -> dict:
+    """Tasks placed a region and the sha1 of the region ids."""
+    return {"placed": np.bincount(region[region >= 0],
+                                  minlength=FLEET_REGIONS).tolist(),
+            "region_sha1": hashlib.sha1(
+                np.asarray(region, np.int32).tobytes()).hexdigest()}
+
+
+def fleet_green_skew(n_steps: int, n_hosts: int) -> np.ndarray:
+    """examples/fleet_sweep.py's green-skewed host plan: more hosts on
+    where the grid is cleanest (the region's mean carbon rank)."""
+    ci_mean, _ = trace_stats(make_region_traces(n_steps, DT_H, FLEET_REGIONS,
+                                                seed=0), DT_H)
+    rank = np.argsort(np.argsort(ci_mean))
+    return np.clip((n_hosts * (1.0 - 0.5 * rank / (FLEET_REGIONS - 1))
+                    ).astype(int), 1, n_hosts)
+
+
+def fleet_run(fn, dev) -> tuple:
+    """(total, per-region fields as numpy, info) of one fleet call."""
+    res, info = measured(fn, dev)
+    return result_to_numpy(res.total), result_to_numpy(res.per_region), info
+
+
+def check_fleet_ref(per: dict, want: dict, what: str) -> None:
+    for k, v in want.items():
+        check(per[k].tolist() == [float(x) for x in v],
+              f"{what}: {k} {per[k].tolist()} != the reference's {v}")
+
+
+def compare_fleet_backends(a: dict, b: dict, what: str, emb_a=None,
+                           emb_b=None, rtol: float = 1e-5) -> None:
+    """Two executors' fleet fields: counts exact, energy, cost and
+    operational carbon within `rtol` (atol 1e-4); embodied carbon, which
+    the stage pipeline sums a step at a time and the megakernel takes in
+    closed form (phase 4a), equal to each executor's own main run's
+    (`emb_a`, `emb_b`; not compared where they are None)."""
+    for k in (*COUNTS, "n_interrupts", "n_spills"):
+        check(np.array_equal(a[k], b[k]),
+              f"{what}: count {k} differs: {a[k]} vs {b[k]}")
+    for k in ENERGY_COST_CARBON:
+        if k not in ("emb_carbon_kg", "total_carbon_kg"):
+            check(np.allclose(a[k], b[k], rtol=rtol, atol=1e-4),
+                  f"{what}: {k} differs: {a[k]} vs {b[k]}")
+    for x, e, side in ((a, emb_a, "first"), (b, emb_b, "second")):
+        check(e is None or bool(np.all(x["emb_carbon_kg"] == e)),
+              f"{what}: emb_carbon_kg of the {side} is not its main run's: "
+              f"{x['emb_carbon_kg']} vs {e}")
+
+
+def fleet_phase(dev, main: dict, scale: float, n_steps: int, n_active: int,
+                full: bool) -> tuple:
+    """Phase 4d at `scale` on `dev`: (a) the greedy fleet through both
+    executors, (b) the round-robin and online (`spill`) placements, (c) a
+    fleet grid of 4 host plans x 2 batteries x 8 regions, (d) the spill
+    fleet under failures.  `main` holds the main phase's results at the
+    same scale ({backend: fields}); on the card every run's launch counts
+    are checked, and `full` checks the reference's full-scale answers.
+    Returns (one line a part, launch counts summed over the runs, the
+    inputs `fleet_profile` takes)."""
+    on = dev.type == "cuda"
+    tasks, hosts, _, meta = make_workload("marconi", scale=scale, seed=0,
+                                          dt_h=DT_H,
+                                          horizon_days=n_steps * DT_H / 24,
+                                          device=dev)
+    n_hosts = meta["n_hosts"]
+    cfg = main_config(n_steps, meta["embodied"], n_hosts)
+    _, _, price, cf = facility_traces(n_steps, dev)
+    dyn = {"price_trace": price, "pv_cf_trace": cf}
+    spec = fleet_spec(n_steps, n_active)
+    lines, total = [], dict.fromkeys(build.KERNELS, 0)
+
+    def add(part: str, info: dict, **kw):
+        for k, n in info["launches"].items():
+            total[k] += n
+        lines.append({"phase": "fleet", "part": part, **info, **kw})
+
+    def expect(info, want, what):
+        if on:
+            expect_launches(info, want, what)
+
+    # (a) greedy placement (once, on the host), then both executors
+    t0 = time.perf_counter()
+    region = fleet_place(tasks, hosts, spec, DT_H, n_steps=n_steps)
+    place_s = time.perf_counter() - t0
+    placed = fleet_counts(region)
+    if full:
+        check(placed == {"placed": FLEET_REF_PLACED["greedy"],
+                         "region_sha1": FLEET_REF_SHA1["greedy"]},
+              f"greedy placement {placed} is not the reference's")
+    greedy = {}
+    for backend in ("stage-pipeline", "megakernel"):
+        c = cfg.replace(backend=backend)
+        tot, per, info = fleet_run(lambda: simulate_fleet(
+            tasks, hosts, c, spec, dyn=dyn, region=region, device=dev), dev)
+        expect(info, run_launches(backend, n_steps, True),
+               f"greedy fleet {backend}")
+        for k in HEADLINE:
+            check(bool(np.all(np.isfinite(per[k]))),
+                  f"greedy fleet {backend}: {k} not finite")
+        check(per["n_tasks"].tolist() == [float(x)
+                                          for x in placed["placed"]],
+              f"greedy fleet {backend}: n_tasks {per['n_tasks']} is not "
+              f"the placement {placed['placed']}")
+        if full:
+            check_fleet_ref(per, FLEET_REF_COUNTS["greedy"],
+                            f"greedy fleet {backend}")
+            want = FLEET_REF_TOTALS[backend]
+            for k, v in want.items():
+                check(math.isclose(float(tot[k]), v, rel_tol=1e-4),
+                      f"greedy fleet {backend}: total {k} {float(tot[k])} "
+                      f"vs the reference's {v}")
+        greedy[backend] = (tot, per)
+        add("greedy", info, backend=backend, placement_s=place_s,
+            **placed, n_done=per["n_done"].tolist(),
+            total_carbon_kg=float(tot["total_carbon_kg"]),
+            op_carbon_kg=float(tot["op_carbon_kg"]))
+    compare_fleet_backends(greedy["stage-pipeline"][1],
+                           greedy["megakernel"][1], "greedy fleet backends",
+                           main["stage-pipeline"]["emb_carbon_kg"],
+                           main["megakernel"]["emb_carbon_kg"])
+    compare_fleet_backends(greedy["stage-pipeline"][0],
+                           greedy["megakernel"][0],
+                           "greedy fleet backends, totals")
+
+    # (b) round-robin and the online router, megakernel
+    mega = cfg.replace(backend="megakernel")
+    for policy in ("round_robin", "spill"):
+        t0 = time.perf_counter()
+        reg = fleet_place(tasks, hosts, fleet_spec(n_steps, n_active, policy),
+                          DT_H, n_steps=n_steps)
+        seconds = time.perf_counter() - t0
+        placed = fleet_counts(reg)
+        tot, per, info = fleet_run(lambda: simulate_fleet(
+            tasks, hosts, mega, spec.replace(policy=policy), dyn=dyn,
+            region=reg, device=dev), dev)
+        expect(info, run_launches("megakernel", n_steps, True),
+               f"{policy} fleet")
+        if full:
+            check(placed == {"placed": FLEET_REF_PLACED[policy],
+                             "region_sha1": FLEET_REF_SHA1[policy]},
+                  f"{policy} placement {placed} is not the reference's")
+            check_fleet_ref(per, FLEET_REF_COUNTS[policy], f"{policy} fleet")
+        add("policy", info, policy=policy, placement_s=seconds,
+            n_tasks=int(np.isfinite(tasks.arrival.cpu().numpy()).sum()),
+            **placed, n_done=per["n_done"].tolist(),
+            total_carbon_kg=float(tot["total_carbon_kg"]),
+            op_carbon_kg=float(tot["op_carbon_kg"]))
+
+    # (c) the fleet grid: 4 host plans x 2 batteries x 8 regions, 64 rows
+    plans = np.stack([np.full(FLEET_REGIONS, n_hosts),
+                      np.full(FLEET_REGIONS, n_active),
+                      np.full(FLEET_REGIONS, n_hosts // 2),
+                      fleet_green_skew(n_steps, n_hosts)]).astype(np.int32)
+    caps = FLEET_CAPS * np.float32(n_hosts / 972)
+    axes = [fleet_axis(n_active_hosts=plans), dyn_axis(batt_capacity_kwh=caps),
+            region_axis(spec)]
+    grid = ScenarioGrid(axes, base_dyn=dyn)
+    split = split_by_region(tasks, region, FLEET_REGIONS, device=dev)
+    n_chunks = -(-len(plans) // grid._auto_chunk_size(split, hosts, cfg,
+                                                      None))
+    del split
+    fgrid = {}
+    for backend in ("stage-pipeline", "megakernel"):
+        c = cfg.replace(backend=backend)
+        tot, per, info = fleet_run(lambda: grid.run(tasks, hosts, c,
+                                                    device=dev), dev)
+        expect(info, run_launches(backend, n_steps, True, n_chunks=n_chunks),
+               f"fleet grid {backend}")
+        check(per["n_done"].shape == (4, 2, FLEET_REGIONS)
+              and tot["n_done"].shape == (4, 2),
+              f"fleet grid {backend}: shapes {per['n_done'].shape}")
+        for k in HEADLINE:
+            check(bool(np.all(np.isfinite(per[k]))),
+                  f"fleet grid {backend}: {k} not finite")
+        fgrid[backend] = (tot, per)
+        rows = per["n_done"].size
+        years = rows * n_steps * DT_H / C.HOURS_PER_YEAR
+        add("grid", info, backend=backend, shape=[4, 2, FLEET_REGIONS],
+            rows=rows, n_chunks=n_chunks, plans=plans.tolist(),
+            caps=caps.tolist(), sim_years_per_s=years / info["wall_s"],
+            n_done=tot["n_done"].tolist(),
+            total_carbon_kg=tot["total_carbon_kg"].tolist())
+    compare_backends(fgrid["stage-pipeline"][1], fgrid["megakernel"][1],
+                     1e-4, "fleet grid backends")
+    # the 750-host, full-battery cell is (a)'s fleet
+    compare_fleet_backends(cell(fgrid["megakernel"][1], (1, 0)),
+                           greedy["megakernel"][1], "fleet grid cell (1, 0) "
+                           "vs the greedy fleet")
+    for k, j in FLEET_GRID_CELLS:
+        one = simulate_fleet(tasks, hosts, mega, spec, dyn={
+            **dyn, "n_active_hosts": plans[k], "batt_capacity_kwh": caps[j]},
+            device=dev)
+        for part, want in (("total", one.total),
+                           ("per_region", one.per_region)):
+            got = cell(fgrid["megakernel"][0 if part == "total" else 1],
+                       (k, j))
+            want = result_to_numpy(want)
+            for f in (*COUNTS, "n_interrupts", "n_spills"):
+                check(np.array_equal(got[f], want[f]),
+                      f"fleet grid cell ({k}, {j}) {part}: {f} {got[f]} vs "
+                      f"its simulate_fleet's {want[f]}")
+            for f in ENERGY_COST_CARBON:
+                check(np.allclose(got[f], want[f], rtol=1e-5, atol=1e-4),
+                      f"fleet grid cell ({k}, {j}) {part}: {f} {got[f]} vs "
+                      f"its simulate_fleet's {want[f]}")
+
+    # (d) the coupled fleet under failures at full width, with the spill
+    # and without it
+    seeds = {"seed": FLEET_SEEDS}
+    spill = {}
+    for on_spill in (True, False):
+        c = fleet_resilience(cfg.replace(backend="stage-pipeline"), on_spill)
+        tot, per, info = fleet_run(lambda: simulate_fleet(
+            tasks, hosts, c, spec, dyn={**dyn, **seeds}, region=region,
+            width=tasks.n, device=dev), dev)
+        expect(info, run_launches("stage-pipeline", n_steps),
+               f"spill fleet (spill {on_spill})")
+        for k in HEADLINE:
+            check(bool(np.all(np.isfinite(per[k]))),
+                  f"spill fleet ({on_spill}): {k} not finite")
+        if full:
+            check_fleet_ref(per, FLEET_REF_SPILL[on_spill],
+                            f"spill fleet (spill {on_spill})")
+        spill[on_spill] = per
+        add("spill" if on_spill else "spill_off", info, width=tasks.n,
+            seeds=FLEET_SEEDS.tolist(), pdu_cap_kw=FLEET_PDU_CAP_KW,
+            **{k: per[k].tolist() for k in (
+                "n_spills", "n_interrupts", "n_done", "lost_work_h",
+                "throttled_h", "derate_h")})
+    if full:
+        check(float(spill[True]["n_spills"].sum()) > 0,
+              "spill fleet: no task spilled")
+        check(float(spill[True]["n_done"].sum())
+              != float(spill[False]["n_done"].sum()),
+              "spill fleet: the spill changed no outcome")
+    ctx = {"tasks": tasks, "hosts": hosts, "cfg": cfg, "dyn": dyn,
+           "spec": spec, "region": region, "plans": plans, "caps": caps}
+    return lines, total, ctx
+
+
+def fleet_profile(ctx: dict, n_steps: int, dev) -> list:
+    """Where the time goes: the first `n_steps` steps of the fleet grid (c)
+    on the megakernel and of the spill fleet (d) under the profiler, each
+    after one unprofiled run (`ctx` from `fleet_phase`).  One executor for
+    (c): a profiled run costs ~25 s of the profiler's own host time."""
+    tasks, hosts, cfg, spec = ctx["tasks"], ctx["hosts"], ctx["cfg"], \
+        ctx["spec"]
+    s = n_steps
+    dyn = {k: v[:s] for k, v in ctx["dyn"].items()}
+    cut = spec.replace(ci_traces=spec.ci_traces[:, :s],
+                       wb_traces=spec.wb_traces[:, :s])
+    axes = [fleet_axis(n_active_hosts=ctx["plans"]),
+            dyn_axis(batt_capacity_kwh=ctx["caps"]), region_axis(cut)]
+    watch = ("first_fit", "facility_power_kernel", "power_carbon_kernel",
+             "facility_totals_kernel")
+    mega = cfg.replace(n_steps=s, backend="megakernel")
+    spill = fleet_resilience(cfg.replace(n_steps=s))
+    runs = [("grid", "megakernel", lambda: sweep_grid(
+                tasks, hosts, mega, axes, dyn=dyn, device=dev)),
+            ("spill", "stage-pipeline", lambda: simulate_fleet(
+                tasks, hosts, spill, cut, dyn={**dyn, "seed": FLEET_SEEDS},
+                region=ctx["region"], width=tasks.n, device=dev))]
+    rows = []
+    for part, backend, run in runs:
+        run()
+        row = profiled(run, watch=watch)
+        rows.append({"phase": "fleet_profile", "part": part,
+                     "backend": backend, "n_steps": s,
+                     "host_ms_per_step": row["wall_s"] / s * 1e3, **row})
+    return rows
+
+
+
+def small_fleet_card_vs_cpu(dev) -> dict:
+    """A small greedy fleet (both executors), a small spill fleet (every
+    failure rate x SMALL_FLEET_HAZARD) and a small fleet grid (2 host plans
+    x 8 regions, megakernel) at scale 0.05 over 192 steps, on `dev` (the
+    card) and with the plain versions on the CPU: counts exact, totals
+    within rtol 1e-4."""
+    out, seconds = {}, {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        tasks, hosts, _, meta = make_workload("marconi", scale=0.05, seed=0,
+                                              dt_h=DT_H, horizon_days=2.0,
+                                              device=d)
+        cfg = main_config(192, meta["embodied"], meta["n_hosts"])
+        _, _, price, cf = facility_traces(192, d)
+        dyn = {"price_trace": price, "pv_cf_trace": cf}
+        spec = fleet_spec(192, 38)
+        for backend in ("stage-pipeline", "megakernel"):
+            out[(side, backend)] = simulate_fleet(
+                tasks, hosts, cfg.replace(backend=backend), spec, dyn=dyn,
+                device=d)
+        out[(side, "spill")] = simulate_fleet(
+            tasks, hosts, fleet_resilience(cfg), spec, device=d,
+            dyn={**dyn, "seed": FLEET_SEEDS,
+                 "failure_hazard_scale": SMALL_FLEET_HAZARD})
+        out[(side, "grid")] = sweep_grid(
+            tasks, hosts, cfg.replace(backend="megakernel"),
+            [fleet_axis(n_active_hosts=np.int32([[38] * 8, [20] * 8])),
+             region_axis(spec)], dyn=dyn, device=d)
+        seconds[side] = time.perf_counter() - t0
+    for what in ("stage-pipeline", "megakernel", "spill", "grid"):
+        for part in ("total", "per_region"):
+            a, b = (result_to_numpy(getattr(out[(s, what)], part))
+                    for s in ("card", "cpu"))
+            compare_backends(a, b, 1e-4, f"small fleet {what} {part} card "
+                             "vs cpu", counts=(*COUNTS, "n_interrupts",
+                                               "n_spills"))
+    spills = float(out[("card", "spill")].total.n_spills)
+    check(spills > 0, "small spill fleet: no task spilled")
+    return {"n_done": out[("card", "megakernel")].per_region.n_done.tolist(),
+            "n_spills": spills, "grid_shape": list(
+                out[("card", "grid")].per_region.n_done.shape),
+            "seconds": seconds}
+
+
+# --------------------------------------------------------------------------
 # the serving path: zamba2-7b and mamba2-2.7b
 # --------------------------------------------------------------------------
 
@@ -2072,6 +2520,10 @@ def main() -> int:
             emit({"rehearsal": True, **line})
         emit({"phase": "small_tasktrace_card_vs_cpu", "rehearsal": True,
               **small_tasktrace_card_vs_cpu(cpu)})
+        for line in fleet_phase(cpu, results, 0.02, 192, 15, False)[0]:
+            emit({"rehearsal": True, **line})
+        emit({"phase": "small_fleet_card_vs_cpu", "rehearsal": True,
+              **small_fleet_card_vs_cpu(cpu)})
         for row in grid_phase(cpu, results, 0.02, 192, 15, False)[0]:
             emit({"phase": "grid", "rehearsal": True, **row})
         emit({"phase": "small_grid_card_vs_cpu", "rehearsal": True,
@@ -2175,6 +2627,16 @@ def main() -> int:
           "seconds_by_part": [[x["part"], x["wall_s"]] for x in exp_lines],
           "launches": exp_launches})
 
+    # the multi-datacenter fleet: greedy, round-robin and online placement,
+    # a 64-row fleet grid and the cross-region spill under failures (timed
+    # before any profile; its profiles come after the grid phase's)
+    t0 = time.perf_counter()
+    fleet_lines, fleet_launches, fleet_ctx = fleet_phase(
+        dev, results, 1.0, MAIN_STEPS, MARCONI_ACTIVE, True)
+    for line in fleet_lines:
+        emit({"workload": "marconi", "n_steps": MAIN_STEPS, **line})
+    fleet_s = time.perf_counter() - t0
+
     # the scenario grid at the main configuration: B = 1, 16, 64 cells in
     # one step loop each, on both backends; then the profiles of the main
     # run and of each grid
@@ -2206,6 +2668,17 @@ def main() -> int:
     for row in profile_window(tasks, hosts, cfg, dyn, ci, 192, dev):
         emit({"phase": "experiments_profile", "mode": "aggregate", **row})
     del tasks, hosts
+    # where the fleet's time goes: 192 steps of the fleet grid on each
+    # executor and of the spill fleet
+    t0 = time.perf_counter()
+    for row in fleet_profile(fleet_ctx, 192, dev):
+        emit(row)
+    del fleet_ctx
+    emit({"phase": "fleet_summary", "seconds": fleet_s,
+          "profile_s": time.perf_counter() - t0,
+          "seconds_by_part": [[x["part"], x.get("policy", x.get("backend")),
+                               x["wall_s"]] for x in fleet_lines],
+          "launches": fleet_launches})
 
     # the small run on the card against the plain versions on the CPU
     small = {}
@@ -2222,12 +2695,16 @@ def main() -> int:
     emit({"phase": "small_resilience_card_vs_cpu", "ok": True, **info,
           "seconds": time.perf_counter() - t0,
           "resilience_phase_s": res_seconds + time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "small_fleet_card_vs_cpu", "ok": True,
+          **small_fleet_card_vs_cpu(dev),
+          "seconds_total": time.perf_counter() - t0})
 
     # the serving path: zamba2-7b as configured (contract, prefill, greedy
     # decode), then mamba2-2.7b's prefill; each timed prefill's launch
     # counts are reset just before it and read just after
     launches = {k: sum(i["launches"][k] for i in infos) + grid_launches[k]
-                + resil["launches"][k] + exp_launches[k]
+                + resil["launches"][k] + exp_launches[k] + fleet_launches[k]
                 for k in build.KERNELS}
     # kernel 3's derate route: its launches on the resilience path
     launches["fused_facility_totals_derate"] = resil["launches"][

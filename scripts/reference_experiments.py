@@ -15,29 +15,56 @@ Runs the JAX reference (`src/repro/`) on the CPU at full-scale Marconi
     (no techniques, carbon region 0, megakernel) at 972, 750 and 600
     active hosts;
   * `scaling`: `find_min_scale` over that configuration (lo 1, hi 972) at
-    the targets 0.01 and 0.80, with every scale it evaluated.
+    the targets 0.01 and 0.80, with every scale it evaluated;
+  * `fleet_greedy`: the smoke test's fleet (`chip_smoke.py` phase 4d): the
+    main configuration over the 8 synthetic regions (carbon and weather of
+    seed 0, the main path's price and PV traces shared), 750 active hosts
+    a region, greedy placement at `capacity_frac=1.5`, through both step
+    executors: the tasks placed in each region, each region's outcome
+    counts and the fleet's totals;
+  * `fleet_policies`: the same fleet under `round_robin` and `spill`
+    placement (megakernel): placement and per-region counts;
+  * `fleet_spill`: the greedy fleet at full width with host failures,
+    checkpointing, the closed resilience loop and the cross-region spill
+    (`spill_interrupted`, 4 spills a step, seeds 1-8 one a region; stage
+    pipeline), and the same fleet without the spill: per-region counts,
+    interrupts and spills.
 
-Each full-scale run takes 15-30 s on a few CPU cores; the whole script a
-few minutes.  The port's phase 4b ("experiments") must reproduce these
-numbers on the card.
+Each full-scale run takes 15-30 s on a few CPU cores (a full-width fleet a
+few minutes); the whole script about half an hour.  The port's phases 4b
+("experiments") and 4d ("fleet") must reproduce these numbers on the card.
 """
 from __future__ import annotations
 
+import hashlib
 import json
+import sys
 import time
 
 import numpy as np
 
 from repro.carbontraces.synthetic import make_region_traces
-from repro.core import (SimConfig, find_min_scale, simulate, summarize,
-                        with_scale)
+from repro.core import (FleetSpec, SimConfig, find_min_scale, simulate,
+                        simulate_fleet, summarize, with_scale)
 from repro.core import config as C
+from repro.core.fleet import fleet_place
+from repro.weathertraces.synthetic import make_weather_traces
 from repro.workloads.synthetic import make_workload
 
 DT_H = 0.25
 STEPS = 2880
 ACTIVE = 750
 COUNTS = ("n_done", "n_started", "n_decided", "n_tasks")
+REGIONS = 8
+# the fleet's PDU clamp while a PDU is down (kW a region): about 0.8 of a
+# region's mean IT draw in the greedy fleet
+FLEET_PDU_CAP_KW = 240.0
+FLEET_TOTALS = ("total_carbon_kg", "op_carbon_kg", "emb_carbon_kg",
+                "grid_energy_kwh", "dc_energy_kwh", "it_energy_kwh",
+                "cooling_energy_kwh", "water_l", "energy_cost", "demand_cost",
+                "total_cost", "pv_energy_kwh", "grid_export_kwh",
+                "peak_power_kw", "batt_discharged_kwh", "sla_violation_frac",
+                "done_frac")
 
 
 def facility_traces(s: int):
@@ -63,13 +90,90 @@ def main_config(embodied, n_hosts: int) -> SimConfig:
         shifting=C.ShiftingConfig(enabled=True))
 
 
+def fleet_spec(policy: str = "greedy") -> FleetSpec:
+    """`chip_smoke.fleet_spec`: the 8 synthetic regions' carbon and
+    weather (seed 0), 750 active hosts a region, `capacity_frac=1.5`."""
+    return FleetSpec(ci_traces=make_region_traces(STEPS, DT_H, REGIONS,
+                                                  seed=0),
+                     wb_traces=make_weather_traces(STEPS, DT_H, REGIONS,
+                                                   seed=0),
+                     n_active_hosts=ACTIVE, capacity_frac=1.5, policy=policy)
+
+
+def fleet_resilience(cfg: SimConfig, spill: bool) -> SimConfig:
+    """`chip_smoke.fleet_resilience`: phase 4a's failures, checkpointing
+    and closed loop (seed 1, heat-correlated failures x2, reactive
+    placement) with the fleet's PDU clamp, and the cross-region spill."""
+    return cfg.replace(
+        seed=1, failures=C.FailureConfig(enabled=True, checkpointing=True),
+        resilience=C.ResilienceConfig(
+            enabled=True, reactive_placement=True, heat_hazard_mult=2.0,
+            pdu_cap_kw=FLEET_PDU_CAP_KW, spill_interrupted=spill,
+            max_spills_per_step=4))
+
+
+def placement(region: np.ndarray) -> dict:
+    """Tasks placed in each region, and a digest of the region ids."""
+    return {"placed": np.bincount(region[region >= 0],
+                                  minlength=REGIONS).tolist(),
+            "region_sha1": hashlib.sha1(
+                np.asarray(region, np.int32).tobytes()).hexdigest()}
+
+
+def fleet_numbers(res, extra=()) -> dict:
+    """Per-region counts (and `extra` fields) and the fleet's totals."""
+    per = {k: np.asarray(getattr(res.per_region, k)).tolist()
+           for k in (*COUNTS, *extra)}
+    return {"per_region": per,
+            "total": {k: float(getattr(res.total, k)) for k in FLEET_TOTALS}}
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def fleet_main(tasks, hosts, meta) -> None:
+    """The `fleet_*` lines."""
+    _, _, price, cf = facility_traces(STEPS)
+    dyn = {"price_trace": price, "pv_cf_trace": cf}
+    cfg = main_config(meta["embodied"], meta["n_hosts"])
+    region = fleet_place(tasks, hosts, fleet_spec(), DT_H, n_steps=STEPS)
+    for backend in ("stage-pipeline", "megakernel"):
+        c = cfg.replace(backend=backend)
+        t0 = time.perf_counter()
+        out = fleet_numbers(simulate_fleet(tasks, hosts, c, fleet_spec(),
+                                           dyn=dyn, region=region))
+        emit({"fleet_greedy": backend, "seconds": time.perf_counter() - t0,
+              **placement(region), **out})
+    c = cfg.replace(backend="megakernel")
+    for policy in ("round_robin", "spill"):
+        t0 = time.perf_counter()
+        reg = fleet_place(tasks, hosts, fleet_spec(policy), DT_H,
+                          n_steps=STEPS)
+        out = fleet_numbers(simulate_fleet(tasks, hosts, c,
+                                           fleet_spec(policy), dyn=dyn,
+                                           region=reg))
+        emit({"fleet_policies": policy, "seconds": time.perf_counter() - t0,
+              **placement(reg), **out})
+    spill_keys = ("n_interrupts", "n_spills", "lost_work_h", "throttled_h",
+                  "derate_h")
+    seeds = {"seed": np.arange(1, REGIONS + 1, dtype=np.int32)}
+    for spill in (True, False):
+        c = fleet_resilience(cfg, spill)
+        t0 = time.perf_counter()
+        out = fleet_numbers(simulate_fleet(
+            tasks, hosts, c, fleet_spec(), dyn={**dyn, **seeds},
+            region=region, width=tasks.n), spill_keys)
+        emit({"fleet_spill": spill, "seconds": time.perf_counter() - t0,
+              **out})
 
 
 def main() -> None:
     tasks, hosts, _, meta = make_workload("marconi", scale=1.0, seed=0,
                                           dt_h=DT_H, horizon_days=30.0)
+    if "--fleet" in sys.argv[1:]:
+        fleet_main(tasks, hosts, meta)
+        return
     ci, wb, price, cf = facility_traces(STEPS)
     cfg = main_config(meta["embodied"], meta["n_hosts"]).replace(
         scheduler=C.SchedulerConfig(mode="aggregate"))
@@ -98,6 +202,7 @@ def main() -> None:
         emit({"scaling": target, "best": best,
               "evaluated": {str(k): v for k, v in evaluated.items()},
               "seconds": time.perf_counter() - t0})
+    fleet_main(tasks, hosts, meta)
 
 
 if __name__ == "__main__":

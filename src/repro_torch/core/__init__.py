@@ -8,11 +8,12 @@ from .config import (BatteryConfig, CoolingConfig, EmbodiedConfig,
 from .engine import (BACKENDS, EnergyFlow, StepInputs, build_step_fn,
                      build_step_inputs, default_pipeline,
                      facility_totals_from_flows, init_energy_flow, simulate)
+from .fleet import FleetResult, FleetSpec, fleet_place, simulate_fleet
 from .grid import (Axis, ScenarioGrid, dyn_axis, fleet_axis, price_axis,
                    region_axis, renewable_axis, seed_axis, sweep_grid,
                    tasktrace_axis, trace_axis, weather_axis)
-from .metrics import (SimResult, carbon_reduction_pct, result_to_numpy,
-                      summarize)
+from .metrics import (SimResult, carbon_reduction_pct, fleet_totals,
+                      result_to_numpy, summarize)
 from .pricing import (export_revenue_step, flat_energy_cost,
                       precompute_price_signals, pricing_step,
                       settle_demand_charge)
@@ -23,6 +24,8 @@ from .quant import (STORES, QuantizedTrace, dequantize_trace,
                     maybe_dequantize, quantize_trace)
 from .scaling import find_min_scale, with_scale
 from .shifting import forward_window_quantile, forward_window_quantiles
+from .spatial import (spatial_assign, spatial_assign_online,
+                      spatial_assign_reference, split_by_region)
 from .state import (DONE, INVALID, JOB_BATCH, JOB_CLASS_NAMES,
                     JOB_INTERACTIVE, JOB_TRAINING, N_JOB_CLASSES, PENDING,
                     RUNNING, BatteryState, HostTable, MetricsAcc, SimState,
@@ -42,11 +45,14 @@ __all__ = [
     "ProbeConfig", "RenewableConfig", "ResilienceConfig", "SchedulerConfig",
     "ShiftingConfig", "SimConfig", "techniques", "BACKENDS", "EnergyFlow",
     "StepInputs", "build_step_fn", "build_step_inputs", "default_pipeline",
-    "facility_totals_from_flows", "init_energy_flow", "simulate", "Axis",
+    "facility_totals_from_flows", "init_energy_flow", "simulate",
+    "FleetResult", "FleetSpec", "fleet_place", "simulate_fleet", "Axis",
     "ScenarioGrid", "dyn_axis", "fleet_axis",
     "price_axis", "region_axis", "renewable_axis", "seed_axis", "sweep_grid",
     "tasktrace_axis", "trace_axis", "weather_axis",
-    "SimResult", "carbon_reduction_pct", "result_to_numpy", "summarize",
+    "SimResult", "carbon_reduction_pct", "fleet_totals", "result_to_numpy",
+    "summarize", "spatial_assign", "spatial_assign_online",
+    "spatial_assign_reference", "split_by_region",
     "export_revenue_step", "flat_energy_cost", "precompute_price_signals",
     "pricing_step", "settle_demand_charge", "net_load_split", "pv_power_kw",
     "split_surplus", "chiller_cop", "cooling_step", "dynamic_pue",

@@ -38,12 +38,14 @@ No stage reads a value back from the device: the loop enqueues work and
 never waits for it.
 
 Scenario rows.  One run carries B scenarios at once (`run_cells`): the
-cells of a scenario grid (core/grid.py), or the one scenario of `simulate`
-(B = 1, the leading axis squeezed at the end).  The state's layout is that
-of core/state.py: written task columns [B, T], shared columns [1, T], a
-row's scalars [B, 1]; every stage works along the last axis, so each step
-runs every stage once for all rows, and each kernel of the path is one
-launch a step (the facility kernel one a run) whatever B is.
+cells of a scenario grid (core/grid.py), the regions of a fleet
+(core/fleet.py: every task column a row's own [B, W] table), or the one
+scenario of `simulate` (B = 1, the leading axis squeezed at the end).  The
+state's layout is that of core/state.py: written task columns [B, T],
+shared columns [1, T], a row's scalars [B, 1]; every stage works along the
+last axis, so each step runs every stage once for all rows, and each kernel
+of the path is one launch a step (the facility kernel one a run) whatever B
+is.
 
 Failures and resilience.  Host failures draw the reference's threefry bits
 (core/threefry.py), and neither their keys nor their probabilities depend
@@ -1007,28 +1009,16 @@ def _cell_values(dyn: dict, b: int, device) -> dict:
     return out
 
 
-def run_cells(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
-              n_cells: int, stages: Sequence[Stage] | None = None,
-              dyn: dict | None = None, device="cuda"):
-    """Run `n_cells` scenarios of one workload and configuration through
-    one step loop on `device`.  Returns (final SimState, per-step series or
-    None) in the layout of core/state.py: [B, T] written task columns,
-    [B, 1] battery and accumulators, [B, S] series.
-
-    The tables are the scenarios' common [T] / [H] tables; what differs
-    between rows comes in as [B, S] traces (`ci_trace` and the dyn traces)
-    and as dyn values of B entries ([B] or [B, 1]; see `simulate` for the
-    keys).  A value given once (a host number, a 0-d tensor, an [S] trace)
-    holds for every row.  Each step launches each kernel of the path once
-    for all rows, and the megakernel's facility kernel runs once."""
-    if cfg.backend not in BACKENDS:
-        raise ValueError(
-            f"unknown backend '{cfg.backend}'; pick one of {BACKENDS}")
-    if stages is not None and cfg.backend != "stage-pipeline":
-        raise ValueError(
-            "custom stages compose only with backend='stage-pipeline'; the "
-            "megakernel fuses the default facility chain and cannot honour "
-            "a replacement pipeline")
+def prepare_cells(tasks: TaskTable, hosts: HostTable, ci_trace,
+                  cfg: SimConfig, n_cells: int, dyn: dict | None = None,
+                  device="cuda", presort: bool = True):
+    """The set-up of a run of `n_cells` scenario rows on `device` (see
+    `run_cells`): (state at t = 0, step inputs, the ctx dyn values, the
+    inverse of the priority presort or None).  The tables are the rows'
+    common [T] / [H] tables, or [B, T] task tables with a row's own tasks
+    in every column (a fleet's regions, core/fleet.py).  `presort=False`
+    leaves the rows in arrival order even under priority levels (the
+    reference's coupled fleet executor does not permute them)."""
     dyn = dict(dyn) if dyn else {}
     _check_run(cfg, dyn)
     tasks, hosts = _to_device(tasks, device), _to_device(hosts, device)
@@ -1042,9 +1032,9 @@ def run_cells(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
             seed=cfg.seed)
     # priority scheduling: permute rows into (priority desc, arrival) order
     # once, before the loop (one order for all scenario rows, or one a row
-    # where their priorities differ); the final table is un-permuted below
+    # where their priorities differ); the final table is un-permuted after
     inv = None
-    if _presort_enabled(cfg):
+    if presort and _presort_enabled(cfg):
         order = state_mod.priority_schedule_order(
             tasks, cfg.scheduler.priority_levels)
         tasks = state_mod.permute_task_table(tasks, order)
@@ -1066,6 +1056,34 @@ def run_cells(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
     if cfg.resilience.enabled:  # a healthy start: no throttle on step 0
         state0 = state0._replace(throttle=torch.ones(
             (n_cells, 1), dtype=F32, device=device))
+    return state0, inputs, dyn, inv
+
+
+def run_cells(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
+              n_cells: int, stages: Sequence[Stage] | None = None,
+              dyn: dict | None = None, device="cuda"):
+    """Run `n_cells` scenarios of one workload and configuration through
+    one step loop on `device`.  Returns (final SimState, per-step series or
+    None) in the layout of core/state.py: [B, T] written task columns,
+    [B, 1] battery and accumulators, [B, S] series.
+
+    The tables are the scenarios' common [T] / [H] tables (or [B, T] task
+    tables, one row's tasks a row); what differs between rows comes in as
+    [B, S] traces (`ci_trace` and the dyn traces) and as dyn values of B
+    entries ([B] or [B, 1]; see `simulate` for the keys).  A value given
+    once (a host number, a 0-d tensor, an [S] trace) holds for every row.
+    Each step launches each kernel of the path once for all rows, and the
+    megakernel's facility kernel runs once."""
+    if cfg.backend not in BACKENDS:
+        raise ValueError(
+            f"unknown backend '{cfg.backend}'; pick one of {BACKENDS}")
+    if stages is not None and cfg.backend != "stage-pipeline":
+        raise ValueError(
+            "custom stages compose only with backend='stage-pipeline'; the "
+            "megakernel fuses the default facility chain and cannot honour "
+            "a replacement pipeline")
+    state0, inputs, dyn, inv = prepare_cells(tasks, hosts, ci_trace, cfg,
+                                             n_cells, dyn, device)
     if cfg.backend == "megakernel":
         final, ys = _simulate_megakernel(state0, inputs, cfg, dyn)
     else:

@@ -37,11 +37,23 @@ Axis kinds:
     (tasktraces/synthetic.py `make_arrival_sets`): each point re-times the
     task table with one row of arrival hours (dyn key `arrival_trace`), so
     a row's `arrival` and `status` columns are its own [B, T] rows.
+  * `region_axis(fleet)` -- a multi-datacenter fleet (core/fleet.py): the
+    FleetSpec's R regional datacenters (per-region carbon and weather
+    traces, host counts, battery sizing, setpoints) run inside every grid
+    cell.  Not a swept dimension: each cell is R consecutive scenario rows
+    (cell-major, region-minor), each row a region's own [W] task table;
+    the result is a `FleetResult` whose `per_region` fields carry a
+    trailing R axis and whose `total` holds the fleet's totals.  Placement
+    (spatial shifting) happens once, on the host, when the grid runs.
+  * `fleet_axis(**named_values)` -- per-region dyn values [K, R]: each of
+    the K grid points supplies one length-R vector (e.g. per-region host
+    counts).  Requires a `region_axis`.
 
+Refused with the reference's ValueError: more than one `region_axis`, a
+`region_axis` leading other axes, a trace, weather, price, renewable or
+task-trace axis beside it, a `fleet_axis` without it or of another R.
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: `region_axis` and `fleet_axis` (item 4; a fleet grid, and with it a
-fleet crossed with a task-trace axis),
-and the mesh-sharded and shard_map executors and lowering (`mesh=`,
+item: the mesh-sharded and shard_map executors and lowering (`mesh=`,
 `executor="shard_map"`, `run_shard_map`, `shard_map_callable`, `lower`;
 item 6f).
 
@@ -70,8 +82,10 @@ import torch
 
 from . import engine
 from .config import SimConfig
-from .metrics import SimResult, summarize
+from .fleet import (FleetResult, check_fleet_cfg, fleet_place, split_dyn)
+from .metrics import SimResult, fleet_totals, summarize
 from .quant import STORES, QuantizedTrace, maybe_dequantize, quantize_trace
+from .spatial import split_by_region
 from .state import WRITTEN_TASK_COLUMNS, HostTable, TaskTable
 
 TRACE_KEY = "ci_trace"
@@ -80,18 +94,24 @@ WEATHER_KEY = "wet_bulb_trace"
 PRICE_KEY = "price_trace"
 PV_KEY = "pv_cf_trace"
 TASKTRACE_KEY = "arrival_trace"
+FLEET_CI_KEY = "fleet_ci_traces"
+FLEET_WB_KEY = "fleet_wb_traces"
+FLEET_PRICE_KEY = "fleet_price_traces"
+FLEET_PV_KEY = "fleet_pv_traces"
+# a fleet's per-region traces and the dyn trace keys they feed
+_FLEET_TRACES = ((FLEET_WB_KEY, "wb_traces", WEATHER_KEY),
+                 (FLEET_PRICE_KEY, "price_traces", PRICE_KEY),
+                 (FLEET_PV_KEY, "pv_traces", PV_KEY))
 
 _REDUCERS = {"min": torch.amin, "max": torch.amax,
              "argmin": torch.argmin, "argmax": torch.argmax}
 _TRACE_KINDS = ("trace", "weather", "price", "renewable", "tasktrace")
 _VALUE_KINDS = ("dyn", "seed")
+_FLEET_KINDS = ("region", "fleet")
 
 # what the port refuses, and the ROADMAP item that brings it
-_ITEM_4 = "ROADMAP Queue 1 item 4, fleet and spatial"
 _ITEM_6F = ("ROADMAP Queue 1 item 6f, launch/ and distributed/: a multi-GPU "
             "executor for the grid")
-_REFUSED = {"region": ("region_axis", _ITEM_4),
-            "fleet": ("fleet_axis", _ITEM_4)}
 
 
 def _refuse(what: str, item: str):
@@ -103,11 +123,13 @@ class Axis(NamedTuple):
 
     A trace axis' value is an f32 [L, S] tensor or a `QuantizedTrace` of
     [L, ...] tensors; a dyn axis' values are host (numpy) arrays of length
-    L."""
+    L, a fleet axis' [L, R].  A region axis holds its fleet's [R, S]
+    traces and the FleetSpec (`meta`)."""
 
     kind: str
     names: tuple[str, ...]
     values: tuple
+    meta: object = None
 
     @property
     def length(self) -> int:
@@ -215,13 +237,38 @@ def tasktrace_axis(arrivals) -> Axis:
 
 
 def region_axis(fleet) -> Axis:
-    """Multi-datacenter fleet axis of the reference: refused."""
-    _refuse("region_axis", _ITEM_4)
+    """Fleet axis: the FleetSpec's R regional datacenters run inside every
+    grid cell (core/fleet.py).  Not a swept result dimension: per-region
+    results carry a trailing R axis.  Declare it after the swept axes (it
+    cannot lead a chunked grid)."""
+    values = (torch.from_numpy(fleet.ci_traces),)
+    names = (FLEET_CI_KEY,)
+    for key, attr, _ in _FLEET_TRACES:
+        if getattr(fleet, attr) is not None:
+            values += (torch.from_numpy(getattr(fleet, attr)),)
+            names += (key,)
+    return Axis("region", names, values, meta=fleet)
 
 
 def fleet_axis(**named_values) -> Axis:
-    """Per-region dyn axis of the reference: refused."""
-    _refuse("fleet_axis", _ITEM_4)
+    """Per-region dyn axis: each value is [K, R], K grid points of one
+    length-R vector applied region by region inside the fleet cell (e.g.
+    `fleet_axis(n_active_hosts=counts)` sweeps per-region host counts).
+    Requires a `region_axis` in the same grid; several names zip along K
+    as in `dyn_axis`."""
+    if not named_values:
+        raise ValueError("fleet_axis needs at least one name=values pair")
+    names = tuple(named_values)
+    values = tuple(host_values(v) for v in named_values.values())
+    for n, v in zip(names, values):
+        if v.ndim != 2:
+            raise ValueError(f"fleet_axis '{n}' wants [K, R] values, "
+                             f"got shape {v.shape}")
+    lengths = {v.shape[0] for v in values}
+    if len(lengths) != 1:
+        raise ValueError(f"zipped fleet_axis values disagree on length: "
+                         f"{dict(zip(names, (v.shape for v in values)))}")
+    return Axis("fleet", names, values)
 
 
 def _normalize_reduce(reduce, ndim: int):
@@ -247,7 +294,7 @@ def _result_map(fn, *results: SimResult) -> SimResult:
 
 class ScenarioGrid:
     """A validated list of axes; `shape` is the result's leading
-    dimensions."""
+    dimensions (one a swept axis: a region axis is not swept)."""
 
     def __init__(self, axes: Sequence[Axis], base_dyn: dict | None = None):
         axes = list(axes)
@@ -255,9 +302,7 @@ class ScenarioGrid:
             raise ValueError("a ScenarioGrid needs at least one axis")
         seen: set[str] = set()
         for ax in axes:
-            if ax.kind in _REFUSED:
-                _refuse(*_REFUSED[ax.kind])
-            if ax.kind not in (*_TRACE_KINDS, *_VALUE_KINDS):
+            if ax.kind not in (*_TRACE_KINDS, *_VALUE_KINDS, *_FLEET_KINDS):
                 raise ValueError(f"unknown axis kind '{ax.kind}'")
             for name in ax.names:
                 if name in seen:
@@ -265,19 +310,60 @@ class ScenarioGrid:
                 seen.add(name)
         if base_dyn and (dup := seen & set(base_dyn)):
             raise ValueError(f"base dyn keys {sorted(dup)} shadow grid axes")
+        regions = [ax for ax in axes if ax.kind == "region"]
+        if len(regions) > 1:
+            raise ValueError("a grid can hold at most one region_axis")
+        self.fleet = regions[0].meta if regions else None
+        if self.fleet is not None:
+            if axes[0].kind == "region" and len(axes) > 1:
+                raise ValueError(
+                    "region_axis cannot be the grid's leading axis: declare "
+                    "it after the swept axes (chunking/sharding split the "
+                    "leading axis, and a fleet must never be split)")
+            if any(ax.kind in ("trace", "weather", "price", "renewable")
+                   for ax in axes):
+                raise ValueError(
+                    "region_axis already carries per-region carbon/weather/"
+                    "price/pv traces; drop the trace_axis/weather_axis/"
+                    "price_axis/renewable_axis")
+            if any(ax.kind == "tasktrace" for ax in axes):
+                raise ValueError(
+                    "tasktrace_axis re-times the task table, but a fleet "
+                    "grid splits tasks across regions host-side before the "
+                    "compiled program runs: re-timed arrivals could not "
+                    "re-place them — sweep arrival sets by building one "
+                    "fleet per set instead")
+            for ax in axes:
+                if ax.kind == "fleet":
+                    for n, v in zip(ax.names, ax.values):
+                        if v.shape[1] != self.fleet.n_regions:
+                            raise ValueError(
+                                f"fleet_axis '{n}' has {v.shape[1]} regions, "
+                                f"the fleet has {self.fleet.n_regions}")
+        elif any(ax.kind == "fleet" for ax in axes):
+            raise ValueError("fleet_axis sweeps per-region values: the grid "
+                             "also needs a region_axis(fleet)")
         self.axes = axes
         self.base_dyn = dict(base_dyn or {})
 
     @property
     def shape(self) -> tuple[int, ...]:
-        return tuple(ax.length for ax in self.axes)
+        """Leading result dimensions: one per swept axis (a fleet's R
+        shows up trailing on its `per_region` fields)."""
+        return tuple(ax.length for ax in self.axes if ax.kind != "region")
 
     @property
     def n_scenarios(self) -> int:
         return math.prod(self.shape)
 
+    @property
+    def _lead(self) -> int:
+        """The length of the leading (chunked) axis; 1 for a lone region
+        axis, which is not chunked."""
+        return self.shape[0] if self.shape else 1
+
     def has_trace_axis(self) -> bool:
-        return any(ax.kind == "trace" for ax in self.axes)
+        return any(ax.kind in ("trace", "region") for ax in self.axes)
 
     def _check_cfg(self, cfg: SimConfig):
         for kind, on, flag, what in (
@@ -291,6 +377,8 @@ class ScenarioGrid:
                 raise ValueError(f"grid has a {kind}_axis but cfg.{flag}."
                                  f"enabled is False: {what} would be "
                                  "ignored")
+        if self.fleet is not None:
+            check_fleet_cfg(self.fleet, cfg)
 
     def _check_tasks(self, tasks: TaskTable):
         for ax in self.axes:
@@ -309,13 +397,19 @@ class ScenarioGrid:
         elif ci_trace is None:
             raise ValueError("no trace_axis in the grid: pass ci_trace")
 
+    def _points(self, start: int, stop: int) -> np.ndarray:
+        """[n_swept, n] indices of the grid points whose leading index is
+        in [start, stop), in C order of the swept axes."""
+        sub = (stop - start, *self.shape[1:]) if self.shape else (1,)
+        idx = np.indices(sub).reshape(len(sub), -1)
+        idx[0] += start
+        return idx
+
     def cells(self, start: int, stop: int, ci_trace, device):
         """(ci_trace, dyn, B) of the scenario rows whose leading index is in
         [start, stop), in C order of the axes: each axis' values gathered
         to the rows (trace rows on `device`, dyn values on the host)."""
-        sub = (stop - start, *self.shape[1:])
-        idx = np.indices(sub).reshape(len(sub), -1)
-        idx[0] += start
+        idx = self._points(start, stop)
         ci, dyn = ci_trace, dict(self.base_dyn)
         for ax, ix in zip(self.axes, idx):
             if ax.kind in _VALUE_KINDS:
@@ -332,18 +426,65 @@ class ScenarioGrid:
                 dyn[ax.names[0]] = rows
         return ci, dyn, idx.shape[1]
 
+    def fleet_cells(self, start: int, stop: int, device):
+        """(ci_trace, dyn, B) of a fleet grid's scenario rows for the points
+        whose leading index is in [start, stop): R consecutive rows a
+        point (cell-major, region-minor).  A swept value holds for the
+        point's R rows, a per-region value (the spec's, a length-R base dyn
+        value, a `fleet_axis` point's [R]) is one a row and wins over a
+        swept one of the same key, as in `simulate_fleet`; the region
+        axis' traces are each point's [R, S] rows."""
+        r = self.fleet.n_regions
+        idx = self._points(start, stop)
+        n = idx.shape[1]
+        scalar, per_region = split_dyn(self.fleet, self.base_dyn)
+        swept = {}
+        for ax, ix in zip([a for a in self.axes if a.kind != "region"], idx):
+            for name, v in zip(ax.names, ax.values):
+                if ax.kind == "fleet":
+                    per_region[name] = v[ix]              # [n, R]
+                else:
+                    swept[name] = np.repeat(v[ix], r)     # [n * R]
+        dyn = {**scalar, **swept}
+        for key, v in per_region.items():
+            v = np.asarray(v)
+            dyn[key] = v.reshape(-1) if v.ndim == 2 else np.tile(v, n)
+        region = next(ax for ax in self.axes if ax.kind == "region")
+        named = dict(zip(region.names, region.values))
+        ci = named[FLEET_CI_KEY].to(device).repeat(n, 1)
+        for key, _, dyn_key in _FLEET_TRACES:
+            if key in named:
+                dyn[dyn_key] = named[key].to(device).repeat(n, 1)
+        return ci, dyn, n * r
+
+    def _fleet_chunk(self, stacked: TaskTable, hosts: HostTable,
+                     cfg: SimConfig, start: int, stop: int,
+                     device) -> FleetResult:
+        """One chunk of a fleet grid: its points' R rows each through one
+        step loop, the [R, W] placed tables repeated a point."""
+        r = self.fleet.n_regions
+        ci, dyn, b = self.fleet_cells(start, stop, device)
+        n = b // r
+        tasks = TaskTable(*(col.repeat(n, 1) for col in stacked))
+        final, _ = engine.run_cells(tasks, hosts, ci, cfg, b, dyn=dyn,
+                                    device=device)
+        per = _result_map(lambda x: x.reshape(n, r, *x.shape[1:]),
+                          summarize(final, cfg))
+        return FleetResult(total=fleet_totals(per, axis=1), per_region=per)
+
     def run(self, tasks: TaskTable, hosts: HostTable, cfg: SimConfig,
             ci_trace=None, *, chunk_size: int | None = None, mesh=None,
             jit: bool = True, reduce: tuple[str, int] | None = None,
-            memory_budget_bytes: float | None = None,
-            device="cuda") -> SimResult:
+            memory_budget_bytes: float | None = None, device="cuda"):
         """Evaluate the whole grid on `device`.  Returns a SimResult whose
         fields have leading dimensions `self.shape` (minus the reduced
-        axis, if any).
+        axis, if any); for a fleet grid a FleetResult, whose `total` fields
+        have those dimensions and whose `per_region` fields a trailing R.
 
         chunk_size: split the LEADING axis into chunks of at most this many
           points, one step loop a chunk (bounds device memory).  Omitted, it
           comes from `memory_budget_bytes`; grids that fit run unchunked.
+          A lone region axis runs unchunked.
         reduce: (op, axis) with op in {'min', 'max', 'argmin', 'argmax'}
           folds every field over that grid axis; it must not be the leading
           axis of a chunked run.
@@ -351,6 +492,9 @@ class ScenarioGrid:
         mesh: refused (ROADMAP Queue 1 item 6f).
         """
         if mesh is not None:
+            if self.axes[0].kind == "region":
+                raise ValueError("cannot shard a grid whose only axis is the "
+                                 "region_axis: add a swept leading axis")
             _refuse("a mesh-sharded grid (mesh=)", _ITEM_6F)
         if chunk_size is not None and chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
@@ -358,11 +502,20 @@ class ScenarioGrid:
         self._check_tasks(tasks)
         red = _normalize_reduce(reduce, len(self.shape))
         self._check_trace(ci_trace)
+        if self.fleet is not None:
+            # placement is exogenous and happens once, here, on the host:
+            # the grid sweeps what the placed fleet runs, not where tasks go
+            region = fleet_place(tasks, hosts, self.fleet, cfg.dt_h,
+                                 n_steps=cfg.n_steps)
+            tasks = split_by_region(tasks, region, self.fleet.n_regions,
+                                    device=device)
+        lead = self._lead
         auto_chunked = chunk_size is None
-        if auto_chunked:
+        if not self.shape:
+            chunk_size = 1
+        elif auto_chunked:
             chunk_size = self._auto_chunk_size(tasks, hosts, cfg,
                                                memory_budget_bytes)
-        lead = self.axes[0].length
         if red is not None and red[1] == 0 and lead > chunk_size:
             cause = ("chunk size auto-derived from the memory budget"
                      if auto_chunked else "explicit chunk_size")
@@ -374,17 +527,28 @@ class ScenarioGrid:
                 "the leading length")
         parts = []
         for start in range(0, lead, chunk_size):
-            ci, dyn, b = self.cells(start, min(lead, start + chunk_size),
-                                    ci_trace, device)
+            stop = min(lead, start + chunk_size)
+            if self.fleet is not None:
+                parts.append(self._fleet_chunk(tasks, hosts, cfg, start, stop,
+                                               device))
+                continue
+            ci, dyn, b = self.cells(start, stop, ci_trace, device)
             final, _ = engine.run_cells(tasks, hosts, ci, cfg, b, dyn=dyn,
                                         device=device)
             parts.append(summarize(final, cfg))
-        res = _result_map(lambda *xs: torch.cat(xs, 0).reshape(
-            *self.shape, *xs[0].shape[1:]), *parts)
-        if red is None:
-            return res
-        op, axis = red
-        return _result_map(lambda x: _REDUCERS[op](x, dim=axis), res)
+
+        def finish(results: list[SimResult]) -> SimResult:
+            res = _result_map(lambda *xs: torch.cat(xs, 0).reshape(
+                (*self.shape, *xs[0].shape[1:])), *results)
+            if red is None:
+                return res
+            op, axis = red
+            return _result_map(lambda x: _REDUCERS[op](x, dim=axis), res)
+
+        if self.fleet is None:
+            return finish(parts)
+        return FleetResult(total=finish([p.total for p in parts]),
+                           per_region=finish([p.per_region for p in parts]))
 
     def _per_lead_bytes(self, tasks: TaskTable, hosts: HostTable,
                         cfg: SimConfig) -> float:
@@ -399,12 +563,14 @@ class ScenarioGrid:
         the hosts' `up` and `repair_at` rows, a step's bool failure draws
         ([S, B, H]) and keys.  A swept `arrival_trace` makes `arrival` (and
         `status`) a row's own; a swept `interactive_frac`, or an
-        `arrival_trace` under priority levels, every task column."""
+        `arrival_trace` under priority levels, every task column.  A fleet
+        grid's point is R rows, and every task column is a row's own: pass
+        the placed [R, W] tables (`split_by_region`) as `tasks`."""
         t, h, s = (tasks.arrival.shape[-1], hosts.cores.shape[-1],
                    cfg.n_steps)
         swept = {n for ax in self.axes for n in ax.names}
         retimed = TASKTRACE_KEY in swept
-        if "interactive_frac" in swept or (
+        if self.fleet is not None or "interactive_frac" in swept or (
                 retimed and cfg.scheduler.priority_levels > 1):
             cols = TaskTable._fields
         else:
@@ -417,7 +583,9 @@ class ScenarioGrid:
                     + (2 * len(engine.SERIES) + 10) * 4 * s)
         if cfg.failures.enabled:
             per_cell += 2 * 5 * h + s * (h + 16)
-        return per_cell * (self.n_scenarios / max(self.axes[0].length, 1))
+        if self.fleet is not None:
+            per_cell *= self.fleet.n_regions
+        return per_cell * (self.n_scenarios / max(self._lead, 1))
 
     def _auto_chunk_size(self, tasks, hosts, cfg: SimConfig,
                          budget_bytes: float | None) -> int:
@@ -427,7 +595,7 @@ class ScenarioGrid:
         if budget_bytes is None:
             budget_bytes = float(os.environ.get(
                 "STEAM_SWEEP_MEMORY_BUDGET_MB", 4096)) * 2**20
-        lead = self.axes[0].length
+        lead = self._lead
         per_lead = self._per_lead_bytes(tasks, hosts, cfg)
         return max(1, min(lead, int(budget_bytes // max(per_lead, 1.0))))
 
@@ -462,12 +630,13 @@ def sweep_grid(tasks: TaskTable, hosts: HostTable, cfg: SimConfig,
                mesh=None, jit: bool = True,
                reduce: tuple[str, int] | None = None,
                memory_budget_bytes: float | None = None,
-               executor: str = "chunked", device="cuda") -> SimResult:
+               executor: str = "chunked", device="cuda"):
     """One-call entry point: `sweep_grid(tasks, hosts, cfg, [axis, ...])`.
 
     `dyn` holds fixed (non-swept) scenario values applied to every grid
     point, e.g. `dyn={"n_active_hosts": 12}`.  `reduce=(op, axis)` folds an
-    axis.  `executor="shard_map"` (the reference's weak-scaling executor) is
+    axis.  A grid with a `region_axis` returns a FleetResult.
+    `executor="shard_map"` (the reference's weak-scaling executor) is
     refused.  See the module docstring for the axis kinds."""
     grid = ScenarioGrid(axes, base_dyn=dyn)
     if executor == "shard_map":

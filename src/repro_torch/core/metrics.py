@@ -158,6 +158,48 @@ def result_to_numpy(res: SimResult) -> dict:
             if v is not None}
 
 
+def fleet_totals(per_region: SimResult, axis: int = 0) -> SimResult:
+    """Aggregate per-region SimResults into one fleet-level SimResult.
+
+    Additive fields (carbon, energy, water, counts, lost work) sum over the
+    region axis `axis`; ratio fields recombine exactly from the raw outcome
+    counts (`n_done` / `n_started` / `n_decided` / `n_tasks`) rather than
+    averaging the per-region ratios, so an empty region counts 0, not 1.
+    PUE and WUE come from the summed energies.  `peak_power_kw` and the
+    costs sum: each region is a facility with its own grid feed and meter.
+    Class fields [.., R, C] reduce over R and keep the class axis.
+    """
+    def s(x):
+        return x.sum(axis)
+
+    def wmean(value, weight):
+        return (value * weight).sum(axis) / torch.clamp(s(weight), min=1.0)
+
+    p = per_region
+    it_safe = torch.clamp(s(p.it_energy_kwh), min=1e-9)
+    additive = ("total_carbon_kg", "op_carbon_kg", "emb_carbon_kg",
+                "grid_energy_kwh", "dc_energy_kwh", "it_energy_kwh",
+                "cooling_energy_kwh", "water_l", "energy_cost", "demand_cost",
+                "export_revenue", "total_cost", "pv_energy_kwh",
+                "grid_export_kwh", "curtailed_kwh", "heat_reuse_kwh",
+                "peak_power_kw", "n_tasks", "n_interrupts", "n_stops",
+                "batt_discharged_kwh", "lost_work_h", "throttled_h",
+                "derate_h", "n_spills", "n_done", "n_started", "n_decided",
+                "class_n_violations", "class_n_decided", "class_n_started")
+    return SimResult(
+        **{f: s(getattr(p, f)) for f in additive},
+        pue=s(p.dc_energy_kwh) / it_safe,
+        wue_l_per_kwh=s(p.water_l) / it_safe,
+        sla_violation_frac=wmean(p.sla_violation_frac, p.n_decided),
+        mean_delay_h=wmean(p.mean_delay_h, p.n_done),
+        mean_start_delay_h=wmean(p.mean_start_delay_h, p.n_started),
+        done_frac=wmean(p.done_frac, p.n_tasks),
+        class_sla_violation_frac=(s(p.class_n_violations) / torch.clamp(
+            s(p.class_n_decided), min=1.0)),
+        class_mean_start_delay_h=wmean(p.class_mean_start_delay_h,
+                                       p.class_n_started))
+
+
 def carbon_reduction_pct(baseline: SimResult, treated: SimResult):
     """Positive = treated emits less total carbon than baseline."""
     return 100.0 * (1.0 - treated.total_carbon_kg

@@ -28,6 +28,7 @@ import torch
 from . import threefry
 from .config import ResilienceConfig
 from .failures import failure_probability
+from .scheduler import _first_k_indices
 from .state import INVALID, PENDING, HostTable, MetricsAcc, TaskTable
 
 F32 = torch.float32
@@ -135,34 +136,43 @@ def cross_region_spill(tasks: TaskTable, hosts: HostTable,
     """Move up to `max_spills` interrupted tasks to the healthiest region.
 
     Every column carries a leading region axis ([R, W] tasks, [R, H]
-    hosts, [R] metrics).  A candidate is a PENDING task that has started
-    once (finite `first_start`) in a region less healthy than the
+    hosts, [R] or [R, 1] metrics).  A candidate is a PENDING task that has
+    started once (finite `first_start`) in a region less healthy than the
     healthiest (health: the share of provisioned hosts up).  Each move
     copies the row into the target region's first INVALID slot and
     invalidates the source; `metrics.n_spills` counts moves per source
-    region.  With every region healthy nothing moves."""
+    region.  With every region healthy nothing moves.
+
+    The reference moves one task at a time, each the first candidate (in
+    row-major order) into the first free slot.  A move takes a candidate
+    out and fills a slot of the target region, which holds no candidate,
+    so the k-th move is the k-th candidate into the k-th free slot: all
+    moves at once here, as gathers and index writes on the device (a move
+    that does not happen writes into K spare slots past the table's end,
+    which are then dropped), reading nothing back."""
     act = hosts.active.to(F32)
     up = (hosts.active & hosts.up).to(F32)
     health = up.sum(1) / torch.clamp(act.sum(1), min=1.0)
-    target = torch.argmax(health)
-    w = tasks.arrival.shape[1]
-    cols = {f: c.clone() for f, c in tasks._asdict().items()}
-    n_spills = metrics.n_spills.clone()
+    target = torch.argmax(health, 0, keepdim=True)                # [1]
+    r, w = tasks.status.shape
     behind = (health < health[target])[:, None]
-    for _ in range(max_spills):
-        cand = ((cols["status"] == PENDING)
-                & torch.isfinite(cols["first_start"]) & behind)
-        flat = cand.reshape(-1)
-        src = torch.argmax(flat.to(torch.uint8))
-        r, c = src // w, src % w
-        free = cols["status"][target] == INVALID
-        slot = torch.argmax(free.to(torch.uint8))
-        do = flat[src] & free[slot]
-        for f, col in cols.items():
-            v = col[r, c]
-            col[target, slot] = torch.where(do, v, col[target, slot])
-            col[r, c] = torch.where(
-                do, torch.as_tensor(_SPILL_FILL[f], dtype=col.dtype,
-                                    device=col.device), v)
-        n_spills[r] = n_spills[r] + do.to(n_spills.dtype)
-    return TaskTable(**cols), metrics._replace(n_spills=n_spills)
+    cand = ((tasks.status == PENDING) & torch.isfinite(tasks.first_start)
+            & behind)
+    src = _first_k_indices(cand.reshape(-1), max_spills)          # [K]
+    slot = _first_k_indices(tasks.status[target][0] == INVALID, max_spills)
+    do = (src >= 0) & (slot >= 0)
+    spare = r * w + torch.arange(max_spills, device=src.device)
+    src = torch.where(do, src, spare)
+    dst = torch.where(do, target * w + slot, spare)
+    cols = {}
+    for f, col in tasks._asdict().items():
+        flat = torch.cat([col.reshape(-1), col.new_empty(max_spills)])
+        v = flat[src]
+        flat[dst] = v
+        flat[src] = torch.where(do, _SPILL_FILL[f], v)
+        cols[f] = flat[:r * w].view(r, w)
+    moved = torch.zeros(r, dtype=metrics.n_spills.dtype,
+                        device=src.device).index_add_(
+        0, torch.where(do, src // w, 0), do.to(metrics.n_spills.dtype))
+    return TaskTable(**cols), metrics._replace(
+        n_spills=metrics.n_spills + moved.reshape(metrics.n_spills.shape))

@@ -75,9 +75,12 @@ def host_utilization(tasks: TaskTable, hosts: HostTable):
 
 
 def take(col, idx):
-    """col[..., idx] row by row: a shared [1, N] (or [N]) column read at the
-    [B, M] (or [M]) indices of each row, as one gather."""
-    return torch.gather(col.expand(*idx.shape[:-1], col.shape[-1]), -1, idx)
+    """col[..., idx] row by row, as one gather: a [B, N] column (or a shared
+    [1, N] / [N] one) read at [B, M] indices (or shared [1, M] / [M] ones,
+    such as a host order common to the rows)."""
+    lead = torch.broadcast_shapes(col.shape[:-1], idx.shape[:-1])
+    return torch.gather(col.expand(*lead, col.shape[-1]), -1,
+                        idx.expand(*lead, idx.shape[-1]))
 
 
 def _eligible(tasks: TaskTable, now, shift_ok):

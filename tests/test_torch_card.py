@@ -20,6 +20,8 @@ exactly its SSD and flash kernels, and serving never waits for the card.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -429,6 +431,113 @@ def test_step_loop_never_waits_for_the_card(cuda_device, backend):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert float(P.summarize(final, cfg).n_done) > 0
+
+
+def _fleet(n_regions: int = 3):
+    """A fleet of `n_regions` synthetic carbon regions over the card tests'
+    horizon, greedy placement under a core-hour cap."""
+    from repro_torch.carbontraces import make_region_traces
+    return P.FleetSpec(ci_traces=make_region_traces(S, DT, n_regions,
+                                                    seed=3),
+                       capacity_frac=1.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", P.BACKENDS)
+def test_fleet_on_card_matches_cpu(cuda_device, backend):
+    """A 3-region fleet and a fleet grid (2 host plans x 3 regions) through
+    the kernels == the same on the CPU (counts exact, the rest rtol 1e-4);
+    each launches every kernel as often as one run does."""
+    from repro_torch.workloads import make_workload
+    _, dyn = _traces(11)
+    cfg = _cfg(backend=backend)
+    fleet = _fleet()
+    want = {"first_fit_place": S}
+    if backend == "megakernel":
+        want.update(fused_power_carbon=S, fused_facility_totals=1)
+    else:
+        want["fused_facility_power"] = S
+    results = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tasks, hosts, _, _ = make_workload("marconi", scale=0.03, seed=1,
+                                           horizon_days=S * DT / 24,
+                                           device=dev)
+        for name, run in (
+                ("fleet", lambda: P.simulate_fleet(
+                    tasks, hosts, cfg, fleet,
+                    dyn={**dyn, "n_active_hosts": 20}, device=dev)),
+                ("grid", lambda: P.sweep_grid(
+                    tasks, hosts, cfg,
+                    [P.fleet_axis(n_active_hosts=np.int32([[20, 10, 15],
+                                                           [29, 29, 29]])),
+                     P.region_axis(fleet)], dyn=dyn, device=dev))):
+            ops.reset_launch_counts()
+            res = run()
+            counts = ops.launch_counts()
+            if dev.type == "cuda":
+                assert {k: v for k, v in counts.items() if v} == want, name
+            for part in ("total", "per_region"):
+                results[(dev.type, name, part)] = P.result_to_numpy(
+                    getattr(res, part))
+    for name in ("fleet", "grid"):
+        for part in ("total", "per_region"):
+            got, ref_res = (results[(d, name, part)] for d in ("cuda", "cpu"))
+            assert (ref_res["n_done"] > 0).any()
+            for k, v in ref_res.items():
+                if k.startswith("n_") or k.startswith("class_n_"):
+                    np.testing.assert_array_equal(got[k], v, err_msg=k)
+                else:
+                    np.testing.assert_allclose(got[k], v, rtol=1e-4,
+                                               atol=1e-4, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_spill_fleet_step_loop_never_waits_for_the_card(cuda_device):
+    """The coupled fleet's step loop (the stage pipeline's step for every
+    region, then the cross-region spill) enqueues work and never reads a
+    value back: PyTorch's sync debug mode raises on any operation that
+    would make the host wait for the device.  Tasks spill, and the loop
+    gives the CPU's spills and counts."""
+    from repro_torch.core import fleet as fleet_mod
+    from repro_torch.workloads import make_workload
+    from repro_torch.kernels import build
+    _, dyn = _traces(5)
+    cfg = _res_cfg()
+    cfg = cfg.replace(
+        failures=C.FailureConfig(enabled=True, mtbf_h=6.0, repair_h=1e6),
+        resilience=dataclasses.replace(cfg.resilience,
+                                       spill_interrupted=True))
+    fleet = _fleet()
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tasks, hosts, _, _ = make_workload("marconi", scale=0.03, seed=2,
+                                           horizon_days=S * DT / 24,
+                                           device=dev)
+        region = fleet_mod.fleet_place(tasks, hosts, fleet, DT, n_steps=S)
+        stacked = P.split_by_region(tasks, region, 3, width=tasks.n,
+                                    device=dev)
+        state0, inputs, ctx = fleet_mod.prepare_spill(
+            stacked, hosts, cfg, torch.from_numpy(fleet.ci_traces),
+            scalar_dyn={k: torch.tensor(v, device=dev)
+                        for k, v in dyn.items()},
+            per_region_dyn={"seed": np.int32([1, 2, 3]),
+                            "n_active_hosts": np.int32([20, 15, 25])},
+            device=dev)
+        if dev.type == "cuda":
+            build.build_all()  # the first use builds and loads
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            final = fleet_mod.spill_loop(state0, inputs, cfg, ctx)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        out[dev.type] = P.result_to_numpy(P.summarize(final, cfg))
+    assert out["cpu"]["n_spills"].sum() > 0
+    for k in ("n_spills", "n_interrupts", "n_done", "n_started",
+              "n_decided", "n_tasks"):
+        np.testing.assert_array_equal(out["cuda"][k], out["cpu"][k],
+                                      err_msg=k)
 
 
 # ---------------------------------------------------------------------------

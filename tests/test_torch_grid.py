@@ -274,8 +274,8 @@ def test_tasktrace_grids_chunked_match_reference(workload, traces, name,
 
 def test_tasktrace_rows_differ_and_validate(workload, traces):
     """Each arrival set is its own outcome; the axis sorts its rows; a
-    width other than the table's is the reference's ValueError; a fleet
-    grid stays refused."""
+    width other than the table's is the reference's ValueError; so is a
+    fleet grid crossed with a task-trace axis."""
     res = reference("tasktrace")
     assert len({float(x) for x in res["mean_start_delay_h"]}) == 3
     shuffled = ARRIVALS[:, ::-1]
@@ -296,9 +296,9 @@ def test_tasktrace_rows_differ_and_validate(workload, traces):
     with pytest.raises(ValueError, match="arrivals per point"):
         P.sweep_grid(tasks, hosts, cfg, [P.tasktrace_axis(wide)],
                      ci_trace=traces[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="tasktrace_axis re-times"):
         P.ScenarioGrid([P.tasktrace_axis(ARRIVALS),
-                        P.Axis("region", ("fleet",), (np.ones((2, 2)),))])
+                        P.region_axis(P.FleetSpec(ci_traces=traces))])
 
 
 def test_tasktrace_rows_count_in_the_memory_estimate(workload, traces):
@@ -484,11 +484,19 @@ def test_trace_axes_want_rows_of_series(traces):
 # what the port refuses, naming the ROADMAP item that brings it
 # ---------------------------------------------------------------------------
 
+def _fleet_grid(a):
+    """A fleet grid (a swept axis and a region axis) of the workload."""
+    return P.ScenarioGrid([P.dyn_axis(batt_capacity_kwh=np.ones(2)),
+                           P.region_axis(P.FleetSpec(ci_traces=a[3]))])
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda g, a: P.ScenarioGrid([P.Axis("fleet", ("n_active_hosts",),
-                                         (np.ones((2, 2)),))]), "item 4"),
-    (lambda g, a: P.region_axis(None), "item 4"),
-    (lambda g, a: P.fleet_axis(n_active_hosts=np.ones((2, 2))), "item 4"),
+    (lambda g, a: _fleet_grid(a).run(*a[:3], mesh=object(), device="cpu"),
+     "item 6f"),
+    (lambda g, a: _fleet_grid(a).run_shard_map(*a[:3]), "item 6f"),
+    (lambda g, a: P.simulate_fleet(*a[:2], a[2].replace(
+        probes=pconfig.ProbeConfig(enabled=True)),
+        P.FleetSpec(ci_traces=a[3]), device="cpu"), "item 5"),
     (lambda g, a: g.run(*a, mesh=object(), device="cpu"), "item 6f"),
     (lambda g, a: P.sweep_grid(*a[:3], g.axes, executor="shard_map",
                                device="cpu"), "item 6f"),
