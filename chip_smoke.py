@@ -19,13 +19,32 @@ Phases, each printing one JSON line:
                  (kernels/ref.py) on the card, at the main paths' shapes and
                  around them, at the tolerances of the CPU tests; kernel 3's
                  chiller-derate route against its plain chain in each trace
-                 store; threefry's known answers, and its uniforms, the
+                 store; kernel 3's series route (B = 1 and 64, each store,
+                 healthy and derated) against the plain chain on the CPU:
+                 SoC and decisions bit-equal, flows within rtol 1e-4 / atol
+                 1e-3, totals bit-equal to the totals route's; threefry's
+                 known answers, and its uniforms, the
                  failure probabilities and a full-scale run's [2880, 1, 972]
                  failure draws bit for bit against the CPU's.
   4. main     -- a full-scale Marconi run (192,817 tasks, 972 hosts, 30 days
                  at 15 minutes = 2880 steps) with every technique on, through
                  both step executors; launch counts are reset just before
                  and read just after each run and must be exact.
+  4e. telemetry -- the main run with the probe bus (stride 4, K = 720)
+                 through both executors in a session:
+                 launch counts the main run's (the megakernel's kernel 3 on
+                 its series route, `fused_facility_series`), every
+                 SimResult field bit-equal to the main run's, the
+                 executors' probes within rtol 1e-5 / atol 1e-4, one
+                 "simulate" run record a run (platform, peak memory, the
+                 compile / execute split) and its Chrome trace parsed back;
+                 the session's host cost a step (192-step probed runs with
+                 the session off and on, in turns);
+                 stride-1 probes over 192 steps equal to the stage
+                 pipeline's collect_series; a 16-cell Fig 12 grid with
+                 probes in two chunks (its record's chunk plan; cells (0, 0)
+                 and (5, 1) against their own runs); after the grid phase,
+                 `telemetry.profile` of 192 probed megakernel steps.
   4a. resilience -- the main run with host failures, checkpointing and
                  the closed resilience loop (reactive placement, heat-
                  correlated failures, a PDU clamp at 0.8 of the open-loop
@@ -36,7 +55,7 @@ Phases, each printing one JSON line:
                  acted (interrupts, lost work, derated and throttled hours),
                  the executors equal (`compare_resilience`), the grid's cell
                  the single run, its healthy cells free of failures; after
-                 the grid phase, a 192-step profile of each executor; after
+                 the grid phase, a 32-step profile of each executor; after
                  the small phase, the same at a small scale on the card and
                  on the CPU.
   4b. experiments -- the experiment tooling at full scale, each part a
@@ -69,17 +88,18 @@ Phases, each printing one JSON line:
                  full width under phase 4a's failures and loop with the
                  cross-region spill (seeds 1-8, stage pipeline) and without
                  it (counts, interrupts and spills the reference's).  After
-                 the grid phase, 192-step profiles of (c) (megakernel) and
+                 the grid phase, 32-step profiles of (c) (megakernel) and
                  (d); after the small phase, a small greedy fleet, spill
                  fleet and fleet grid on the card and on the CPU.
   4c. grid   -- the scenario grid of paper Fig 12 at the main phase's
                  configuration: 8 carbon regions x battery capacities, as
                  B = 1, 16 and 64 cells in one step loop, through both
                  executors: wall time, aggregate simulated years a second,
-                 peak memory, a 192-step profile (host ms a step, device
+                 peak memory, a 32-step profile (host ms a step, device
                  idle share), launch counts equal to one run's; cell 0
-                 equal to the main run, every cell of the B = 16
-                 megakernel grid equal to its own run, B = 64's repeated
+                 equal to the main run, every cell of an 8 x 2
+                 megakernel grid over the first 720 steps equal to its own
+                 run, B = 64's repeated
                  cells equal to B = 16's, the backends equal cell by cell;
                  then a small 16-cell grid on the card and on the CPU.
   5. small    -- the same configuration at a small scale on the card and on
@@ -108,7 +128,8 @@ Phases, each printing one JSON line:
                  grids, launched through the same ctypes path.
 
 Then the `kernels` summary line (kernel 3's derate route as its own row,
-`fused_facility_totals_derate`), the nvidia-smi line, and as the last line
+`fused_facility_totals_derate`, and its series route,
+`fused_facility_series`), the nvidia-smi line, and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises: no phase is caught,
 and the script exits non-zero without the last line.  Without `--device
 cpu` it needs a card and fails without one.
@@ -136,14 +157,16 @@ from repro_torch.carbontraces import (make_region_traces,  # noqa: E402
                                       trace_stats)
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import config as C  # noqa: E402
-from repro_torch.core import (STORES, FleetSpec, ScenarioGrid,  # noqa: E402
-                              battery, dyn_axis, facility_failure_series,
+from repro_torch.core import (STORES, EnergyFlow, FleetSpec,  # noqa: E402
+                              ScenarioGrid, battery, dyn_axis,
+                              facility_failure_series,
                               failures, find_min_scale, fleet_axis, pricing,
                               region_axis, result_to_numpy, seed_axis,
                               simulate, simulate_fleet, split_by_region,
                               summarize, sweep_grid, tasktrace_axis,
                               threefry, trace_axis, with_scale)
 from repro_torch.core import analytical  # noqa: E402
+from repro_torch.core import telemetry  # noqa: E402
 from repro_torch.core.fleet import fleet_place  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import first_fit as ff_k  # noqa: E402
@@ -184,6 +207,14 @@ MAX_SM_HZ = 1.98e9
 SOC_CHAIN_LEVELS = 11
 DT_H = 0.25
 MAIN_STEPS = 2880            # 30 days at 15 minutes
+# the window of the phases' profiles (the first steps of the full-scale
+# run); the profiler's own host time grows with it, and the smoke runs
+# within its time limit
+PROFILE_STEPS = 32
+# the horizon of the grid phase's check of each cell against its own run
+# (the full-scale workload): sixteen single runs of the whole 2880 steps
+# took two of the smoke's twenty minutes
+SINGLES_STEPS = 720
 MARCONI_ACTIVE = 750         # the published Marconi optimum (of 972 hosts)
 KWH_PER_HOST = 9.0           # Marconi battery sizing (benchmarks/common.py)
 CURVES = ("linear", "sqrt", "square", "cubic")
@@ -477,14 +508,19 @@ def facility_rows_case(dev, gen, s: int, errs: list) -> dict:
     args = facility_args(cfg, it_kw, traces)
     per_row = {k: torch.tensor(v, device=dev) for k, v in ROW_PARAMS.items()}
     got = fs_k.fused_facility_totals(*args, cfg, **per_row)
+    # past the main path's horizon the plain chain runs on the CPU, where
+    # its eager loop over a year's steps (an op a launch on the card) takes
+    # a fraction of the card's time
+    pdev = torch.device("cpu") if s > MAIN_STEPS else dev
+    args = [a.to(pdev) for a in args]
     full = empty = False
     for r in range(b):
         kw = {k: v[r] for k, v in ROW_PARAMS.items()}
-        flows = ref.fused_facility_chain(it_kw[r], *args[1:], cfg.dt_h, cfg,
+        flows = ref.fused_facility_chain(args[0][r], *args[1:], cfg.dt_h, cfg,
                                          **kw)
         want = facility_totals_from_flows(flows, args[1], args[3], cfg)
-        errs.append(_totals_close({k: v[r] for k, v in got.items()}, want,
-                                  1e-4, 1e-3,
+        errs.append(_totals_close({k: v[r].to(pdev) for k, v in got.items()},
+                                  want, 1e-4, 1e-3,
                                   f"fused_facility_totals [{b}, {s}] row {r}"))
         soc = flows["soc"]
         full |= bool((soc == kw["batt_capacity_kwh"]).any())
@@ -853,6 +889,19 @@ def time_kernels(dev, results: dict, main_cfg) -> None:
     results["fused_facility_totals_derate"].update(
         slow_tiles=int(fs_k.launch(*prep_d)[0, fs_k.A_SLOW]),
         latency_bound_ms=s * SOC_CHAIN_LEVELS * DEP_CYCLES / MAX_SM_HZ * 1e3)
+    # kernel 3's series route on the same inputs, beside the totals route
+    # and the plain chain it replaces on the collect_series / probe path:
+    # the same reads, and 45 bytes a step written (11 f32 series and the
+    # decision byte)
+    row("fused_facility_series", lambda: fs_k.launch_series(*prepared),
+        lambda: ref.fused_facility_series(*args, main_cfg),
+        33 * s + 8 * 8 + 45 * s + 19 * 4, 100 * s,
+        "facility_totals_kernel<float, true>")
+    results["fused_facility_series"].update(
+        totals_route_device_ms=results["fused_facility_totals"]["device_ms"],
+        slow_tiles=int(fs_k.launch_series(*prepared)[0][0, fs_k.A_SLOW]),
+        latency_bound_ms=s * SOC_CHAIN_LEVELS * DEP_CYCLES / MAX_SM_HZ * 1e3,
+        smem_bytes=fs_k.launch_plan(s, series=True)[2])
     torch.cuda.synchronize()
 
 
@@ -894,15 +943,18 @@ def measured(fn, dev) -> tuple:
 
 
 def run_launches(backend: str, n_steps: int, cooling: bool = False,
-                 runs: int = 1, n_chunks: int = 1) -> dict:
+                 runs: int = 1, n_chunks: int = 1,
+                 series: bool = False) -> dict:
     """The launches of `runs` first-fit runs (or grid runs of `n_chunks`
     chunks): first-fit every step; the stage pipeline's power kernel
     every step (kernel 2 with the cooling tail, else kernel 1); the
-    megakernel's kernel 1 every step and kernel 3 once a chunk."""
+    megakernel's kernel 1 every step and kernel 3 once a chunk (its series
+    route where the run keeps series or probes)."""
     want = {"first_fit_place": n_steps}
     if backend == "megakernel":
-        want.update(fused_power_carbon=n_steps,
-                    fused_facility_totals=n_chunks)
+        want["fused_power_carbon"] = n_steps
+        want["fused_facility_series" if series
+             else "fused_facility_totals"] = n_chunks
     else:
         want["fused_facility_power" if cooling
              else "fused_power_carbon"] = n_steps
@@ -1014,6 +1066,275 @@ def main_path(dev, scale: float, n_steps: int, n_active: int,
 
 
 # --------------------------------------------------------------------------
+# phase 4e: telemetry and the probe bus
+# --------------------------------------------------------------------------
+
+# the probe bus of phase 4e: every 4th step (K = 720 samples at 2880 steps)
+TEL_STRIDE = 4
+# where phase 4e writes its run records, Chrome traces and profile (a
+# git-ignored directory of the checkout)
+TEL_DIR = os.path.join(ROOT, "results", "telemetry_smoke")
+
+
+def _probe_close(a: dict, b: dict, what: str) -> float:
+    """Probes (result_to_numpy's nested dicts) of two runs: steps equal,
+    the values within rtol 1e-5 / atol 1e-4 (the reference's bound between
+    its executors); returns the largest abs error."""
+    check(np.array_equal(a["step"], b["step"]), f"{what}: probe steps")
+    err = 0.0
+    for f in telemetry.PROBE_VALUE_FIELDS:
+        x, y = a[f], b[f]
+        fin = np.isfinite(y)
+        check(np.array_equal(np.isfinite(x), fin)
+              and np.allclose(x[fin], y[fin], rtol=1e-5, atol=1e-4),
+              f"{what}: probe {f}")
+        if fin.any():
+            err = max(err, float(np.abs(x[fin].astype(np.float64)
+                                        - y[fin]).max()))
+    return err
+
+
+def _same_as_main(out: dict, main: dict, what: str) -> dict:
+    """Every SimResult field of `out` against the main run's: outcome
+    counts bit-equal; every other field bit-equal or, where the card's
+    run-to-run spread reaches it (the per-host sums' atomic adds move
+    per-step IT by an ulp at a few steps a run), within rtol 1e-6.
+    Returns {field: max relative difference} of the fields not
+    bit-equal."""
+    moved = {}
+    for key, v in main.items():
+        if np.array_equal(out[key], v):
+            continue
+        check(key not in COUNTS and np.allclose(out[key], v, rtol=1e-6,
+                                                atol=0.0),
+              f"{what}: {key} differs from the main run: {out[key]} vs {v}")
+        moved[key] = float(np.max(np.abs(out[key].astype(np.float64) - v)
+                                  / np.maximum(np.abs(v), 1e-30)))
+    return moved
+
+
+def _record_checks(rec, kind: str, dev, what: str) -> dict:
+    """A run record of `kind` on `dev`: platform, peak memory (on a card),
+    the compile / execute split; returns its summary."""
+    card = dev.type == "cuda"
+    check(rec.kind == kind and rec.platform == dev.type,
+          f"{what}: record {rec.kind} on {rec.platform}")
+    peak = rec.memory[0]["peak_bytes_in_use"]
+    check((peak is not None and peak > 0) if card else peak is None,
+          f"{what}: peak memory {peak}")
+    check(rec.compile_time_s >= 0.0 and rec.execute_time_s > 0.0,
+          f"{what}: compile {rec.compile_time_s} execute "
+          f"{rec.execute_time_s}")
+    check(rec.plain_kernels is (not card), f"{what}: plain_kernels "
+          f"{rec.plain_kernels}")
+    return {"kind": rec.kind, "platform": rec.platform,
+            "compile_time_s": rec.compile_time_s,
+            "execute_time_s": rec.execute_time_s, "compiles": rec.compiles,
+            "peak_bytes": peak, "probes": rec.probes,
+            "config_hash": rec.config_hash}
+
+
+def telemetry_phase(dev, main: dict, scale: float, n_steps: int,
+                    n_active: int, check_counts: bool) -> tuple:
+    """Phase 4e: the main configuration with the probe bus on (stride
+    TEL_STRIDE), through both executors in a session: launch counts the
+    main run's (the megakernel's kernel 3 on its series route), every
+    SimResult field the main run's `main` ({backend: fields};
+    `_same_as_main`), the two executors' probes within rtol 1e-5 / atol
+    1e-4, one "simulate" record a run and its Chrome trace parsed back;
+    the session's host cost a step (192-step probed runs, off and on in
+    turns, their probes within the same bound);
+    the stage pipeline's stride-1 probes over 192 steps equal to its
+    collect_series slices; a 16-cell Fig 12 grid with probes in two chunks
+    (its record's chunk plan; cells (0, 0) and (5, 1) against their own
+    runs).  Returns (lines, launch counts summed over the timed runs, the
+    inputs of `telemetry_profile`)."""
+    tasks, hosts, _, meta = make_workload("marconi", scale=scale, seed=0,
+                                          dt_h=DT_H,
+                                          horizon_days=n_steps * DT_H / 24,
+                                          device=dev)
+    probes_cfg = C.ProbeConfig(enabled=True, stride=TEL_STRIDE)
+    cfg = main_config(n_steps, meta["embodied"], meta["n_hosts"]).replace(
+        probes=probes_cfg)
+    ci, wb, price, cf = facility_traces(n_steps, dev)
+    dyn = {"n_active_hosts": n_active, "price_trace": price,
+           "wet_bulb_trace": wb, "pv_cf_trace": cf}
+    lines, launches = [], dict.fromkeys(build.KERNELS, 0)
+    k = telemetry.probe_capacity(n_steps, probes_cfg)
+    probes = {}
+    os.makedirs(TEL_DIR, exist_ok=True)
+    for backend in ("stage-pipeline", "megakernel"):
+        c = cfg.replace(backend=backend)
+        run = lambda: summarize(simulate(  # noqa: E731
+            tasks, hosts, ci, c, dyn=dyn, device=dev)[0], c)
+        want = run_launches(backend, n_steps, True,
+                            series=backend == "megakernel")
+        with telemetry.session(out_dir=TEL_DIR, export=False) as tel:
+            res_on, on = measured(run, dev)
+            recs = list(tel.records)
+            path = tel.export_chrome_trace(
+                os.path.join(TEL_DIR, f"trace_{backend}.json"))
+        with open(path) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]}
+        check("simulate" in names, f"{backend}: trace spans {names}")
+        out_on = result_to_numpy(res_on)
+        if check_counts:
+            expect_launches(on, want, f"telemetry {backend}")
+        for name, n in on["launches"].items():
+            launches[name] += n
+        moved = _same_as_main(out_on, main[backend], f"telemetry {backend}")
+        check(out_on["probes"]["step"].shape == (k,)
+              and np.array_equal(out_on["probes"]["step"],
+                                 np.arange(k) * TEL_STRIDE),
+              f"{backend}: probe steps")
+        check(len(recs) == 1, f"{backend}: {len(recs)} records")
+        probes[backend] = out_on["probes"]
+        lines.append({"phase": "telemetry", "part": "run",
+                      "backend": backend, "probe_stride": TEL_STRIDE,
+                      "probe_capacity": k,
+                      "wall_s_session_on": on["wall_s"],
+                      "launches": on["launches"],
+                      "fields_not_bit_equal_to_main": moved,
+                      "max_memory_allocated": on["max_memory_allocated"],
+                      "record": _record_checks(recs[0], "simulate", dev,
+                                               backend),
+                      "trace_events": len(names)})
+    err = _probe_close(probes["stage-pipeline"], probes["megakernel"],
+                       "executors' probes")
+    mq = probes["megakernel"]["queue_depth"]
+    lines.append({"phase": "telemetry", "part": "executors",
+                  "probe_max_abs_err": err,
+                  "queue_depth_max": float(mq.max()),
+                  "soc_kwh_range": [float(probes["megakernel"]["soc_kwh"]
+                                          .min()),
+                                    float(probes["megakernel"]["soc_kwh"]
+                                          .max())]})
+    win = 192
+    wdyn = {k2: (v[:win] if isinstance(v, torch.Tensor) else v)
+            for k2, v in dyn.items()}
+    # the session's host cost a step: 192-step probed runs with the session
+    # off and on, in turns (off, on, on, off, off, on, on, off)
+    probed = {}
+    for backend in ("stage-pipeline", "megakernel"):
+        c = cfg.replace(n_steps=win, backend=backend)
+        run = lambda: summarize(simulate(  # noqa: E731
+            tasks, hosts, ci[:win], c, dyn=wdyn, device=dev)[0], c)
+        run()
+        walls = {False: [], True: []}
+        for on in (False, True, True, False) * 2:
+            with (telemetry.session(out_dir=TEL_DIR, export=False) if on
+                  else contextlib.nullcontext()):
+                res, info = measured(run, dev)
+            walls[on].append(info["wall_s"])
+            probed[on] = result_to_numpy(res)["probes"]
+        # per-step IT moves by an ulp at a few steps from run to run (the
+        # per-host sums' atomic adds), the session or not: the probes of
+        # runs with and without it within the executors' bound
+        _probe_close(probed[True], probed[False],
+                     f"{backend}: session on vs off")
+        differ = {f: int(np.sum(probed[True][f] != probed[False][f]))
+                  for f in telemetry.PROBE_VALUE_FIELDS
+                  if not np.array_equal(probed[True][f], probed[False][f],
+                                        equal_nan=True)}
+        lines.append({"phase": "telemetry", "part": "session_cost",
+                      "backend": backend, "n_steps": win,
+                      "probe_samples_moved_on_vs_off": differ,
+                      "wall_s_session_off": walls[False],
+                      "wall_s_session_on": walls[True],
+                      "host_ms_per_step": (float(np.median(walls[True]))
+                                           - float(np.median(walls[False])))
+                      / win * 1e3})
+    # the stage pipeline's stride-1 probes against its collect_series
+    c = cfg.replace(n_steps=win, collect_series=True,
+                    probes=C.ProbeConfig(enabled=True, stride=1))
+    final, ys = simulate(tasks, hosts, ci[:win], c, dyn=wdyn, device=dev)
+    p = summarize(final, c).probes
+    check(torch.equal(p.step.cpu(), torch.arange(win, dtype=torch.int32)),
+          "window: probe steps")
+    for f in EnergyFlow._fields:
+        check(torch.equal(getattr(p, f), getattr(ys["flow"], f)),
+              f"window: probe {f} != its series")
+    check(torch.equal(p.soc_kwh, ys["battery_charge"]), "window: soc")
+    lines.append({"phase": "telemetry", "part": "window", "n_steps": win,
+                  "probes_equal_series": True})
+    # a 16-cell Fig 12 grid with probes in two chunks, in a session
+    axes = grid_axes(8, 2, n_steps, cfg.battery.capacity_kwh)
+    mega = cfg.replace(backend="megakernel")
+    with telemetry.session(out_dir=TEL_DIR, export=False) as tel:
+        res, info = measured(lambda: sweep_grid(
+            tasks, hosts, mega, axes, dyn=dyn, chunk_size=4, device=dev),
+            dev)
+        recs = [r for r in tel.records if r.kind == "grid"]
+        chunks = len(tel.span_durations("grid.chunk"))
+    if check_counts:
+        # a step loop a chunk
+        expect_launches(info, run_launches("megakernel", n_steps, True,
+                                           runs=2, series=True),
+                        "telemetry grid")
+    for name, n in info["launches"].items():
+        launches[name] += n
+    check(len(recs) == 1 and chunks == 2, f"grid: {len(recs)} records, "
+          f"{chunks} chunk spans")
+    rec = recs[0]
+    check(rec.grid_shape == [8, 2] and rec.chunk["chunk_size"] == 4
+          and rec.chunk["n_chunks"] == 2 and rec.chunk["auto"] is False
+          and rec.chunk["predicted_bytes_per_lead"] > 0
+          and rec.chunk["actual_payload_bytes"] > 0
+          and rec.trace_dtypes == {"ci_trace": "float32"},
+          f"grid record: {rec}")
+    out = result_to_numpy(res)
+    check(out["probes"]["step"].shape == (8, 2, k), "grid probe shape")
+    cell_probes = lambda i, j: {f: v[i, j] for f, v in  # noqa: E731
+                                out["probes"].items()}
+    errs = [_probe_close(cell_probes(0, 0), probes["megakernel"],
+                         "grid cell (0, 0) vs the main probed run")]
+    rci = make_region_traces(n_steps, DT_H, GRID_REGIONS, seed=0)
+    final, _ = simulate(tasks, hosts, rci[5], mega, device=dev, dyn={
+        **dyn, "batt_capacity_kwh": np.float32(cfg.battery.capacity_kwh)
+        * np.float32(GRID_CAP_FACTORS[1])})
+    errs.append(_probe_close(
+        cell_probes(5, 1), result_to_numpy(summarize(final, mega))["probes"],
+        "grid cell (5, 1) vs its own run"))
+    lines.append({"phase": "telemetry", "part": "grid", "shape": [8, 2],
+                  "wall_s": info["wall_s"], "launches": info["launches"],
+                  "max_memory_allocated": info["max_memory_allocated"],
+                  "chunk": rec.chunk, "record": _record_checks(
+                      rec, "grid", dev, "grid"),
+                  "cell_probe_max_abs_err": max(errs)})
+    return lines, launches, (tasks, hosts, cfg, dyn, ci)
+
+
+def telemetry_profile(ctx, n_steps: int) -> dict:
+    """`telemetry.profile` of the probed megakernel over its first
+    `n_steps` steps: wall, the Chrome trace written and parsed back, and
+    the stage scopes found in it (the run in a session)."""
+    tasks, hosts, cfg, dyn, ci = ctx
+    cfg = cfg.replace(n_steps=n_steps, backend="megakernel")
+    dyn = {k: (v[:n_steps] if isinstance(v, torch.Tensor) else v)
+           for k, v in dyn.items()}
+    logdir = os.path.join(TEL_DIR, "profile")
+    t0 = time.perf_counter()
+    with telemetry.session(out_dir=TEL_DIR, export=False):
+        out, logdir = telemetry.profile(
+            lambda: summarize(simulate(tasks, hosts, ci[:n_steps], cfg,
+                                       dyn=dyn, device=ci.device)[0], cfg),
+            logdir=logdir)
+    wall = time.perf_counter() - t0
+    path = os.path.join(logdir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    scopes = sorted(n for n in names if n.startswith(("megakernel.",
+                                                      "stage_")))
+    check("megakernel.demand" in names and "megakernel.facility" in names,
+          f"profile: stage scopes {scopes}")
+    check(out.probes is not None, "profile: no probes")
+    return {"phase": "telemetry", "part": "profile", "n_steps": n_steps,
+            "wall_s": wall, "trace_bytes": os.path.getsize(path),
+            "trace_events": len(events), "scopes": scopes}
+
+
+# --------------------------------------------------------------------------
 # phase 4c: the scenario grid (paper Fig 12: regions x battery sizes)
 # --------------------------------------------------------------------------
 
@@ -1065,8 +1386,9 @@ def grid_phase(dev, main: dict, scale: float, n_steps: int, n_active: int,
     """The Fig 12 grid at the main phase's configuration for each shape of
     GRID_SHAPES (B = 1, 16, 64) and each backend: every cell finite, cell
     0 (and the whole B = 1 grid) equal to the main phase's run `main`
-    ({backend: fields}), every cell of the megakernel's B = 16 grid equal to
-    its own `simulate`, the B = 64 cells that repeat B = 16's equal to them,
+    ({backend: fields}), every cell of an 8 x 2 megakernel grid over the
+    first SINGLES_STEPS steps equal to its own `simulate`, the B = 64 cells
+    that repeat B = 16's equal to them,
     and the backends equal cell by cell ("equal": `compare_backends`).
     The timed runs come first, then the checks' single runs, then the
     profiles: the main phase's single run (`profile_window`) and each grid
@@ -1108,21 +1430,30 @@ def grid_phase(dev, main: dict, scale: float, n_steps: int, n_active: int,
                          f"grid {r}x{c}: backends")
     seconds = {"grid_runs": time.perf_counter() - t0}
     t0 = time.perf_counter()
-    small, big = res[(8, 2, "megakernel")], res[(8, 8, "megakernel")]
+    big = res[(8, 8, "megakernel")]
     for backend in ("stage-pipeline", "megakernel"):
         compare_backends(cell(res[(8, 8, backend)], np.s_[:, :2]),
                          res[(8, 2, backend)], 1e-4,
                          f"{backend}: B = 64 cells vs B = 16")
-    # every cell of the megakernel's B = 16 grid against its own run
-    ci = make_region_traces(n_steps, DT_H, GRID_REGIONS, seed=0)
-    mega = cfg.replace(backend="megakernel")
-    for i, j in np.ndindex(*small["n_done"].shape):
-        final, _ = simulate(tasks, hosts, ci[i], mega, device=dev, dyn={
-            **dyn, "batt_capacity_kwh":
+    # every cell of an 8 x 2 megakernel grid against its own run, over the
+    # first SINGLES_STEPS steps
+    s1 = min(n_steps, SINGLES_STEPS)
+    mega = cfg.replace(n_steps=s1, backend="megakernel")
+    dyn1 = {k: (v[:s1] if isinstance(v, torch.Tensor) else v)
+            for k, v in dyn.items()}
+    few = result_to_numpy(sweep_grid(tasks, hosts, mega,
+                                     grid_axes(8, 2, s1, kwh), dyn=dyn1,
+                                     device=dev))
+    ci1 = make_region_traces(s1, DT_H, GRID_REGIONS, seed=0)
+    for i, j in np.ndindex(*few["n_done"].shape):
+        final, _ = simulate(tasks, hosts, ci1[i], mega, device=dev, dyn={
+            **dyn1, "batt_capacity_kwh":
                 np.float32(kwh) * np.float32(GRID_CAP_FACTORS[j])})
-        compare_backends(cell(small, (i, j)),
+        compare_backends(cell(few, (i, j)),
                          result_to_numpy(summarize(final, mega)), 1e-4,
-                         f"grid 8x2 cell ({i}, {j}) vs its own simulate")
+                         f"grid 8x2 ({s1} steps) cell ({i}, {j}) vs its own "
+                         "simulate")
+    ci = make_region_traces(n_steps, DT_H, GRID_REGIONS, seed=0)
     check(not np.array_equal(big["total_carbon_kg"][0],
                              big["total_carbon_kg"][1])
           and not np.array_equal(big["total_carbon_kg"][:, 0],
@@ -1266,7 +1597,10 @@ def time_kernels_at_rows(dev, main_cfg, b: int) -> dict:
             cc, cg, fc, fg), "first_fit_warp_kernel"),
         "fused_facility_totals": device_ms(lambda: fs_k.launch(*prepared),
                                            "facility_totals_kernel",
-                                           reps=10)}}
+                                           reps=10),
+        "fused_facility_series": device_ms(
+            lambda: fs_k.launch_series(*prepared), "facility_totals_kernel",
+            reps=10)}}
 
 
 # --------------------------------------------------------------------------
@@ -1386,6 +1720,92 @@ def check_facility_derate(dev, results: dict) -> None:
         "max_rel_err": max(r for _, r in errs), "cases": len(errs),
         "derated_steps": int((derate < 1).sum()),
         "derated_steps_rows": [int(x) for x in (rows < 1).sum(1)]}
+
+
+def check_facility_series(dev, results: dict) -> None:
+    """Kernel 3's series route at S = 2880, B = 1 (the main configuration,
+    an [S] input) and B = 64 (rows of different batteries and dispatch
+    lambdas, blended policy), each trace store, healthy and derated (the
+    resilience phase's chiller), against the plain chain on the CPU, whose
+    divisions are IEEE's as the kernel's are: `soc` and `want_charge`
+    bit-equal, the derate echo equal, every flow within kernel 3's rtol
+    1e-4 / atol 1e-3; with f32 traces, against the plain chain on the card
+    (where PyTorch divides by a host scalar with its reciprocal) within the
+    same tolerance; and the totals lanes bit-equal to the totals route's on
+    the same inputs.  Records the largest error of each field."""
+    s = MAIN_STEPS
+    traces = facility_traces(s, dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rcfg = C.ResilienceConfig(enabled=True)
+    derate, _ = facility_failure_series(RES_SEED, s, DT_H, rcfg, device=dev)
+    cpu = torch.device("cpu")
+    err_cpu: dict = {}
+    err_card: dict = {}
+    cases = 0
+    b64 = 64
+    rows = {"batt_capacity_kwh": torch.linspace(60.0, 30000.0, b64,
+                                                device=dev),
+            "dispatch_lambda": torch.linspace(0.0, 1.0, b64, device=dev)}
+    for b in (1, b64):
+        if b == 1:
+            cfg = main_config(s, C.EmbodiedConfig())
+            it_kw = 700.0 + 300.0 * torch.rand(s, generator=gen, device=dev)
+            kw = {}
+        else:
+            cfg = main_config(s, C.EmbodiedConfig(), policy="blended")
+            it_kw = 700.0 + 300.0 * torch.rand((b, s), generator=gen,
+                                               device=dev)
+            kw = dict(rows)
+        args = facility_args(cfg, it_kw, traces)
+        for store in STORES:
+            # the CPU chain reads the traces the kernel reads (dequantized
+            # on the card)
+            stored = {i: ref.stored_trace(args[i], store) for i in (1, 2, 3,
+                                                                     6)}
+            cpu_args = [stored.get(i, a).to(cpu) for i, a in
+                        enumerate(args)]
+            for der in (None, derate):
+                what = f"series route b={b} {store} derate={der is not None}"
+                c = cfg if der is None else cfg.replace(resilience=rcfg)
+                extra = dict(kw, trace_store=store)
+                if der is not None:
+                    extra["chiller_derate"] = der
+                flows, tot = fs_k.fused_facility_series(*args, c, **extra)
+                route = fs_k.fused_facility_totals(*args, c, **extra)
+                on_cpu, _ = ref.fused_facility_series(
+                    *cpu_args, c, **{k: v.to(cpu) if isinstance(
+                        v, torch.Tensor) else v for k, v in extra.items()
+                        if k != "trace_store"})
+                check(set(flows) == set(on_cpu), f"{what}: keys differ")
+                got = {k: v.to(cpu) for k, v in flows.items()}
+                for key in ("soc", "want_charge", "chiller_derate"):
+                    want = on_cpu[key].expand_as(got[key])
+                    check(torch.equal(got[key], want),
+                          f"{what}: {key} not bit-equal to the CPU chain, "
+                          f"max abs err "
+                          f"{_err(got[key].float(), want.float())}")
+                for key in fs_k.SERIES_FIELDS:
+                    e = _close(got[key], on_cpu[key], 1e-4, 1e-3,
+                               f"{what} {key} (CPU chain)")
+                    err_cpu[key] = max(err_cpu.get(key, 0.0), e)
+                if store == "f32":
+                    on_card, _ = ref.fused_facility_series(*args, c, **extra)
+                    for key in fs_k.SERIES_FIELDS:
+                        e = _close(flows[key], on_card[key], 1e-4, 1e-3,
+                                   f"{what} {key} (card chain)")
+                        err_card[key] = max(err_card.get(key, 0.0), e)
+                for key, v in route.items():
+                    check(torch.equal(tot[key], v),
+                          f"{what}: total {key} differs from the totals "
+                          f"route: {tot[key]} vs {v}")
+                cases += 1
+    torch.cuda.synchronize()
+    results["fused_facility_series"] = {
+        "max_abs_err": max(err_cpu.values()), "cases": cases,
+        "field_max_abs_err_vs_cpu_chain": err_cpu,
+        "field_max_abs_err_vs_card_chain": err_card,
+        "soc_want_charge_bit_equal_to_cpu_chain": True,
+        "totals_bit_equal_to_totals_route": True}
 
 
 def _res_checks(res: dict, what: str, acted: bool) -> None:
@@ -2511,6 +2931,10 @@ def main() -> int:
         for info in infos:
             emit({"phase": "main", "rehearsal": True, "n_tasks":
                   meta["n_tasks"], **info})
+        tel_lines, _, tel_ctx = telemetry_phase(cpu, results, 0.02, 192, 15,
+                                                False)
+        for line in tel_lines:
+            emit({"rehearsal": True, **line})
         res = resilience_path(cpu, 0.02, 192, 15,
                               pdu_cap_kw(results["megakernel"], 192),
                               results, False, False)
@@ -2524,6 +2948,7 @@ def main() -> int:
             emit({"rehearsal": True, **line})
         emit({"phase": "small_fleet_card_vs_cpu", "rehearsal": True,
               **small_fleet_card_vs_cpu(cpu)})
+        emit({"rehearsal": True, **telemetry_profile(tel_ctx, 48)})
         for row in grid_phase(cpu, results, 0.02, 192, 15, False)[0]:
             emit({"phase": "grid", "rehearsal": True, **row})
         emit({"phase": "small_grid_card_vs_cpu", "rehearsal": True,
@@ -2578,6 +3003,7 @@ def main() -> int:
     check_first_fit(dev, kres)
     check_facility_kernel(dev, kres)
     check_facility_derate(dev, kres)
+    check_facility_series(dev, kres)
     check_ssd_kernel(dev, kres)
     check_flash_kernel(dev, kres)
     emit({"phase": "kernels_vs_plain", "seconds": time.perf_counter() - t0,
@@ -2593,6 +3019,15 @@ def main() -> int:
               meta["n_tasks"], "n_hosts": meta["n_hosts"],
               "n_steps": MAIN_STEPS, "n_active_hosts": MARCONI_ACTIVE,
               **info})
+
+    # telemetry and the probe bus at the main configuration (its profile
+    # comes after the grid phase's)
+    t0 = time.perf_counter()
+    tel_lines, tel_launches, tel_ctx = telemetry_phase(
+        dev, results, 1.0, MAIN_STEPS, MARCONI_ACTIVE, True)
+    for line in tel_lines:
+        emit({"workload": "marconi", "n_steps": MAIN_STEPS, **line})
+    tel_s = time.perf_counter() - t0
 
     # the main path with host failures, checkpointing and the closed
     # resilience loop: both executors, then the seed x hazard grid (timed
@@ -2643,7 +3078,7 @@ def main() -> int:
     t0 = time.perf_counter()
     grid_rows, grid_launches, profile, seconds = grid_phase(
         dev, results, 1.0, MAIN_STEPS, MARCONI_ACTIVE, True,
-        profile_steps=192)
+        profile_steps=PROFILE_STEPS)
     for row in profile:
         emit({"phase": "profile", **row})
     for row in grid_rows:
@@ -2654,24 +3089,32 @@ def main() -> int:
           "grid_phase_s": time.perf_counter() - t0})
     emit({"phase": "small_tasktrace_card_vs_cpu", "ok": True,
           **small_tasktrace_card_vs_cpu(dev)})
-    # where the resilience path's time goes: 192 steps of each executor
+    # telemetry.profile of 192 probed megakernel steps
+    t0 = time.perf_counter()
+    emit({"workload": "marconi", **telemetry_profile(tel_ctx, 192)})
+    del tel_ctx
+    emit({"phase": "telemetry_summary", "seconds": tel_s,
+          "profile_s": time.perf_counter() - t0, "launches": tel_launches})
+    # where the resilience path's time goes: PROFILE_STEPS of each executor
     # under the profiler
     t0 = time.perf_counter()
     tasks, hosts, cfg, ci, dyn = resilience_inputs(dev, 1.0, MAIN_STEPS,
                                                    MARCONI_ACTIVE, cap)
-    for row in profile_window(tasks, hosts, cfg, dyn, ci, 192, dev):
+    for row in profile_window(tasks, hosts, cfg, dyn, ci, PROFILE_STEPS,
+                              dev):
         emit({"phase": "resilience_profile", **row})
     res_seconds += time.perf_counter() - t0
-    # where aggregate scheduling's time goes: the same 192 steps
+    # where aggregate scheduling's time goes: the same steps
     cfg = main_config(MAIN_STEPS, meta["embodied"], meta["n_hosts"]).replace(
         scheduler=C.SchedulerConfig(mode="aggregate"))
-    for row in profile_window(tasks, hosts, cfg, dyn, ci, 192, dev):
+    for row in profile_window(tasks, hosts, cfg, dyn, ci, PROFILE_STEPS,
+                              dev):
         emit({"phase": "experiments_profile", "mode": "aggregate", **row})
     del tasks, hosts
-    # where the fleet's time goes: 192 steps of the fleet grid on each
+    # where the fleet's time goes: PROFILE_STEPS of the fleet grid on each
     # executor and of the spill fleet
     t0 = time.perf_counter()
-    for row in fleet_profile(fleet_ctx, 192, dev):
+    for row in fleet_profile(fleet_ctx, PROFILE_STEPS, dev):
         emit(row)
     del fleet_ctx
     emit({"phase": "fleet_summary", "seconds": fleet_s,
@@ -2705,7 +3148,7 @@ def main() -> int:
     # counts are reset just before it and read just after
     launches = {k: sum(i["launches"][k] for i in infos) + grid_launches[k]
                 + resil["launches"][k] + exp_launches[k] + fleet_launches[k]
-                for k in build.KERNELS}
+                + tel_launches[k] for k in build.KERNELS}
     # kernel 3's derate route: its launches on the resilience path
     launches["fused_facility_totals_derate"] = resil["launches"][
         "fused_facility_totals"]
@@ -2734,6 +3177,8 @@ def main() -> int:
                "fused_facility_totals": ("fused_step.cu",
                                          "src/repro/kernels/fused_step.py:261"),
                "fused_facility_totals_derate": (
+                   "fused_step.cu", "src/repro/kernels/fused_step.py:261"),
+               "fused_facility_series": (
                    "fused_step.cu", "src/repro/kernels/fused_step.py:261"),
                "first_fit_place": ("first_fit.cu",
                                    "src/repro/kernels/first_fit.py:78"),

@@ -1,4 +1,5 @@
 """The simulation core of the PyTorch port (see `repro_torch`)."""
+from . import telemetry
 from .battery import (battery_flow_step, dispatch_decision,
                       precompute_battery_signals, surplus_aware_dispatch)
 from .config import (BatteryConfig, CoolingConfig, EmbodiedConfig,
@@ -39,6 +40,7 @@ from .sweep import (lower_sweep, sharded_sweep, sweep_battery_sizes,
                     sweep_regions, sweep_regions_x_battery, sweep_step_fn)
 
 __all__ = [
+    "telemetry",
     "battery_flow_step", "dispatch_decision", "precompute_battery_signals",
     "surplus_aware_dispatch", "BatteryConfig", "CoolingConfig",
     "EmbodiedConfig", "FailureConfig", "PowerModelConfig", "PricingConfig",

@@ -7,6 +7,7 @@ default pipeline follows the reference's event cascade:
 
   checkpoint -> failures -> task_stopper -> scheduler -> progress -> power
   -> cooling -> renewables -> battery -> pricing -> carbon -> resilience
+  -> probes
 
 Power flows between the facility stages travel on an explicit energy-flow
 ledger (`ctx["flow"]`, an `EnergyFlow`) that obeys, per step,
@@ -30,9 +31,9 @@ power stage is the fused power kernel (with the cooling tail when cooling
 is on), and the megakernel's facility half is the fused facility kernel;
 on the CPU the same calls take the kernels' plain versions
 (kernels/ops.py).  `cfg.use_pallas` is kept for config parity and read by
-nothing.  Under `cfg.collect_series` the megakernel takes the plain
-facility chain on every device, because only that chain yields the
-per-step series.
+nothing.  Under `cfg.collect_series` or `cfg.probes` the megakernel's
+facility half takes the facility kernel's series route, which writes every
+step's flows beside the same totals (`ops.fused_facility_chain`).
 
 No stage reads a value back from the device: the loop enqueues work and
 never waits for it.
@@ -58,7 +59,14 @@ sits between the IT sum and the cooling model), the throttle of the next
 step is a [B, 1] state, and the megakernel's facility kernel takes the
 derate series.
 
-Not ported yet, and refused with NotImplementedError: the probe bus.
+Telemetry (core/telemetry.py).  With `cfg.probes` enabled the stage
+pipeline's last stage samples the settled ledger every `stride` steps into
+a ring ([B, F, K], one write a sampled step; the host knows the step, so
+other steps launch nothing); the megakernel records the demand half's
+channels at the sampled steps and gathers the rest from the facility
+series.  With a telemetry session active, each stage and the megakernel's
+two halves run in a `stage_scope` (composed once, before the loop), and
+`simulate` cuts a "simulate" run record; with none, the loop is unchanged.
 """
 from __future__ import annotations
 
@@ -67,7 +75,7 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..kernels import ops, ref
+from ..kernels import ops
 from . import battery as battery_mod
 from . import carbon as carbon_mod
 from . import failures as failures_mod
@@ -78,6 +86,7 @@ from . import scaling as scaling_mod
 from . import scheduler as scheduler_mod
 from . import shifting as shifting_mod
 from . import state as state_mod
+from . import telemetry
 from . import thermal as thermal_mod
 from .config import HOURS_PER_YEAR, SimConfig
 from .state import (DONE, PENDING, RUNNING, BatteryState, HostTable,
@@ -625,6 +634,8 @@ def stage_resilience(cfg: SimConfig) -> Stage:
     resilience metrics and compute the throttle the NEXT step runs under
     (a one-step delay).  Runs last, so it sees the clamped `flow.it_kw`."""
     def fn(state: SimState, ctx: dict):
+        # the throttle this step RAN under, for the probe bus
+        ctx = dict(ctx, throttle_factor=state.throttle)
         state = _resilience_update(state, cfg, ctx["flow"].it_kw,
                                    ctx["raw_it_kw"], ctx)
         return state, ctx
@@ -662,6 +673,66 @@ def default_pipeline(cfg: SimConfig) -> list[Stage]:
     if cfg.resilience.enabled:
         stages.append(stage_resilience(cfg))
     return stages
+
+
+def _queue_depth(state: SimState):
+    """Arrived-but-pending tasks at the state's time, f32 [B, 1]."""
+    return ((state.tasks.status == PENDING)
+            & (state.tasks.arrival <= state.t)).to(F32).sum(-1, keepdim=True)
+
+
+def stage_probes(cfg: SimConfig) -> Stage:
+    """The probe-bus sampler (cfg.probes): runs after every other stage, so
+    it sees the settled ledger, the post-dispatch SoC and the post-pricing
+    window peak, at the step's pre-increment time.  The step index comes
+    from the loop (`ctx["step_index"]`), so steps the stride skips launch
+    nothing; a sampled one writes one stacked sample into the ring."""
+    stride = max(int(cfg.probes.stride), 1)
+    ones: dict = {}
+
+    def fn(state: SimState, ctx: dict):
+        i = ctx["step_index"]
+        if i % stride:
+            return state, ctx
+        throttle = ctx.get("throttle_factor")
+        if throttle is None:  # the loop is open: no throttle
+            dev = state.t.device
+            if dev not in ones:
+                ones[dev] = torch.ones((), dtype=F32, device=dev)
+            throttle = ones[dev]
+        sample = {**ctx["flow"]._asdict(),
+                  "soc_kwh": state.battery.charge,
+                  "window_peak_kw": state.metrics.window_peak_kw,
+                  "queue_depth": _queue_depth(state),
+                  "throttle_factor": throttle,
+                  "chiller_derate": ctx["chiller_derate"],
+                  "pdu_cap_kw": ctx["pdu_cap_kw"]}
+        return state._replace(probes=telemetry.probe_write(
+            state.probes, i, stride, sample)), ctx
+    return fn
+
+
+def _stage_label(stage: Stage) -> str:
+    """'stage_power.<locals>.fn' -> 'stage_power' for scope names."""
+    q = getattr(stage, "__qualname__", "")
+    return q.split(".<locals>")[0] or getattr(stage, "__name__", "stage")
+
+
+def _scoped(stages: list[Stage]) -> list[Stage]:
+    """The stages, each in a `telemetry.stage_scope` of its name while a
+    session is active (decided once, when the loop's step is built); as
+    they are otherwise."""
+    if not telemetry.enabled():
+        return stages
+
+    def scoped(stage: Stage) -> Stage:
+        label = _stage_label(stage)
+
+        def fn(state: SimState, ctx: dict):
+            with telemetry.stage_scope(label, state.t.device):
+                return stage(state, ctx)
+        return fn
+    return [scoped(stage) for stage in stages]
 
 
 # --------------------------------------------------------------------------
@@ -724,6 +795,9 @@ def _stack_series(ys: list[dict]) -> dict:
 def build_step_fn(cfg: SimConfig, stages: Sequence[Stage] | None = None,
                   dyn: dict | None = None):
     stages = default_pipeline(cfg) if stages is None else list(stages)
+    if cfg.probes.enabled:
+        stages.append(stage_probes(cfg))
+    stages = _scoped(stages)
     dyn = dyn or {}
 
     def step(state: SimState, inputs: StepInputs, flow0: EnergyFlow,
@@ -785,14 +859,21 @@ def _build_demand_step(cfg: SimConfig, dyn: dict):
     stages: list[Stage] = _failure_stages(cfg)
     if cfg.shifting.enabled and cfg.shifting.stop_running:
         stages.append(stage_task_stopper(cfg))
-    stages += [stage_scheduler(cfg), stage_progress(cfg)]
+    stages = _scoped(stages + [stage_scheduler(cfg), stage_progress(cfg)])
     resil = cfg.resilience.enabled
 
-    def step(state: SimState, xs: dict):
+    def step(state: SimState, xs: dict, sample: bool = False):
+        """One demand step; a `sample`d step (one the probe bus keeps) also
+        yields the queue depth and the throttle the step ran under."""
         ctx = {**xs, **dyn}
         for stage in stages:
             state, ctx = stage(state, ctx)
         hosts = state.hosts
+        ys = {}
+        if sample:
+            ys["queue_depth"] = _queue_depth(state)
+            if resil:
+                ys["throttle_factor"] = state.throttle
         if resil:
             _, raw, it_kw, _, _ = _throttled_it_kw(state, cfg, ctx)
             state = _resilience_update(state, cfg, it_kw, raw, ctx)
@@ -803,7 +884,7 @@ def _build_demand_step(cfg: SimConfig, dyn: dict):
                                       *_host_inputs(hosts, cpu_u),
                                       cfg.cpu_power, cfg.gpu_power)
         state = _advance_clock(state, cfg)
-        ys = {"it_kw": it_kw}
+        ys["it_kw"] = it_kw
         if cfg.collect_series:
             ys["max_overcommit"] = _max_overcommit(state.tasks, hosts)
             ys["n_running"] = _n_running(state)
@@ -923,13 +1004,24 @@ def _simulate_megakernel(state0: SimState, inputs: StepInputs,
         zero = torch.zeros((), dtype=F32, device=dev)
         xs = ({"ci": zero, "shift_threshold": zero}
               for _ in range(cfg.n_steps))
-    # written one step (one row) at a time: a fresh buffer nobody else holds
+    # written one step (one row) at a time: fresh buffers nobody else holds
     it_steps = torch.empty(cfg.n_steps, b, dtype=F32, device=dev)
+    probes = cfg.probes.enabled
+    if probes:  # the demand half's probe channels, at the kept samples
+        kept = set(telemetry.sample_steps(cfg.n_steps, cfg.probes))
+        qd_steps = torch.zeros(cfg.n_steps, b, dtype=F32, device=dev)
+        thr_steps = torch.ones(cfg.n_steps, b, dtype=F32, device=dev)
     state, demand_ys = state0, []
-    for i, x in enumerate(xs):
-        state, y = step(state, x)
-        it_steps[i] = y.pop("it_kw")
-        demand_ys.append(y)
+    with telemetry.stage_scope("megakernel.demand", dev):
+        for i, x in enumerate(xs):
+            sample = probes and i in kept
+            state, y = step(state, x, sample)
+            it_steps[i] = y.pop("it_kw")
+            if sample:
+                qd_steps[i] = y.pop("queue_depth")[:, 0]
+                if resil:
+                    thr_steps[i] = y.pop("throttle_factor")[:, 0]
+            demand_ys.append(y)
     final = state
     it_series = it_steps.t()
 
@@ -944,16 +1036,22 @@ def _simulate_megakernel(state0: SimState, inputs: StepInputs,
     trace_args = (inputs.ci, inputs.wet_bulb_c, inputs.price, inputs.price_lo,
                   inputs.price_hi, inputs.pv_cf, inputs.batt_threshold,
                   inputs.ci_rising)
-    if not cfg.collect_series:
-        totals = ops.fused_facility_totals(it_series, *trace_args, cfg,
-                                           trace_store=cfg.trace_store,
-                                           **chain_kwargs)
-        return _merge_facility_totals(final, totals, cfg, dyn), None
-    # the per-step series exist only in the plain chain
-    flows = ref.fused_facility_chain(it_series, *trace_args, cfg.dt_h, cfg,
-                                     **chain_kwargs)
-    totals = facility_totals_from_flows(flows, inputs.ci, inputs.price, cfg)
+    with telemetry.stage_scope("megakernel.facility", dev):
+        if not (cfg.collect_series or probes):
+            totals = ops.fused_facility_totals(it_series, *trace_args, cfg,
+                                               trace_store=cfg.trace_store,
+                                               **chain_kwargs)
+            return _merge_facility_totals(final, totals, cfg, dyn), None
+        # kernel 3's series route: the per-step flows beside the totals
+        flows, totals = ops.fused_facility_chain(
+            it_series, *trace_args, cfg, trace_store=cfg.trace_store,
+            **chain_kwargs)
     final = _merge_facility_totals(final, totals, cfg, dyn)
+    if probes:
+        final = final._replace(probes=_megakernel_probes(
+            flows, qd_steps.t(), thr_steps.t(), inputs.pdu_cap_kw, cfg))
+    if not cfg.collect_series:
+        return final, None
     demand = _stack_series(demand_ys)
     flow = EnergyFlow(*(flows[f] for f in EnergyFlow._fields))
     ys = {"grid_power_kw": flow.grid_import_kw,
@@ -971,13 +1069,28 @@ def _simulate_megakernel(state0: SimState, inputs: StepInputs,
     return final, ys
 
 
+def _megakernel_probes(flows: dict, queue_depth, throttle, pdu_cap_kw,
+                       cfg: SimConfig) -> telemetry.ProbeRing:
+    """The megakernel's probe ring: the facility series (with the running
+    window peak, zeros when pricing is off, and the derate series the chain
+    applied) and the demand half's [B, S] channels, gathered at the kept
+    samples."""
+    grid = flows["grid_import_kw"]
+    if cfg.pricing.enabled:
+        wp = telemetry.window_peak_series(
+            grid, pricing_mod.billing_window_steps(cfg.pricing, cfg.dt_h))
+    else:
+        wp = torch.zeros_like(grid)
+    series = {f: flows[f] for f in EnergyFlow._fields}
+    series.update(soc_kwh=flows["soc"], window_peak_kw=wp,
+                  queue_depth=queue_depth, throttle_factor=throttle,
+                  chiller_derate=flows["chiller_derate"],
+                  pdu_cap_kw=pdu_cap_kw)
+    return telemetry.probes_from_series(cfg.n_steps, cfg.probes, series)
+
+
 def _check_run(cfg: SimConfig, dyn: dict) -> None:
-    """What the port refuses (the probe bus) and the reference's check
-    that resilience keys do not go unread."""
-    if cfg.probes.enabled:
-        raise NotImplementedError(
-            "cfg.probes.enabled: the probe bus is not ported yet (ROADMAP "
-            "Queue 1 item 5, telemetry)")
+    """The reference's check that resilience keys do not go unread."""
     if not cfg.resilience.enabled:
         bad = [k for k in _RESILIENCE_KEYS if k in dyn]
         if bad:
@@ -1056,6 +1169,10 @@ def prepare_cells(tasks: TaskTable, hosts: HostTable, ci_trace,
     if cfg.resilience.enabled:  # a healthy start: no throttle on step 0
         state0 = state0._replace(throttle=torch.ones(
             (n_cells, 1), dtype=F32, device=device))
+    if cfg.probes.enabled and cfg.backend == "stage-pipeline":
+        # the megakernel gathers its ring from its series after the loop
+        state0 = state0._replace(probes=telemetry.init_probes(
+            cfg.n_steps, cfg.probes, (n_cells,), device))
     return state0, inputs, dyn, inv
 
 
@@ -1104,7 +1221,9 @@ def _one_cell(state: SimState) -> SimState:
         metrics=MetricsAcc(*(x.reshape(()) for x in state.metrics)),
         rng=state.rng[0],
         throttle=(None if state.throttle is None
-                  else state.throttle.reshape(())))
+                  else state.throttle.reshape(())),
+        probes=(None if state.probes is None
+                else telemetry.ProbeRing(*(x[0] for x in state.probes))))
 
 
 def simulate(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
@@ -1129,12 +1248,15 @@ def simulate(tasks: TaskTable, hosts: HostTable, ci_trace, cfg: SimConfig,
     scalar is a host number or a 0-d tensor on `device`; `seed`,
     `failure_hazard_scale` and `pdu_cap_kw` are read on the host once, before
     the loop.  This is `run_cells` at one scenario row, the row's axis
-    squeezed from the state and the series.
+    squeezed from the state and the series.  With a telemetry session
+    active it cuts a "simulate" run record.
     """
     dyn = dict(dyn) if dyn else {}
     if weather_trace is not None:
         dyn["wet_bulb_trace"] = weather_trace
-    final, ys = run_cells(tasks, hosts, ci_trace, cfg, 1, stages, dyn, device)
+    with telemetry.run_recorder("simulate", cfg, device=device):
+        final, ys = run_cells(tasks, hosts, ci_trace, cfg, 1, stages, dyn,
+                              device)
     if ys is not None:
         ys = {k: (EnergyFlow(*(f[0] for f in v))
                   if isinstance(v, EnergyFlow) else v[0])

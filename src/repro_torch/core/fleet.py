@@ -20,6 +20,11 @@ Placement is on the host and exogenous (traces and task list only).  With
 `cfg.resilience.spill_interrupted` the regions are coupled: after every
 step, up to `max_spills_per_step` interrupted tasks move to the healthiest
 region (`resilience.cross_region_spill`), in the stage pipeline only.
+
+A fleet that is not coupled carries per-region probes (`per_region.probes`,
+[R, K] fields; `total.probes` is None), as the reference does; the coupled
+fleet refuses them.  A telemetry session sees the span `fleet.place`, the
+coupled loop's `fleet.spill_scan` scope and one "fleet" run record.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import engine
+from . import engine, telemetry
 from .config import SimConfig
 from .metrics import SimResult, fleet_totals, summarize
 from .resilience import cross_region_spill
@@ -245,11 +250,12 @@ def spill_loop(state, inputs, cfg: SimConfig, dyn: dict):
     r = state.tasks.status.shape[0]
     flow0 = engine.init_energy_flow(inputs.ci.device, (r, 1))
     max_spills = int(cfg.resilience.max_spills_per_step)
-    for i, x in enumerate(engine._per_step(inputs, r)):
-        state, _ = step(state, x, flow0, i)
-        tasks, metrics = cross_region_spill(state.tasks, state.hosts,
-                                            state.metrics, max_spills)
-        state = state._replace(tasks=tasks, metrics=metrics)
+    with telemetry.stage_scope("fleet.spill_scan", inputs.ci.device):
+        for i, x in enumerate(engine._per_step(inputs, r)):
+            state, _ = step(state, x, flow0, i)
+            tasks, metrics = cross_region_spill(state.tasks, state.hosts,
+                                                state.metrics, max_spills)
+            state = state._replace(tasks=tasks, metrics=metrics)
     return state
 
 
@@ -319,7 +325,9 @@ def simulate_fleet(tasks: TaskTable, hosts: HostTable, cfg: SimConfig,
 
     Returns a FleetResult: `total` (fleet-aggregated SimResult) and
     `per_region` (leading axis R).  With R = 1 this reproduces
-    `simulate` + `summarize` bit for bit.
+    `simulate` + `summarize` bit for bit.  With a telemetry session active
+    it cuts a "fleet" run record (placement is outside it, in its own
+    `fleet.place` span).
     """
     check_fleet_cfg(fleet, cfg)
     spill = cfg.resilience.enabled and cfg.resilience.spill_interrupted
@@ -345,12 +353,16 @@ def simulate_fleet(tasks: TaskTable, hosts: HostTable, cfg: SimConfig,
             # receive spilled tasks whatever the initial placement
             width = tasks.n
     if region is None:
-        region = fleet_place(tasks, hosts, fleet, cfg.dt_h,
-                             n_steps=cfg.n_steps)
+        with telemetry.span("fleet.place", policy=fleet.policy):
+            region = fleet_place(tasks, hosts, fleet, cfg.dt_h,
+                                 n_steps=cfg.n_steps)
     stacked = split_by_region(tasks, region, fleet.n_regions, width=width,
                               device=device)
     scalar_dyn, per_region_dyn = split_dyn(fleet, dyn)
     fn = _fleet_cell_spill if spill else fleet_cell
-    return fn(stacked, hosts, cfg, torch.from_numpy(fleet.ci_traces),
-              fleet.wb_traces, scalar_dyn, per_region_dyn,
-              fleet.price_traces, fleet.pv_traces, device=device)
+    with telemetry.run_recorder("fleet", cfg, device=device,
+                                n_regions=int(fleet.n_regions),
+                                policy=str(fleet.policy)):
+        return fn(stacked, hosts, cfg, torch.from_numpy(fleet.ci_traces),
+                  fleet.wb_traces, scalar_dyn, per_region_dyn,
+                  fleet.price_traces, fleet.pv_traces, device=device)

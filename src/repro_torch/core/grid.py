@@ -70,6 +70,11 @@ reference's signature and has no effect: nothing here is compiled.
 
 Swept knobs modulate a statically enabled technique: the enable flags of
 `cfg` choose the pipeline, as in the reference.
+
+With `cfg.probes` on, `SimResult.probes` carries each cell's ring: fields
+of shape `(*grid.shape, K)`.  A telemetry session sees the spans
+`grid.build`, `grid.execute` and one `grid.chunk` a chunk, a "grid" run
+record with the chunk plan, and a recompile guard over the chunk loop.
 """
 from __future__ import annotations
 
@@ -80,7 +85,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from . import engine
+from . import engine, telemetry
 from .config import SimConfig
 from .fleet import (FleetResult, check_fleet_cfg, fleet_place, split_dyn)
 from .metrics import SimResult, fleet_totals, summarize
@@ -287,9 +292,14 @@ def _normalize_reduce(reduce, ndim: int):
 
 
 def _result_map(fn, *results: SimResult) -> SimResult:
-    """Apply `fn` field by field (SimResult.probes stays None)."""
-    return SimResult(*(None if xs[0] is None else fn(*xs)
-                       for xs in zip(*results)))
+    """Apply `fn` field by field, the probes' fields too."""
+    def one(*xs):
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], telemetry.Probes):
+            return telemetry.Probes(*(fn(*f) for f in zip(*xs)))
+        return fn(*xs)
+    return SimResult(*(one(*xs) for xs in zip(*results)))
 
 
 class ScenarioGrid:
@@ -502,13 +512,45 @@ class ScenarioGrid:
         self._check_tasks(tasks)
         red = _normalize_reduce(reduce, len(self.shape))
         self._check_trace(ci_trace)
-        if self.fleet is not None:
-            # placement is exogenous and happens once, here, on the host:
-            # the grid sweeps what the placed fleet runs, not where tasks go
-            region = fleet_place(tasks, hosts, self.fleet, cfg.dt_h,
-                                 n_steps=cfg.n_steps)
-            tasks = split_by_region(tasks, region, self.fleet.n_regions,
-                                    device=device)
+        with telemetry.span("grid.build", shape=str(self.shape)):
+            if self.fleet is not None:
+                # placement is exogenous and happens once, here, on the
+                # host: the grid sweeps what the placed fleet runs, not
+                # where tasks go
+                region = fleet_place(tasks, hosts, self.fleet, cfg.dt_h,
+                                     n_steps=cfg.n_steps)
+                tasks = split_by_region(tasks, region, self.fleet.n_regions,
+                                        device=device)
+        with telemetry.run_recorder("grid", cfg, device=device) as rec:
+            if telemetry.enabled():
+                self._describe(rec)
+            return self._run(tasks, hosts, cfg, ci_trace, chunk_size, red,
+                             memory_budget_bytes, device, rec)
+
+    def _describe(self, rec) -> None:
+        """The grid's shape, axes and trace dtypes in its run record."""
+        rec.grid_shape = [int(n) for n in self.shape]
+        rec.extra["n_scenarios"] = int(self.n_scenarios)
+        rec.extra["axes"] = [{"kind": ax.kind, "names": list(ax.names),
+                              "length": ax.length} for ax in self.axes]
+        rec.trace_dtypes = {
+            ax.names[0]: _dtype_name(ax.values[0]) for ax in self.axes
+            if ax.kind in ("trace", "weather", "price", "renewable")}
+
+    def _payload_bytes(self) -> int:
+        """Bytes of the axes' values as the grid holds them."""
+        def nbytes(v):
+            if isinstance(v, QuantizedTrace):
+                return sum(nbytes(x) for x in v)
+            if isinstance(v, torch.Tensor):
+                return v.numel() * v.element_size()
+            return int(np.asarray(v).nbytes)
+        return sum(nbytes(v) for ax in self.axes for v in ax.values)
+
+    def _run(self, tasks, hosts, cfg, ci_trace, chunk_size, red,
+             memory_budget_bytes, device, rec):
+        """`run`'s execution body: the chunk loop (`rec` is the draft of
+        the run record, filled in while a session is active)."""
         lead = self._lead
         auto_chunked = chunk_size is None
         if not self.shape:
@@ -525,17 +567,27 @@ class ScenarioGrid:
                 f"{chunk_size}: {cause}): move the reduced axis off axis 0, "
                 "raise the memory budget, or pass an explicit chunk_size >= "
                 "the leading length")
+        if telemetry.enabled():
+            # the chunk plan: predicted (estimate-based) vs actual bytes
+            rec.chunk = {
+                "chunk_size": int(chunk_size),
+                "n_chunks": -(-lead // chunk_size),
+                "auto": bool(auto_chunked),
+                "predicted_bytes_per_lead": float(
+                    self._per_lead_bytes(tasks, hosts, cfg)),
+                "actual_payload_bytes": self._payload_bytes()}
+        # every chunk runs the same kernels: builds belong to the first
+        guard = telemetry.recompile_guard("grid.run chunk loop", allowed=1)
         parts = []
-        for start in range(0, lead, chunk_size):
-            stop = min(lead, start + chunk_size)
-            if self.fleet is not None:
-                parts.append(self._fleet_chunk(tasks, hosts, cfg, start, stop,
-                                               device))
-                continue
-            ci, dyn, b = self.cells(start, stop, ci_trace, device)
-            final, _ = engine.run_cells(tasks, hosts, ci, cfg, b, dyn=dyn,
-                                        device=device)
-            parts.append(summarize(final, cfg))
+        with telemetry.span("grid.execute", chunks=-(-lead // chunk_size)), \
+                guard:
+            for i, start in enumerate(range(0, lead, chunk_size)):
+                stop = min(lead, start + chunk_size)
+                with telemetry.span("grid.chunk", index=i, start=start):
+                    guard.mark()
+                    parts.append(self._chunk(tasks, hosts, cfg, ci_trace,
+                                             start, stop, device))
+                guard.tick()
 
         def finish(results: list[SimResult]) -> SimResult:
             res = _result_map(lambda *xs: torch.cat(xs, 0).reshape(
@@ -550,6 +602,17 @@ class ScenarioGrid:
         return FleetResult(total=finish([p.total for p in parts]),
                            per_region=finish([p.per_region for p in parts]))
 
+    def _chunk(self, tasks, hosts, cfg, ci_trace, start: int, stop: int,
+               device):
+        """The SimResult (a fleet grid's FleetResult) of the points whose
+        leading index is in [start, stop): one step loop."""
+        if self.fleet is not None:
+            return self._fleet_chunk(tasks, hosts, cfg, start, stop, device)
+        ci, dyn, b = self.cells(start, stop, ci_trace, device)
+        final, _ = engine.run_cells(tasks, hosts, ci, cfg, b, dyn=dyn,
+                                    device=device)
+        return summarize(final, cfg)
+
     def _per_lead_bytes(self, tasks: TaskTable, hosts: HostTable,
                         cfg: SimConfig) -> float:
         """Estimated device bytes per leading-axis point of this port's
@@ -563,9 +626,11 @@ class ScenarioGrid:
         the hosts' `up` and `repair_at` rows, a step's bool failure draws
         ([S, B, H]) and keys.  A swept `arrival_trace` makes `arrival` (and
         `status`) a row's own; a swept `interactive_frac`, or an
-        `arrival_trace` under priority levels, every task column.  A fleet
-        grid's point is R rows, and every task column is a row's own: pass
-        the placed [R, W] tables (`split_by_region`) as `tasks`."""
+        `arrival_trace` under priority levels, every task column.  The
+        probe bus adds its ring (`telemetry.Probes`' fields, K samples
+        each).  A fleet grid's point is R rows, and every task column is a
+        row's own: pass the placed [R, W] tables (`split_by_region`) as
+        `tasks`."""
         t, h, s = (tasks.arrival.shape[-1], hosts.cores.shape[-1],
                    cfg.n_steps)
         swept = {n for ax in self.axes for n in ax.names}
@@ -583,6 +648,9 @@ class ScenarioGrid:
                     + (2 * len(engine.SERIES) + 10) * 4 * s)
         if cfg.failures.enabled:
             per_cell += 2 * 5 * h + s * (h + 16)
+        if cfg.probes.enabled:
+            per_cell += len(telemetry.Probes._fields) * 4 * (
+                telemetry.probe_capacity(s, cfg.probes))
         if self.fleet is not None:
             per_cell *= self.fleet.n_regions
         return per_cell * (self.n_scenarios / max(self._lead, 1))
@@ -611,6 +679,13 @@ class ScenarioGrid:
         """The reference's whole-grid lowering: refused (nothing here is
         compiled as one program)."""
         _refuse("ScenarioGrid.lower", _ITEM_6F)
+
+
+def _dtype_name(v) -> str:
+    """The stored dtype of a trace axis' values ('float32', 'bfloat16',
+    'int8'), as the reference's records name them."""
+    q = v.q if isinstance(v, QuantizedTrace) else v
+    return str(q.dtype).replace("torch.", "")
 
 
 # a step's [B, T] temporaries, bytes per task and scenario row: the

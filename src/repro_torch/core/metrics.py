@@ -147,15 +147,19 @@ def summarize(state: SimState, cfg: SimConfig) -> SimResult:
         class_n_violations=class_n_viol,
         class_n_decided=class_n_decided,
         class_n_started=class_n_started,
-        probes=state.probes,
+        probes=None if state.probes is None else state.probes.probes(),
     )
 
 
 def result_to_numpy(res: SimResult) -> dict:
-    """{field: numpy value} of a SimResult (None fields dropped), for
-    comparisons against the reference package's results."""
-    return {k: v.detach().cpu().numpy() for k, v in res._asdict().items()
-            if v is not None}
+    """{field: numpy value} of a SimResult (None fields dropped; the probes
+    as {probe field: numpy value}), for comparisons against the reference
+    package's results."""
+    def np_(v):
+        if isinstance(v, tuple):
+            return {k: np_(x) for k, x in v._asdict().items()}
+        return v.detach().cpu().numpy()
+    return {k: np_(v) for k, v in res._asdict().items() if v is not None}
 
 
 def fleet_totals(per_region: SimResult, axis: int = 0) -> SimResult:
@@ -167,7 +171,9 @@ def fleet_totals(per_region: SimResult, axis: int = 0) -> SimResult:
     averaging the per-region ratios, so an empty region counts 0, not 1.
     PUE and WUE come from the summed energies.  `peak_power_kw` and the
     costs sum: each region is a facility with its own grid feed and meter.
-    Class fields [.., R, C] reduce over R and keep the class axis.
+    Class fields [.., R, C] reduce over R and keep the class axis.  Probes
+    are per region and stay on `per_region`: the total carries none, as in
+    the reference.
     """
     def s(x):
         return x.sum(axis)
@@ -197,7 +203,8 @@ def fleet_totals(per_region: SimResult, axis: int = 0) -> SimResult:
         class_sla_violation_frac=(s(p.class_n_violations) / torch.clamp(
             s(p.class_n_decided), min=1.0)),
         class_mean_start_delay_h=wmean(p.class_mean_start_delay_h,
-                                       p.class_n_started))
+                                       p.class_n_started),
+        probes=None)
 
 
 def carbon_reduction_pct(baseline: SimResult, treated: SimResult):

@@ -154,6 +154,8 @@ class SimState(NamedTuple):
     # [B, 2] holding uint32 words, [2] for one-scenario tables; host
     # failures advance it once a step
     rng: torch.Tensor
+    # the probe bus's ring (core/telemetry.py, `ProbeRing`: i32 [B, K]
+    # steps and f32 [B, F, K] samples); None unless cfg.probes.enabled
     probes: Any = None
     # the host speed/utilization cap of the step (core/resilience.py), f32
     # [B, 1]; None when cfg.resilience.enabled is False

@@ -8,7 +8,12 @@ is reused.  Nothing is built or loaded at import: the first call that needs
 a library builds it.
 
 Launch counts live here too: every wrapper that launches a kernel adds one
-to that kernel's count, right after the launch and nowhere else.
+to that kernel's count, right after the launch and nowhere else.  Kernel 3's
+two routes count apart (`fused_facility_totals`, `fused_facility_series`).
+
+Each `nvcc` build and each load of a built library is reported, with its
+seconds, to the compile monitor of core/telemetry.py: they are this
+package's compiles.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from ..core import telemetry
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -35,8 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 KERNELS = ("fused_power_carbon", "fused_facility_power",
-           "fused_facility_totals", "first_fit_place", "ssd_intra_chunk",
-           "flash_attention")
+           "fused_facility_totals", "fused_facility_series",
+           "first_fit_place", "ssd_intra_chunk", "flash_attention")
 _launches = dict.fromkeys(KERNELS, 0)
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, object] = {}
@@ -88,13 +95,17 @@ def build_all(names=SOURCES) -> dict[str, dict]:
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)
     report, failed = {}, []
+    last = t0  # the builds overlap: each reports the wall since the last
     for n, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"--- {n} (exit {proc.returncode}) ---\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent build sees whole files
-        report[n] = {"seconds": time.perf_counter() - t0, "path": str(out),
+        now = time.perf_counter()
+        telemetry.note_compile(now - last)
+        last = now
+        report[n] = {"seconds": now - t0, "path": str(out),
                      "ptxas": [ln.strip() for ln in log.splitlines()
                                if "spill" in ln or "ptxas" in ln and any(
                                    w in ln for w in ("Used", "Compiling",
@@ -137,7 +148,9 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         if not _target(name).exists():
             build_all()
+        t0 = time.perf_counter()
         lib = ctypes.CDLL(str(_target(name)))
+        telemetry.note_compile(time.perf_counter() - t0)
         err = getattr(lib, f"steam_{name}_error_string")
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         _libs[name] = lib

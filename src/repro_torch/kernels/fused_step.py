@@ -16,6 +16,11 @@ Series are f32 [S] or [B, S] (one scenario per thread block).  CUDA tensors
 only (kernels/ops.py routes CPU tensors to kernels/ref.py).  The kernel walks
 the horizon in tiles of steps held in shared memory; `launch_plan` sizes
 them.
+
+Two routes, one kernel template: `fused_facility_totals` writes the totals
+row only; `fused_facility_series` (the `collect_series` and probe-bus
+route) writes the same row and every step's flows as well, the dict of
+`ref.fused_facility_chain`.  Each counts its launches under its own name.
 """
 from __future__ import annotations
 
@@ -41,9 +46,17 @@ POLICY_CODES = {"carbon": 0, "price": 1, "blended": 2}
  A_CUR, A_SLOW) = range(19)
 N_ACC = 19
 
+# the series route's [B, N_SERIES, S] rows (csrc/fused_step.cu, F_*), in the
+# order of `ref.fused_facility_chain`'s keys
+SERIES_FIELDS = ("it_kw", "cooling_kw", "pv_kw", "batt_charge_kw",
+                 "batt_discharge_kw", "grid_import_kw", "grid_export_kw",
+                 "curtailed_kw", "water_l_per_h", "heat_reuse_kw", "soc")
+N_SERIES = len(SERIES_FIELDS)
+
 # the kernel's tiles (csrc/fused_step.cu): a ring of RING input tiles (five
-# f32 series and two bit-mask words per 32 steps) and two tiles of ck / dk,
-# plus one window peak a step, in dynamic shared memory
+# f32 series and two bit-mask words per 32 steps) and two tiles of ck / dk
+# (and of the SoC on the series route), plus one window peak a step, in
+# dynamic shared memory
 TILE_MAX = 1024
 RING = 3
 
@@ -62,19 +75,23 @@ class _FacilityConfig(ctypes.Structure):
 RISING, DERATED = 1, 2
 
 
-def smem_bytes(tile: int) -> int:
+def smem_bytes(tile: int, series: bool = False) -> int:
     """Dynamic shared bytes of a launch with tiles of `tile` steps: the
     kernel's `smem_floats`, which sizes the launch; this copy lets the
-    launch plan be checked against a block's shared memory."""
-    return 4 * (RING * (5 * tile + 2 * (tile // 32)) + 2 * 2 * tile + tile)
+    launch plan be checked against a block's shared memory.  The series
+    route holds a third chain tile (the SoC) beside ck and dk."""
+    chain = 3 if series else 2
+    return 4 * (RING * (5 * tile + 2 * (tile // 32)) + 2 * chain * tile
+                + tile)
 
 
-def launch_plan(s: int) -> tuple[int, int, int]:
+def launch_plan(s: int, series: bool = False) -> tuple[int, int, int]:
     """(tile, n_tiles, dynamic shared bytes) for a horizon of `s` steps:
-    tiles of a multiple of 32 steps, at most TILE_MAX (82.7 KB: two blocks
-    fit on an SM), no longer than the horizon rounded up to 32."""
+    tiles of a multiple of 32 steps, at most TILE_MAX (82.7 KB on the
+    totals route, 90.9 KB on the series route: two blocks fit on an SM),
+    no longer than the horizon rounded up to 32."""
     tile = min(TILE_MAX, max(32, -(-s // 32) * 32))
-    return tile, -(-s // tile), smem_bytes(tile)
+    return tile, -(-s // tile), smem_bytes(tile, series)
 
 
 def _facility_config(cfg, s: int, derate: bool) -> _FacilityConfig:
@@ -183,6 +200,41 @@ def launch(tensors, fcfg: _FacilityConfig, store: int, b: int):
     return out
 
 
+def launch_series(tensors, fcfg: _FacilityConfig, store: int, b: int):
+    """One launch of the series route; returns the [B, 19] rows (`A_*`
+    lanes), the [B, N_SERIES, S] f32 flows (`SERIES_FIELDS`) and the [B, S]
+    u8 charge decisions."""
+    dev = tensors[0].device
+    s = fcfg.n_steps
+    out = torch.empty((b, N_ACC), dtype=F32, device=dev)
+    series = torch.empty((b, N_SERIES, s), dtype=F32, device=dev)
+    want = torch.empty((b, s), dtype=torch.uint8, device=dev)
+    fn = build.function("fused_step", "steam_facility_series", [
+        *[ctypes.c_void_p] * 11, ctypes.POINTER(_FacilityConfig),
+        *[ctypes.c_int] * 2, *[ctypes.c_void_p] * 4])
+    code = fn(*(build.ptr(t) for t in tensors), ctypes.byref(fcfg), store, b,
+              build.ptr(out), build.ptr(series), build.ptr(want),
+              build.stream_of(out))
+    build.check("fused_step", "fused_facility_series launch", code)
+    build.count_launch("fused_facility_series")
+    return out, series, want
+
+
+def flows_from_series(series: torch.Tensor, want: torch.Tensor,
+                      chiller_derate=None) -> dict:
+    """The series route's [..., N_SERIES, S] flows and [..., S] decisions
+    as the dict of `ref.fused_facility_chain` (views, no copy), with the
+    chiller-derate series that was applied (ones when healthy)."""
+    flows = dict(zip(SERIES_FIELDS, series.unbind(-2)))
+    flows["want_charge"] = want.view(torch.bool)
+    shape = flows["it_kw"].shape
+    flows["chiller_derate"] = (
+        torch.ones(shape, dtype=F32, device=series.device)
+        if chiller_derate is None
+        else torch.broadcast_to(chiller_derate.to(F32), shape))
+    return flows
+
+
 def totals_from_rows(acc: torch.Tensor, cfg) -> dict:
     """The kernel's accumulator lanes as the keys of
     `engine.facility_totals_from_flows` (pricing and export entries gated
@@ -223,3 +275,17 @@ def fused_facility_totals(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
     acc = launch(*prepare(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
                           pv_cf, batt_threshold, ci_rising, cfg, **kwargs))
     return totals_from_rows(acc[0] if it_kw.dim() == 1 else acc, cfg)
+
+
+def fused_facility_series(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
+                          pv_cf, batt_threshold, ci_rising, cfg, **kwargs):
+    """The facility half in one launch of the series route: (flows, totals),
+    the per-step dict of `ref.fused_facility_chain` and the totals dict of
+    `fused_facility_totals` (the same bits as the totals route's)."""
+    acc, series, want = launch_series(*prepare(
+        it_kw, ci, wet_bulb_c, price, price_lo, price_hi, pv_cf,
+        batt_threshold, ci_rising, cfg, **kwargs))
+    if it_kw.dim() == 1:
+        acc, series, want = acc[0], series[0], want[0]
+    return (flows_from_series(series, want, kwargs.get("chiller_derate")),
+            totals_from_rows(acc, cfg))

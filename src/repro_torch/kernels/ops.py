@@ -7,10 +7,13 @@ that sends CUDA tensors to the plain versions.
 
 Each kernel keeps a launch count, added to by its wrapper at the launch and
 nowhere else; `launch_counts()` / `reset_launch_counts()` read and clear
-them, so a run can show which kernels its path went through.
+them, so a run can show which kernels its path went through.  An active
+telemetry session is told which way each call went (`plain_kernels` of its
+run records).
 """
 from __future__ import annotations
 
+from ..core import telemetry
 from . import build, ref
 from . import first_fit as _first_fit
 from . import flash_attn as _flash_attn
@@ -26,6 +29,7 @@ KERNELS = build.KERNELS
 def host_power(cpu_util, gpu_util, n_gpus, on, cpu_cfg, gpu_cfg):
     """(power_kw[H], it_kw): per-host power and its sum (kernel 1, without
     the carbon tail)."""
+    telemetry.note_plain_kernels(not cpu_util.is_cuda)
     if cpu_util.is_cuda:
         p, it, _ = _power_carbon.fused_power_carbon(
             cpu_util, gpu_util, n_gpus, on, None, 0.0, cpu_cfg, gpu_cfg)
@@ -38,6 +42,7 @@ def host_power(cpu_util, gpu_util, n_gpus, on, cpu_cfg, gpu_cfg):
 def fused_power_carbon(cpu_util, gpu_util, n_gpus, on, ci, dt_h, cpu_cfg,
                        gpu_cfg):
     """(power_kw, it_kw, op_carbon_kg) in one pass."""
+    telemetry.note_plain_kernels(not cpu_util.is_cuda)
     impl = _power_carbon if cpu_util.is_cuda else ref
     return impl.fused_power_carbon(cpu_util, gpu_util, n_gpus, on, ci, dt_h,
                                    cpu_cfg, gpu_cfg)
@@ -47,6 +52,7 @@ def facility_power(cpu_util, gpu_util, n_gpus, on, wet_bulb_c, setpoint_c,
                    cpu_cfg, gpu_cfg, cooling_cfg):
     """(power_kw, it_kw, cooling_kw, water_l_per_h) in one pass: the power
     block, the host-axis sum and the cooling model of core/thermal.py."""
+    telemetry.note_plain_kernels(not cpu_util.is_cuda)
     impl = _power_carbon if cpu_util.is_cuda else ref
     return impl.fused_facility_power(cpu_util, gpu_util, n_gpus, on,
                                      wet_bulb_c, setpoint_c, cpu_cfg,
@@ -56,6 +62,7 @@ def facility_power(cpu_util, gpu_util, n_gpus, on, wet_bulb_c, setpoint_c,
 def first_fit_place(cand_cores, cand_gpus, free_cores, free_gpus):
     """Greedy first-fit of K candidates onto H hosts:
     (assign i32[K], free cores, free GPUs)."""
+    telemetry.note_plain_kernels(not cand_cores.is_cuda)
     impl = _first_fit if cand_cores.is_cuda else ref
     return impl.first_fit_place(cand_cores, cand_gpus, free_cores, free_gpus)
 
@@ -64,8 +71,23 @@ def fused_facility_totals(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
                           pv_cf, batt_threshold, ci_rising, cfg, **kwargs):
     """The megakernel's facility half over the whole horizon, reduced to
     the totals dict of `engine.facility_totals_from_flows`."""
+    telemetry.note_plain_kernels(not it_kw.is_cuda)
     impl = _fused_step if it_kw.is_cuda else ref
     return impl.fused_facility_totals(it_kw, ci, wet_bulb_c, price, price_lo,
+                                      price_hi, pv_cf, batt_threshold,
+                                      ci_rising, cfg, **kwargs)
+
+
+def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
+                         pv_cf, batt_threshold, ci_rising, cfg, **kwargs):
+    """The facility half with its per-step series: (flows, totals), the
+    dict of `ref.fused_facility_chain` (the traces read through
+    `trace_store`) and the totals of `fused_facility_totals`.  On the card
+    one launch of kernel 3's series route writes both; its totals are the
+    totals route's bits."""
+    telemetry.note_plain_kernels(not it_kw.is_cuda)
+    impl = _fused_step if it_kw.is_cuda else ref
+    return impl.fused_facility_series(it_kw, ci, wet_bulb_c, price, price_lo,
                                       price_hi, pv_cf, batt_threshold,
                                       ci_rising, cfg, **kwargs)
 
@@ -73,6 +95,7 @@ def fused_facility_totals(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
 def ssd_intra_chunk(xdt, da, b, c):
     """Mamba-2 SSD intra-chunk quadratic form: xdt [B,C,Q,H,P], da
     [B,C,H,Q], b / c [B,C,Q,G,N] (H % G == 0) -> y f32 [B,C,Q,H,P]."""
+    telemetry.note_plain_kernels(not xdt.is_cuda)
     impl = _ssd_chunk if xdt.is_cuda else ref
     return impl.ssd_intra_chunk(xdt, da, b, c)
 
@@ -80,5 +103,6 @@ def ssd_intra_chunk(xdt, da, b, c):
 def flash_attention(q, k, v, *, scale: float, causal: bool = True):
     """Online-softmax attention: q [B,Sq,H,D], k / v [B,Sk,KV,D] -> like q
     (causal mask top-left aligned, f32 accumulation)."""
+    telemetry.note_plain_kernels(not q.is_cuda)
     impl = _flash_attn if q.is_cuda else ref
     return impl.flash_attention(q, k, v, scale=scale, causal=causal)

@@ -7,8 +7,9 @@ card's smoke test holds each kernel against them on the same inputs.
   fused_power_carbon     <- csrc/power_carbon.cu  steam_power_carbon
   fused_facility_power   <- csrc/power_carbon.cu  steam_facility_power
   first_fit_place        <- csrc/first_fit.cu     steam_first_fit
-  fused_facility_chain   <- csrc/fused_step.cu    steam_facility_totals
-    (+ engine.facility_totals_from_flows; `fused_facility_totals` below)
+  fused_facility_chain   <- csrc/fused_step.cu    steam_facility_series
+    (+ engine.facility_totals_from_flows: `fused_facility_series` and,
+    totals only, `fused_facility_totals` below <- steam_facility_totals)
   ssd_intra_chunk        <- csrc/ssd_chunk.cu     steam_ssd_intra_chunk
   flash_attention        <- csrc/flash_attn.cu    steam_flash_attention
   ssd_chunk              the sequential SSD recurrence (an oracle, no kernel)
@@ -111,7 +112,9 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
     core/resilience.py) degrades the cooling model step by step as
     `engine.stage_cooling` does; None is the healthy model bit for bit.
     Keys mirror `engine.EnergyFlow` plus `water_l_per_h`, `heat_reuse_kw`,
-    `soc` and `want_charge`."""
+    `soc`, `want_charge` and `chiller_derate` (the derate series that was
+    applied, ones when healthy, as the reference echoes it for the probe
+    bus)."""
     it_kw = it_kw.to(F32)
     zeros = torch.zeros_like(it_kw)
     dt = np.float32(dt_h)
@@ -204,7 +207,12 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
             "grid_import_kw": grid_import_kw, "grid_export_kw": export_kw,
             "curtailed_kw": curtailed_kw, "water_l_per_h": water_l_per_h,
             "heat_reuse_kw": heat_reuse_kw, "soc": soc,
-            "want_charge": want_charge}
+            "want_charge": want_charge,
+            "chiller_derate": (torch.ones_like(it_kw)
+                               if chiller_derate is None
+                               else torch.broadcast_to(
+                                   torch.as_tensor(chiller_derate, dtype=F32),
+                                   it_kw.shape))}
 
 
 def stored_trace(x, store: str):
@@ -215,19 +223,24 @@ def stored_trace(x, store: str):
     return dequantize_trace(quantize_trace(x, store))
 
 
-def fused_facility_totals(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
+def fused_facility_series(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
                           pv_cf, batt_threshold, ci_rising, cfg, *,
                           trace_store: str = "f32", **chain_kwargs):
-    """The totals dict of `engine.facility_totals_from_flows` over the
-    chain above, with the four exogenous traces read through `trace_store`
-    as the kernel reads them."""
+    """(flows, totals): the chain above with the four exogenous traces read
+    through `trace_store` as the kernel reads them, and its totals dict of
+    `engine.facility_totals_from_flows`."""
     from ..core.engine import facility_totals_from_flows  # engine imports ops
     ci, wet_bulb_c, price, pv_cf = (stored_trace(x, trace_store)
                                     for x in (ci, wet_bulb_c, price, pv_cf))
     flows = fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo,
                                  price_hi, pv_cf, batt_threshold, ci_rising,
                                  cfg.dt_h, cfg, **chain_kwargs)
-    return facility_totals_from_flows(flows, ci, price, cfg)
+    return flows, facility_totals_from_flows(flows, ci, price, cfg)
+
+
+def fused_facility_totals(*args, **kwargs):
+    """The totals dict of `fused_facility_series`."""
+    return fused_facility_series(*args, **kwargs)[1]
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,10 @@ CPU, with exact launch counts, and so does a scenario grid (one launch a
 step for all its cells) and a run with host failures and the resilience
 loop (threefry draws bit for bit, kernel 3's derate route), and so do
 aggregate scheduling (no first-fit launch), a task-trace grid and the §III
-analytical model; a reduced zamba2 / mamba2 prefill launches
-exactly its SSD and flash kernels, and serving never waits for the card.
+analytical model, and a run with the probe bus (kernel 3's series route,
+held bit for bit to the plain chain on the CPU); a reduced zamba2 / mamba2
+prefill launches exactly its SSD and flash kernels, and serving never waits
+for the card.
 """
 from __future__ import annotations
 
@@ -406,11 +408,99 @@ def test_grid_on_card_matches_cpu(cuda_device, backend):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("store", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("derate", [False, True])
+def test_facility_series_route_matches_plain(cuda_device, store, derate):
+    """Kernel 3's series route on [4, 2880] rows of different batteries:
+    against the plain chain on the CPU (IEEE divisions, as the kernel's),
+    reading the traces the kernel reads: `soc` and `want_charge` bit-equal,
+    every flow within rtol 1e-4 / atol 1e-3, the derate echo equal; its
+    totals bit-equal to the totals route's; one launch counted under its
+    own name."""
+    from repro_torch.kernels import fused_step as fs
+    d, cpu, s = cuda_device, torch.device("cpu"), 2880
+    ci, dyn = _traces(13, s)
+    rcfg = C.ResilienceConfig(enabled=derate, chiller_mtbf_h=40.0,
+                              chiller_repair_h=12.0)
+    cfg = _cfg(resilience=rcfg).replace(n_steps=s)
+    x = P.build_step_inputs(ci, cfg, dyn, device=d)
+    it_kw = torch.tensor(np.random.default_rng(s).uniform(20.0, 80.0, (4, s)),
+                         dtype=torch.float32, device=d)
+    args = [it_kw, x.ci, x.wet_bulb_c, x.price, x.price_lo, x.price_hi,
+            x.pv_cf, x.batt_threshold, x.ci_rising]
+    kw = {k: torch.tensor(v, device=d) for k, v in ROWS.items()}
+    if derate:
+        kw["chiller_derate"] = x.chiller_derate
+        assert bool((x.chiller_derate < 1.0).any())
+    ops.reset_launch_counts()
+    flows, totals = ops.fused_facility_chain(*args, cfg, trace_store=store,
+                                             **kw)
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "fused_facility_series": 1}
+    route = fs.fused_facility_totals(*args, cfg, trace_store=store, **kw)
+    for k, v in route.items():
+        assert torch.equal(totals[k], v), k
+    stored = [ref.stored_trace(a, store) if i in (1, 2, 3, 6) else a
+              for i, a in enumerate(args)]
+    want = ref.fused_facility_chain(
+        *(a.to(cpu) for a in stored), DT, cfg,
+        **{k: v.to(cpu) for k, v in kw.items()})
+    for k in ("soc", "want_charge", "chiller_derate"):
+        assert torch.equal(flows[k].cpu(), want[k].expand(4, s)), k
+    for k in fs.SERIES_FIELDS:
+        torch.testing.assert_close(flows[k].cpu(), want[k].expand(4, s),
+                                   rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", P.BACKENDS)
+def test_probed_run_on_card_matches_cpu(cuda_device, backend):
+    """A run with the probe bus (stride 3) through the kernels == the same
+    run through the plain versions on the CPU: counts exact, the rest and
+    the probes within rtol 1e-4; the megakernel's facility half takes the
+    series route, and its totals equal the unprobed run's bit for bit."""
+    from repro_torch.workloads import make_workload
+    ci, dyn = _traces(11)
+    cfg = _cfg(backend=backend,
+               probes=C.ProbeConfig(enabled=True, stride=3))
+    results, counts = {}, {}
+    for dev in (torch.device("cpu"), cuda_device):
+        tasks, hosts, _, _ = make_workload("marconi", scale=0.03, seed=1,
+                                           horizon_days=S * DT / 24,
+                                           device=dev)
+        ops.reset_launch_counts()
+        final, _ = P.simulate(tasks, hosts, ci, cfg,
+                              dyn={**dyn, "n_active_hosts": 20}, device=dev)
+        results[dev.type] = P.result_to_numpy(P.summarize(final, cfg))
+        counts[dev.type] = ops.launch_counts()
+    want = {"first_fit_place": S}
+    if backend == "megakernel":
+        want.update(fused_power_carbon=S, fused_facility_series=1)
+    else:
+        want["fused_facility_power"] = S
+    assert {k: v for k, v in counts["cuda"].items() if v} == want
+    got, ref_res = results["cuda"], results["cpu"]
+    for k, v in ref_res.items():
+        if k == "probes":
+            np.testing.assert_array_equal(got[k]["step"], v["step"])
+            for f, pv in v.items():
+                np.testing.assert_allclose(got[k][f], pv, rtol=1e-4,
+                                           atol=1e-4, err_msg=f)
+        elif k.startswith("n_") or k.startswith("class_n_"):
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-4,
+                                       err_msg=k)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("backend", P.BACKENDS)
 def test_step_loop_never_waits_for_the_card(cuda_device, backend):
     """With inputs already on the card, `simulate` enqueues work and never
-    reads a value back: PyTorch's sync debug mode raises on any operation
-    that would make the host wait for the device."""
+    reads a value back, with the probe bus off and on: PyTorch's sync
+    debug mode raises on any operation that would make the host wait for
+    the device."""
     from repro_torch.workloads import make_workload
     ci, dyn = _traces(5)
     to = lambda x: torch.tensor(x, device=cuda_device)  # noqa: E731
@@ -423,14 +513,28 @@ def test_step_loop_never_waits_for_the_card(cuda_device, backend):
     from repro_torch.kernels import build
     build.build_all()  # the first use builds and loads: not a device wait
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        final, _ = P.simulate(tasks, hosts, ci, cfg,
-                              dyn={**dyn, "n_active_hosts": 20},
-                              device=cuda_device)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    assert float(P.summarize(final, cfg).n_done) > 0
+    finals = []
+    for c in (cfg, cfg.replace(probes=C.ProbeConfig(enabled=True,
+                                                    stride=3))):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            final, _ = P.simulate(tasks, hosts, ci, c,
+                                  dyn={**dyn, "n_active_hosts": 20},
+                                  device=cuda_device)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        finals.append(P.summarize(final, c))
+    assert float(finals[0].n_done) > 0
+    assert finals[0].probes is None
+    assert finals[1].probes.step.shape == (S // 3,)
+    # the per-host sums' atomic adds move per-step IT by an ulp now and
+    # then from run to run: counts exact, the rest within rtol 1e-5
+    for f in finals[0]._fields[:-1]:
+        a, b = getattr(finals[0], f), getattr(finals[1], f)
+        if f.startswith("n_") or f.startswith("class_n_"):
+            assert torch.equal(a, b), f
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0.0)
 
 
 def _fleet(n_regions: int = 3):

@@ -362,17 +362,16 @@ def test_trace_validation():
     ("probes", ("ProbeConfig", {"enabled": True})),
 ])
 def test_unported_subsystems_raise(field, value):
-    """The probe bus is refused naming its ROADMAP item.  Failures and the
-    resilience loop are ported (tests/test_torch_resilience.py holds them
-    to the reference): they run."""
+    """Nothing of these is refused any more: failures, the resilience loop
+    and the probe bus are ported (tests/test_torch_resilience.py and
+    tests/test_torch_telemetry.py hold them to the reference): they run,
+    and the probe bus fills its ring."""
     cls, kw = value
     cfg = _base_cfg().replace(**{field: getattr(pconfig, cls)(**kw)})
-    if field == "probes":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_port(cfg)
-        return
     got, _ = run_port(cfg)
     assert np.isfinite(got["total_carbon_kg"]) and got["n_done"] > 0
+    if field == "probes":
+        np.testing.assert_array_equal(got["probes"]["step"], np.arange(S))
 
 
 @pytest.mark.parametrize("key", ["interactive_frac", "failure_hazard_scale",
@@ -430,6 +429,7 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert 'repro_torch.core.telemetry' in sys.modules\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     src = os.path.join(os.path.dirname(__file__), "..", "src")

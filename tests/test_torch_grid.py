@@ -494,9 +494,6 @@ def _fleet_grid(a):
     (lambda g, a: _fleet_grid(a).run(*a[:3], mesh=object(), device="cpu"),
      "item 6f"),
     (lambda g, a: _fleet_grid(a).run_shard_map(*a[:3]), "item 6f"),
-    (lambda g, a: P.simulate_fleet(*a[:2], a[2].replace(
-        probes=pconfig.ProbeConfig(enabled=True)),
-        P.FleetSpec(ci_traces=a[3]), device="cpu"), "item 5"),
     (lambda g, a: g.run(*a, mesh=object(), device="cpu"), "item 6f"),
     (lambda g, a: P.sweep_grid(*a[:3], g.axes, executor="shard_map",
                                device="cpu"), "item 6f"),
@@ -516,18 +513,18 @@ def test_unported_grid_parts_raise(workload, traces, call, item):
 
 
 def test_engine_refusals_hold_per_grid(workload, traces):
-    """What the engine refuses it refuses per grid too: the probe bus
-    (naming its ROADMAP item), and the resilience loop's dyn keys while
-    the loop is off (the reference's ValueError)."""
+    """What the engine refuses it refuses per grid too: the resilience
+    loop's dyn keys while the loop is off (the reference's ValueError).
+    The probe bus, once refused, runs per grid: a ring a cell."""
     tasks, hosts = workload[1]
     with pytest.raises(ValueError, match="resilience"):
         P.sweep_grid(tasks, hosts, pconfig.SimConfig(n_steps=N_STEPS),
                      [P.dyn_axis(failure_hazard_scale=np.array([0.5, 1.0]))],
                      ci_trace=traces[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.sweep_grid(tasks, hosts, pconfig.SimConfig(
-            n_steps=N_STEPS, probes=pconfig.ProbeConfig(enabled=True)),
-            [P.trace_axis(traces)], device="cpu")
+    res = P.sweep_grid(tasks, hosts, pconfig.SimConfig(
+        n_steps=N_STEPS, probes=pconfig.ProbeConfig(enabled=True)),
+        [P.trace_axis(traces)], device="cpu")
+    assert res.probes.step.shape == (len(traces), N_STEPS)
 
 
 # ---------------------------------------------------------------------------

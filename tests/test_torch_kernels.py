@@ -458,3 +458,62 @@ def test_ops_plain_path_is_taken_only_for_cpu_tensors():
     ops.reset_launch_counts()
     ops.first_fit_place(*(T(x) for x in _ff_inputs(4, 3, 0)))
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+@pytest.mark.parametrize("s", [1, 255, 1024, 2880, 35040])
+def test_facility_series_plan_fits_two_blocks_an_sm(s):
+    """Kernel 3's series route keeps the totals route's tiles and adds one
+    SoC tile a round to shared memory; two of its largest blocks still fit
+    on an H100 SM."""
+    tile, n_tiles, smem = fs.launch_plan(s, series=True)
+    assert (tile, n_tiles) == fs.launch_plan(s)[:2]
+    assert smem == fs.smem_bytes(tile) + 4 * 2 * tile
+    assert 2 * fs.smem_bytes(fs.TILE_MAX, series=True) <= 228 * 1024
+
+
+@pytest.mark.parametrize("b,s", [(1, 1), (1, 2880), (3, 255)])
+def test_facility_series_launch_passes_its_outputs(recorded_launch, b, s):
+    """The series route's entry point takes the totals route's arguments
+    plus the [B, F, S] series and [B, S] decision buffers, and counts its
+    launch under its own name."""
+    rng = np.random.default_rng(s)
+    x = [T(rng.uniform(lo, hi, (b, s)).astype(np.float32)) for lo, hi in (
+        (20, 80), (50, 600), (5, 25), (0.05, 0.2), (0.04, 0.1), (0.1, 0.3),
+        (0, 1), (50, 600))] + [T(rng.uniform(size=(b, s)) < 0.5)]
+    cfg = _cfg(pconfig, True, True, True, "blended")
+    ops.reset_launch_counts()
+    acc, series, want = fs.launch_series(*fs.prepare(*x, cfg))
+    (args,) = recorded_launch.calls
+    assert len(args) == 18
+    fcfg, store, nb = args[11]._obj, args[12], args[13]
+    assert (fcfg.n_steps, fcfg.tile, store, nb) == (
+        s, fs.launch_plan(s, series=True)[0], 0, b)
+    assert [a.value for a in args[14:17]] == [
+        t.data_ptr() for t in (acc, series, want)]
+    assert acc.shape == (b, fs.N_ACC)
+    assert series.shape == (b, fs.N_SERIES, s) and want.shape == (b, s)
+    assert want.dtype == torch.uint8
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "fused_facility_series": 1}
+
+
+def test_series_rows_map_to_the_chain_keys():
+    """Each row of the series block is its `ref.fused_facility_chain` key
+    (a view, no copy); the decision bytes read as bools; the derate echo
+    is the series given, ones when healthy."""
+    series = torch.arange(2 * fs.N_SERIES * 5, dtype=torch.float32).reshape(
+        2, fs.N_SERIES, 5)
+    want = torch.tensor([[0, 1, 0, 1, 1], [1, 0, 0, 0, 1]], dtype=torch.uint8)
+    flows = fs.flows_from_series(series, want)
+    for i, key in enumerate(fs.SERIES_FIELDS):
+        assert torch.equal(flows[key], series[:, i])
+        assert flows[key].data_ptr() == series[:, i].data_ptr()
+    assert torch.equal(flows["want_charge"], want.bool())
+    assert torch.equal(flows["chiller_derate"], torch.ones(2, 5))
+    derate = torch.tensor([1.0, 0.5, 1.0, 0.5, 1.0])
+    flows = fs.flows_from_series(series, want, derate)
+    assert torch.equal(flows["chiller_derate"], derate.expand(2, 5))
+    cfg = _cfg(pconfig, True, True, True, "carbon")
+    keys = ref.fused_facility_chain(*[torch.ones(8)] * 8,
+                                    torch.ones(8, dtype=torch.bool), DT, cfg)
+    assert set(flows) == set(keys)
