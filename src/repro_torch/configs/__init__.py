@@ -3,8 +3,9 @@ package's `configs/`, equal field for field).
 
 `ARCHS` maps the architecture ids to their full published configs;
 `reduced(id)` returns the family-preserving small variant.  The port serves
-the `ssm` and `hybrid` families (mamba2-2.7b, zamba2-7b); `get_model`
-refuses the others.
+the `ssm`, `hybrid`, `dense` and `vlm` families (mamba2-2.7b, zamba2-7b,
+qwen2-1.5b, stablelm-1.6b, gemma2-2b, gemma3-4b, paligemma-3b);
+`get_model` refuses the others.
 """
 from __future__ import annotations
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import HOURS_PER_YEAR, BatteryConfig
+from .config import HOURS_PER_YEAR, BatteryConfig, inv_f32
 from .state import BatteryState, f32
 
 POLICIES = ("carbon", "price", "blended")
@@ -168,14 +168,17 @@ def battery_flow_step(batt: BatteryState, load_kw, ci, threshold, ci_rising,
         want_charge, want_discharge, charge_cap_kw = surplus_aware_dispatch(
             want_charge, want_discharge, pv_surplus_kw)
 
-    # clamp(max=bound) is jnp.minimum with a host-scalar or 0-d bound
-    headroom_kw = (cap - batt.charge) / dt_h
+    # clamp(max=bound) is jnp.minimum with a host-scalar or 0-d bound; the
+    # reference's jitted division by the constant step is a product with
+    # its f32 reciprocal
+    inv_dt = inv_f32(dt_h)
+    headroom_kw = (cap - batt.charge) * inv_dt
     charge_kw = torch.clamp(torch.clamp(headroom_kw, min=0.0), max=rate)
     if charge_cap_kw is not None:
         charge_kw = torch.minimum(charge_kw, charge_cap_kw)
     charge_kw = torch.where(want_charge, charge_kw, 0.0)
 
-    avail_kw = batt.charge / dt_h
+    avail_kw = batt.charge * inv_dt
     discharge_kw = torch.minimum(torch.clamp(avail_kw, max=rate), load_kw)
     discharge_kw = torch.where(want_discharge & ~want_charge, discharge_kw,
                                0.0)
@@ -185,6 +188,26 @@ def battery_flow_step(batt: BatteryState, load_kw, ci, threshold, ci_rising,
         max=cap)
     return (BatteryState(charge=new_charge, was_charging=want_charge),
             charge_kw, discharge_kw)
+
+
+def battery_step(batt: BatteryState, dc_power_kw, ci, threshold, ci_rising,
+                 dt_h: float, cfg: BatteryConfig, capacity_kwh=None,
+                 rate_kw=None, price=None, price_lo=None, price_hi=None,
+                 dispatch_lambda=None):
+    """One battery decision.  Returns (new_state, grid_power_kw,
+    discharged_kwh): charging adds to the grid draw (the power spike of
+    paper Fig 9A), discharging serves datacenter load from storage.  A thin
+    wrapper over `battery_flow_step`."""
+    if not cfg.enabled:
+        return batt, dc_power_kw, torch.zeros((), dtype=torch.float32,
+                                              device=dc_power_kw.device)
+    new_state, charge_kw, discharge_kw = battery_flow_step(
+        batt, dc_power_kw, ci, threshold, ci_rising, dt_h, cfg,
+        capacity_kwh=capacity_kwh, rate_kw=rate_kw, price=price,
+        price_lo=price_lo, price_hi=price_hi,
+        dispatch_lambda=dispatch_lambda)
+    grid_kw = dc_power_kw + charge_kw - discharge_kw
+    return new_state, grid_kw, discharge_kw * dt_h
 
 
 def battery_embodied_rate_kg_per_h(cfg: BatteryConfig) -> float:

@@ -6,11 +6,12 @@ manufacturing carbon pro-rata over their lifetime for the run's duration.
 """
 from __future__ import annotations
 
-from .config import HOURS_PER_YEAR, EmbodiedConfig
+from .config import HOURS_PER_YEAR, EmbodiedConfig, inv_f32
 
 
 def operational_carbon_kg(grid_energy_kwh, ci_g_per_kwh):
-    return grid_energy_kwh * ci_g_per_kwh / 1000.0
+    # the reference's jitted `/ 1000.0`: a product with the f32 reciprocal
+    return grid_energy_kwh * ci_g_per_kwh * inv_f32(1000.0)
 
 
 def host_embodied_rate_kg_per_h(cfg: EmbodiedConfig) -> float:

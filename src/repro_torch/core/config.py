@@ -10,7 +10,18 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
+
 HOURS_PER_YEAR = 8766.0
+
+
+def inv_f32(c) -> np.float32:
+    """The f32 reciprocal of a host constant, rounded once in f32 (C's
+    `1.0f / c`).  Under `jit` the reference's `x / c`, with `c` known at
+    compile time, is XLA's `x * (1 / c)`; `x * inv_f32(c)` gives its bits on
+    every device (PyTorch's CUDA `tensor / scalar` takes the same
+    product)."""
+    return np.float32(1.0) / np.float32(c)
 
 
 @dataclass(frozen=True)

@@ -88,7 +88,7 @@ from . import shifting as shifting_mod
 from . import state as state_mod
 from . import telemetry
 from . import thermal as thermal_mod
-from .config import HOURS_PER_YEAR, SimConfig
+from .config import HOURS_PER_YEAR, SimConfig, inv_f32
 from .state import (DONE, PENDING, RUNNING, BatteryState, HostTable,
                     MetricsAcc, SimState, TaskTable, as_tensor, f32,
                     init_sim_state)
@@ -907,7 +907,7 @@ def facility_totals_from_flows(flows: dict, ci, price,
         return x.sum(-1) * dt
 
     totals = {
-        "op_carbon": (grid * ci).sum(-1) * dt / 1000.0,
+        "op_carbon": (grid * ci).sum(-1) * dt * inv_f32(1000.0),
         "grid_energy": total(grid),
         "dc_energy": total(load),
         "it_energy": total(flows["it_kw"]),

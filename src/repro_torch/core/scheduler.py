@@ -27,11 +27,12 @@ F32 = torch.float32
 I32 = torch.int32
 
 
-def _per_host_sum(vals, seg, h: int):
-    """Per-host sum of `vals` over the bins `seg` of `_running_seg`, along
-    the last axis ([T] -> [H], [B, T] -> [B, H])."""
-    out = vals.new_zeros(*seg.shape[:-1], h + vals.shape[-1])
-    return out.scatter_add_(-1, seg, vals)[..., :h]
+def _per_host_sum(v0, v1, seg, h: int) -> tuple:
+    """Per-host sums of v0 and v1 over the bins `seg` of `_running_seg`,
+    along the last axis ([T] -> [H], [B, T] -> [B, H]): each host's tasks
+    added in task order, the same bits on the card as on the CPU
+    (`ops.per_host_sum`, one launch for both)."""
+    return ops.per_host_sum(v0, v1, seg, h)
 
 
 def _running_seg(tasks: TaskTable, h: int):
@@ -53,8 +54,9 @@ def free_capacity(tasks: TaskTable, hosts: HostTable):
     """Per-host free CPU cores and GPUs, recomputed from the task table."""
     h = hosts.cores.shape[-1]
     running, seg = _running_seg(tasks, h)
-    used_c = _per_host_sum(torch.where(running, tasks.cores, 0.0), seg, h)
-    used_g = _per_host_sum(torch.where(running, tasks.gpus, 0.0), seg, h)
+    used_c, used_g = _per_host_sum(torch.where(running, tasks.cores, 0.0),
+                                   torch.where(running, tasks.gpus, 0.0),
+                                   seg, h)
     avail = (hosts.active & hosts.up).to(F32)
     return hosts.cores * avail - used_c, hosts.n_gpus * avail - used_g
 
@@ -63,9 +65,8 @@ def host_utilization(tasks: TaskTable, hosts: HostTable):
     """Per-host CPU/GPU utilization in [0, 1] from running tasks."""
     h = hosts.cores.shape[-1]
     running, seg = _running_seg(tasks, h)
-    cpu = _per_host_sum(
-        torch.where(running, tasks.cores * tasks.cpu_util, 0.0), seg, h)
-    gpu = _per_host_sum(
+    cpu, gpu = _per_host_sum(
+        torch.where(running, tasks.cores * tasks.cpu_util, 0.0),
         torch.where(running, tasks.gpus * tasks.gpu_util, 0.0), seg, h)
     cpu_u = torch.where(hosts.cores > 0,
                         cpu / torch.clamp(hosts.cores, min=1e-6), 0.0)

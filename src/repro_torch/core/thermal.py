@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import CoolingConfig
+from .config import CoolingConfig, inv_f32
 from .state import f32
 
 _T_ZERO_K = 273.15
@@ -37,9 +37,10 @@ def economizer_fraction(wet_bulb_c, cfg: CoolingConfig, setpoint_c=None,
     with `availability`, ``1 - (1 - frac) * availability``."""
     sp = _setpoint(cfg, setpoint_c)
     rng = np.maximum(np.float32(cfg.economizer_range_c), np.float32(1e-6))
-    # f32 scalar arithmetic on both sides, as in the reference
+    # f32 scalar arithmetic on both sides, as in the reference; its jitted
+    # division by the constant range is a product with the reciprocal
     lo = sp - rng
-    frac = torch.clamp((wet_bulb_c - lo) / rng, 0.0, 1.0)
+    frac = torch.clamp((wet_bulb_c - lo) * inv_f32(rng), 0.0, 1.0)
     if availability is None:
         return frac
     return 1.0 - (1.0 - frac) * availability

@@ -31,7 +31,7 @@ from ..core import telemetry
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("power_carbon", "first_fit", "fused_step", "ssd_chunk",
-           "flash_attn")
+           "flash_attn", "host_sum")
 
 # IEEE division and sqrt (no --use_fast_math) and no contracted multiply-add,
 # so the kernels repeat their plain versions' f32 arithmetic operation for
@@ -43,7 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("fused_power_carbon", "fused_facility_power",
            "fused_facility_totals", "fused_facility_series",
-           "first_fit_place", "ssd_intra_chunk", "flash_attention")
+           "first_fit_place", "ssd_intra_chunk", "flash_attention",
+           "per_host_sum")
 _launches = dict.fromkeys(KERNELS, 0)
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, object] = {}

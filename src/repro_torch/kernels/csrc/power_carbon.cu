@@ -27,8 +27,11 @@
 //
 // Arithmetic follows the reference term for term in f32; the library is
 // built without --use_fast_math and with --fmad=false, so sqrtf and the
-// divisions are IEEE and no multiply-add is contracted.  Only the order of
-// the IT sum differs from the reference's.
+// divisions are IEEE and no multiply-add is contracted.  A division by a
+// constant of the configuration (1000, the economizer's range) is the
+// product with its f32 reciprocal, as the reference's jitted kernel
+// computes it; a division by a value of the step stays IEEE.  Only the
+// order of the IT sum differs from the reference's.
 #include "common.cuh"
 
 // Parameter blocks passed by value; named (not file-local) types, so the
@@ -44,6 +47,8 @@ struct CoolingParams {
 };
 
 namespace {
+
+constexpr float kInvKilo = 1.0f / 1000.0f;  // rounded once, in f32
 
 __device__ __forceinline__ float curve(float u, int kind) {
   switch (kind) {
@@ -62,7 +67,7 @@ __device__ __forceinline__ float host_kw(float cpu_u, float gpu_u,
   const float gu = fminf(fmaxf(gpu_u, 0.0f), 1.0f);
   const float p_cpu = p.cpu_idle + p.cpu_span * curve(cu, p.cpu_curve);
   const float p_gpu = (p.gpu_idle + p.gpu_span * curve(gu, p.gpu_curve)) * n_gpus;
-  return (p_cpu + p_gpu) * on / 1000.0f;
+  return (p_cpu + p_gpu) * on * kInvKilo;
 }
 
 // The row pass of both kernels: one host a thread (a row wider than the
@@ -116,7 +121,7 @@ power_carbon_kernel(const float* __restrict__ cpu_u,
     return;
   // the carbon tail of power_carbon.py, in the reference's order
   it[row] = total;
-  carbon[row] = ci == nullptr ? 0.0f : total * dt * ci_row / 1000.0f;
+  carbon[row] = ci == nullptr ? 0.0f : total * dt * ci_row * kInvKilo;
 }
 
 __global__ void __launch_bounds__(1024)
@@ -141,7 +146,8 @@ facility_power_kernel(const float* __restrict__ cpu_u,
     return;
   // the cooling tail of power_carbon.py:110-122 / core/thermal.py
   const float rng = fmaxf(c.econ_range, 1e-6f);
-  const float frac = fminf(fmaxf((wb - (sp - rng)) / rng, 0.0f), 1.0f);
+  const float frac =
+      fminf(fmaxf((wb - (sp - rng)) * (1.0f / rng), 0.0f), 1.0f);
   const float lift = fmaxf(wb + c.tower_approach + c.condenser_lift - sp, 1.0f);
   const float cop = fminf(fmaxf(c.carnot_eff * (sp + 273.15f) / lift, 1.0f),
                           c.max_cop);

@@ -32,19 +32,18 @@ import torch
 from ..core import battery as battery_mod
 from ..core import pricing as pricing_mod
 from ..core.quant import STORES, quantize_trace
+from ..core.config import inv_f32
 from . import build
 
 F32 = torch.float32
 POLICY_CODES = {"carbon": 0, "price": 1, "blended": 2}
 
-# lanes of the kernel's [B, 19] output row: the reference's 18 accumulator
-# lanes, then the number of tiles whose SoC chain ran with the division
-# written out (a SoC in (0, 2^-100), or a step, capacity or initial SoC
-# outside the fast division's range)
+# lanes of the kernel's [B, 18] output row: the reference's 18 accumulator
+# lanes
 (A_SOC, A_WPEAK, A_WASC, A_DEMAND, A_GRID, A_GRID_CI, A_GRID_PR, A_GRID_MAX,
  A_IT, A_COOL, A_WATER, A_HEAT, A_PV, A_CK, A_DK, A_EXP, A_EXP_PR,
- A_CUR, A_SLOW) = range(19)
-N_ACC = 19
+ A_CUR) = range(18)
+N_ACC = 18
 
 # the series route's [B, N_SERIES, S] rows (csrc/fused_step.cu, F_*), in the
 # order of `ref.fused_facility_chain`'s keys
@@ -188,7 +187,7 @@ def prepare(it_kw, ci, wet_bulb_c, price, price_lo, price_hi, pv_cf,
 
 
 def launch(tensors, fcfg: _FacilityConfig, store: int, b: int):
-    """One launch; returns the [B, 19] rows (`A_*` lanes)."""
+    """One launch; returns the [B, 18] rows (`A_*` lanes)."""
     out = torch.empty((b, N_ACC), dtype=F32, device=tensors[0].device)
     fn = build.function("fused_step", "steam_facility_totals", [
         *[ctypes.c_void_p] * 11, ctypes.POINTER(_FacilityConfig),
@@ -201,7 +200,7 @@ def launch(tensors, fcfg: _FacilityConfig, store: int, b: int):
 
 
 def launch_series(tensors, fcfg: _FacilityConfig, store: int, b: int):
-    """One launch of the series route; returns the [B, 19] rows (`A_*`
+    """One launch of the series route; returns the [B, 18] rows (`A_*`
     lanes), the [B, N_SERIES, S] f32 flows (`SERIES_FIELDS`) and the [B, S]
     u8 charge decisions."""
     dev = tensors[0].device
@@ -242,7 +241,7 @@ def totals_from_rows(acc: torch.Tensor, cfg) -> dict:
     dt = np.float32(cfg.dt_h)
     a = lambda k: acc[..., k]  # noqa: E731
     totals = {
-        "op_carbon": a(A_GRID_CI) * dt / 1000.0,
+        "op_carbon": a(A_GRID_CI) * dt * inv_f32(1000.0),
         "grid_energy": a(A_GRID) * dt,
         "dc_energy": (a(A_IT) + a(A_COOL)) * dt,
         "it_energy": a(A_IT) * dt,

@@ -18,6 +18,7 @@ from . import build, ref
 from . import first_fit as _first_fit
 from . import flash_attn as _flash_attn
 from . import fused_step as _fused_step
+from . import host_sum as _host_sum
 from . import power_carbon as _power_carbon
 from . import ssd_chunk as _ssd_chunk
 
@@ -90,6 +91,15 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
     return impl.fused_facility_series(it_kw, ci, wet_bulb_c, price, price_lo,
                                       price_hi, pv_cf, batt_threshold,
                                       ci_rising, cfg, **kwargs)
+
+
+def per_host_sum(v0, v1, seg, h: int) -> tuple:
+    """Per-host sums of two value channels over the bins `seg` ([T] / [B, T]
+    like the values; bins >= h are spare and dropped), each host's values
+    added in task order: ([..., h], [..., h]) f32."""
+    telemetry.note_plain_kernels(not seg.is_cuda)
+    impl = _host_sum if seg.is_cuda else ref
+    return impl.per_host_sum(v0, v1, seg, h)
 
 
 def ssd_intra_chunk(xdt, da, b, c):

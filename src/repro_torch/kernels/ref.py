@@ -7,6 +7,7 @@ card's smoke test holds each kernel against them on the same inputs.
   fused_power_carbon     <- csrc/power_carbon.cu  steam_power_carbon
   fused_facility_power   <- csrc/power_carbon.cu  steam_facility_power
   first_fit_place        <- csrc/first_fit.cu     steam_first_fit
+  per_host_sum           <- csrc/host_sum.cu      steam_host_sum
   fused_facility_chain   <- csrc/fused_step.cu    steam_facility_series
     (+ engine.facility_totals_from_flows: `fused_facility_series` and,
     totals only, `fused_facility_totals` below <- steam_facility_totals)
@@ -32,6 +33,7 @@ from ..core import renewables as renewables_mod
 from ..core import thermal as thermal_mod
 from ..core.power import host_power_kw
 from ..core.quant import dequantize_trace, quantize_trace
+from ..core.config import inv_f32
 
 F32 = torch.float32
 
@@ -43,7 +45,7 @@ def fused_power_carbon(cpu_util, gpu_util, n_gpus, on, ci, dt_h: float,
     it = p.sum(-1)
     if ci is None:
         return p, it, torch.zeros_like(it)
-    return p, it, it * np.float32(dt_h) * ci / 1000.0
+    return p, it, it * np.float32(dt_h) * ci * inv_f32(1000.0)
 
 
 def fused_facility_power(cpu_util, gpu_util, n_gpus, on, wet_bulb_c,
@@ -86,6 +88,18 @@ def first_fit_place(cand_cores, cand_gpus, free_cores, free_gpus):
     if one_d:
         return assign[0], fc[0], fg[0]
     return assign, fc, fg
+
+
+def per_host_sum(v0, v1, seg, h: int) -> tuple:
+    """Per-host sums of v0 and v1 over the bins `seg` along the last axis
+    ([T] -> [h], [B, T] -> [B, h]); bins h and up are spare ones, dropped.
+    On the CPU `scatter_add_` adds in task order, as the reference's
+    `segment_sum` does; on the card it adds with atomics, in an order that
+    changes from run to run."""
+    def one(v):
+        acc = v.new_zeros(*seg.shape[:-1], h + v.shape[-1])
+        return acc.scatter_add_(-1, seg, v)[..., :h]
+    return one(v0), one(v1)
 
 
 def _column(x):
@@ -171,12 +185,14 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
         charge_kw = torch.empty_like(soc)
         discharge_kw = torch.empty_like(soc)
         cur = torch.zeros((*lead, 1), dtype=F32, device=it_kw.device) + soc0
+        inv_dt = inv_f32(dt)  # the jitted reference's `/ dt`
         for j in range(s):
             at = slice(j, j + 1)
-            ck = torch.clamp(torch.clamp((cap - cur) / dt, min=0.0), max=rate)
+            ck = torch.clamp(torch.clamp((cap - cur) * inv_dt, min=0.0),
+                             max=rate)
             ck = torch.minimum(ck, charge_cap_kw[..., at])
             ck = torch.where(wc[..., at], ck, 0.0)
-            dk = torch.minimum(torch.clamp(cur / dt, max=rate),
+            dk = torch.minimum(torch.clamp(cur * inv_dt, max=rate),
                                net_load[..., at])
             dk = torch.where(wd[..., at] & (cur > 0.0) & ~wc[..., at], dk,
                              0.0)

@@ -4,17 +4,19 @@ package's `models/config.py`, field for field, so configs compare equal).
 One frozen (hashable) dataclass describes every architecture family: dense
 decoders (qwen2 / stablelm / gemma2 / gemma3 and the paligemma backbone),
 SSMs (mamba2), MoE decoders (qwen3-moe, deepseek-v2 with MLA), hybrids
-(zamba2), and the whisper encoder-decoder.  The port serves the `ssm` and
-`hybrid` families (`models/registry.py`); the others are data only.
+(zamba2), and the whisper encoder-decoder.  The port serves the `ssm`,
+`hybrid`, `dense` and `vlm` families (`models/registry.py`); the others are
+data only.
 
 `reduced()` in each config module derives the small variant of the same
 family (few layers, narrow width, tiny vocab) that the CPU tests use.
 
 Fields that steer the reference's sharding, remat and layer scan
 (`remat`, `remat_policy`, `scan_layers`, `seq_shard_residual`,
-`attn_block`, `attn_impl`) are kept so the configs compare, and mean
-nothing to the port: it runs on one device, eagerly, and routes attention
-by the tensor's device (`models/layers.attention`), not by `attn_impl`.
+`attn_impl`) are kept so the configs compare, and mean nothing to the
+port: it runs on one device, eagerly, and routes attention by window and
+softcap (`models/layers.attention`), not by `attn_impl`.  `attn_block` is
+the query block of the blockwise softmax in both packages.
 """
 from __future__ import annotations
 

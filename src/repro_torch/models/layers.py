@@ -1,9 +1,10 @@
 """Building blocks of the model substrate's serving path.
 
-The port of the reference package's `models/layers.py`, the parts the `ssm`
-and `hybrid` families use: parameter tables and their initialisation,
-normalisation, rotary embeddings, attention (prefill and one-token decode
-against a KV cache), the gated feed-forward block, embedding and logits.
+The port of the reference package's `models/layers.py`, the parts the
+`ssm`, `hybrid`, `dense` and `vlm` families use: parameter tables and their
+initialisation, normalisation, rotary embeddings, attention (prefill, with
+the local / global window of a layer, and one-token decode against a KV
+cache), the gated feed-forward block, embedding and logits.
 Everything is a function over explicit parameter dicts whose leaves carry
 the reference's stacked layer axes, so a parameter tree converts leaf for
 leaf (`models/convert.py`).
@@ -128,7 +129,8 @@ def layer(tree: dict, *idx) -> dict:
 
 # leaves (and subtrees) the forward reads in f32, never in the compute type
 _NOT_CAST = ("a_log", "dt_bias", "gate_norm")
-_NORMS = ("ln", "ln1", "ln2", "ln_f", "q_norm", "k_norm")
+_NORMS = ("ln", "ln1", "ln2", "ln_f", "q_norm", "k_norm", "post_attn",
+          "post_mlp")
 
 
 def cast_for_compute(cfg: ArchConfig, params: dict) -> dict:
@@ -317,6 +319,24 @@ def attention(cfg: ArchConfig, p: dict, x, positions, *, window: int = 0,
         mask = causal_mask(x.shape[1], x.shape[1], 0, window, device=x.device)
         out = sdpa(q, k, v, mask, scale, cfg.attn_softcap)
     return _merge_heads(out, _c(p["wo"], out.dtype))
+
+
+def layer_window(cfg: ArchConfig, layer_idx: int) -> int:
+    """Sliding-window size of layer `layer_idx` (0 = global) under the
+    config's local / global pattern: gemma2 (local_pattern 2) makes even
+    layers local, gemma3 (6) every layer with idx % 6 != 5."""
+    if not cfg.local_pattern:
+        return 0
+    is_local = layer_idx % cfg.local_pattern != cfg.local_pattern - 1
+    return cfg.sliding_window if is_local else 0
+
+
+def attention_traced_window(cfg: ArchConfig, p: dict, x, positions,
+                            window: int):
+    """Attention of a dense layer whose window is `layer_window`'s (the
+    reference traces it; here it is a host integer, so `attention`'s
+    dispatch applies: flash for a global layer without softcap)."""
+    return attention(cfg, p, x, positions, window=window)
 
 
 def cache_update(cache, new, pos: int):

@@ -10,9 +10,10 @@ reference's `models/registry.py`, its serving half):
 `decode_step` writes the cache in place and returns it.  `init` and
 `init_cache` take `device=` and default to "cuda"; the tensors' device
 decides whether the kernels or their plain versions run.  The port serves
-the `ssm` (mamba2) and `hybrid` (zamba2) families; the others, and
-training (`loss`), raise NotImplementedError naming the ROADMAP item they
-wait for.
+four families: `ssm` (mamba2), `hybrid` (zamba2), `dense` (qwen2, stablelm,
+gemma2, gemma3) and `vlm` (paligemma, whose prefill batch may carry
+"patch_embeds" [B, P, frontend_dim]).  The others, and training (`loss`),
+raise NotImplementedError naming the ROADMAP item they wait for.
 """
 from __future__ import annotations
 
@@ -21,14 +22,10 @@ from typing import Callable
 
 import torch
 
-from . import hybrid, layers, ssm
+from . import hybrid, layers, ssm, transformer
 from .config import ArchConfig
 
 _WAITS = {
-    "dense": "dense decoders (attention_traced_window) wait for ROADMAP "
-             "Queue 1 item 6b",
-    "vlm": "the VLM family (attention_traced_window) waits for ROADMAP "
-           "Queue 1 item 6b",
     "moe": "the MoE family (models/moe.py) waits for ROADMAP Queue 1 item 6c",
     "encdec": "the encoder-decoder family (models/whisper.py) waits for "
               "ROADMAP Queue 1 item 6d",
@@ -66,6 +63,14 @@ class Model:
 
 def get_model(cfg: ArchConfig) -> Model:
     fam = cfg.family
+    if fam in ("dense", "vlm"):
+        return Model(
+            cfg=cfg, param_defs=transformer.dense_defs(cfg),
+            prefill=lambda p, b: transformer.dense_logits(
+                cfg, p, b["tokens"], b.get("patch_embeds"), last_only=True),
+            decode_step=lambda p, c, t, pos: transformer.dense_decode_step(
+                cfg, p, c, t, pos),
+            cache_shape=lambda b, s: transformer.dense_cache_shape(cfg, b, s))
     if fam == "ssm":
         return Model(
             cfg=cfg, param_defs=ssm.ssm_model_defs(cfg),

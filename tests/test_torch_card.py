@@ -238,31 +238,13 @@ def test_facility_kernel_rows_match_plain(cuda_device, s):
     assert s < 255 or (full and empty)
 
 
-# rows that send kernel 3's SoC chain down each route (capacity kWh, rate
-# kW, initial SoC): an initial SoC above the capacity, so the row never
-# takes the fast division; a rate of 2^-100 kW from an empty battery, whose
-# SoC lies in (0, 2^-100) from its first charge on (those tiles run again
-# with the division written out); the same from 40 x 2^-100 kWh, which
-# first falls there past the first tile at S = 2880, a step of 0.1 h; and
-# the main path's battery, on the fast division throughout
+# rows at the edges of kernel 3's SoC chain (capacity kWh, rate kW, initial
+# SoC): an initial SoC above the capacity (the charge's clamp at 0); a rate
+# of 2^-100 kW from an empty battery, whose SoC stays in (0, 2^-100); the
+# same from 40 x 2^-100 kWh; and the main path's battery
 ROUTE_ROWS = {"batt_capacity_kwh": (60.0, 2.0 ** -60, 2.0 ** -60, 8748.0),
               "batt_rate_kw": (240.0, 2.0 ** -100, 2.0 ** -100, 2187.0),
               "soc0": (90.0, 0.0, 40 * 2.0 ** -100, 4374.0)}
-
-
-def _slow_tiles(soc, soc0, cap, dt, s):
-    """The tiles kernel 3 runs with the division written out, read from the
-    plain version's SoC path: all of them where the step, capacity or
-    initial SoC lies outside the fast division's range, else those with a
-    step that starts from a SoC in (0, 2^-100)."""
-    from repro_torch.kernels import fused_step as fs
-    tile, n_tiles, _ = fs.launch_plan(s)
-    if not (2.0 ** -20 <= dt <= 2.0 ** 20 and 2.0 ** -60 <= cap <= 2.0 ** 90
-            and 0.0 <= soc0 <= cap):
-        return n_tiles
-    before = np.concatenate([[np.float32(soc0)], soc[:-1]])
-    low = (before > 0) & (before < np.float32(2.0 ** -100))
-    return len(set((np.nonzero(low)[0] // tile).tolist()))
 
 
 def _demand_in_window_order(grid, ws, dc):
@@ -279,21 +261,19 @@ def _demand_in_window_order(grid, ws, dc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,ws,dt,slow", [
-    (1, 96, 0.25, [1, 0, 0, 0]), (90, 7, 0.1, [1, 1, 0, 0]),
-    (255, 33, 0.25, [1, 1, 0, 0]), (2880, 1, 0.1, [3, 3, 2, 0]),
-    (2880, 96, 0.1, [3, 3, 2, 0]), (3000, 5000, 2.0 ** -21, [3, 3, 3, 3])])
+@pytest.mark.parametrize("s,ws,dt", [
+    (1, 96, 0.25), (90, 7, 0.1), (255, 33, 0.25), (2880, 1, 0.1),
+    (2880, 96, 0.1), (3000, 5000, 2.0 ** -21)])
 def test_facility_kernel_chain_matches_the_sequential_walk(cuda_device, s, ws,
-                                                           dt, slow):
+                                                           dt):
     """Kernel 3's chain against a sequential walk, the plain version on the
-    CPU (IEEE divisions), with cooling and PV off so that the chain's inputs
-    are exact: SoC, last decision, grid peak, last window's peak and the
-    demand charge (windows billed in order) equal in f32; the other totals
-    at rtol 1e-4, atol 1e-3.  Tiles of 32, 96, 256 and 1024 steps; billing
-    windows of 1, 7, 33, 96 and 5000 steps (cut at tile edges, or longer
-    than the run); each route of the chain (ROUTE_ROWS; a step of 2^-21 h
-    is outside the fast division's range), with the count of tiles run
-    again as the SoC path says."""
+    CPU (products with the step's f32 reciprocal, as the kernel's), with
+    cooling and PV off so that the chain's inputs are exact: SoC, last
+    decision, grid peak, last window's peak and the demand charge (windows
+    billed in order) equal in f32; the other totals at rtol 1e-4, atol
+    1e-3.  Tiles of 32, 96, 256 and 1024 steps; billing windows of 1, 7,
+    33, 96 and 5000 steps (cut at tile edges, or longer than the run); the
+    edge rows of ROUTE_ROWS at steps of 0.25, 0.1 and 2^-21 h."""
     from repro_torch.core.engine import facility_totals_from_flows
     from repro_torch.kernels import fused_step as fs
     d = cuda_device
@@ -314,7 +294,6 @@ def test_facility_kernel_chain_matches_the_sequential_walk(cuda_device, s, ws,
         **{k: torch.tensor(v, device=d) for k, v in ROUTE_ROWS.items()}))
     acc = acc.cpu()
     got = fs.totals_from_rows(acc, cfg)
-    assert [int(v) for v in acc[:, fs.A_SLOW]] == slow
     for r in range(4):
         kw = {k: v[r] for k, v in ROUTE_ROWS.items()}
         flows = ref.fused_facility_chain(it_kw[r], *args, dt, cfg, **kw)
@@ -322,8 +301,6 @@ def test_facility_kernel_chain_matches_the_sequential_walk(cuda_device, s, ws,
         grid = flows["grid_import_kw"].numpy()
         want["demand_cost"], want["window_peak_kw"] = _demand_in_window_order(
             grid, ws, cfg.pricing.demand_charge_per_kw)
-        assert slow[r] == _slow_tiles(flows["soc"].numpy(), kw["soc0"],
-                                      kw["batt_capacity_kwh"], dt, s)
         assert set(got) == set(want)
         for k in want:
             g = got[k][r]
@@ -353,7 +330,7 @@ def test_simulation_on_card_matches_cpu(cuda_device, backend):
                               dyn={**dyn, "n_active_hosts": 20}, device=dev)
         results[dev.type] = P.result_to_numpy(P.summarize(final, cfg))
         counts = ops.launch_counts()
-    want = {"first_fit_place": S}
+    want = {"first_fit_place": S, "per_host_sum": 2 * S}
     if backend == "megakernel":
         want.update(fused_power_carbon=S, fused_facility_totals=1)
     else:
@@ -391,7 +368,7 @@ def test_grid_on_card_matches_cpu(cuda_device, backend):
                            dyn={**dyn, "n_active_hosts": 20}, device=dev)
         results[dev.type] = P.result_to_numpy(res)
         counts = ops.launch_counts()
-    want = {"first_fit_place": S}
+    want = {"first_fit_place": S, "per_host_sum": 2 * S}
     if backend == "megakernel":
         want.update(fused_power_carbon=S, fused_facility_totals=1)
     else:
@@ -412,7 +389,8 @@ def test_grid_on_card_matches_cpu(cuda_device, backend):
 @pytest.mark.parametrize("derate", [False, True])
 def test_facility_series_route_matches_plain(cuda_device, store, derate):
     """Kernel 3's series route on [4, 2880] rows of different batteries:
-    against the plain chain on the CPU (IEEE divisions, as the kernel's),
+    against the plain chain on the CPU (the step's reciprocal products, as
+    the kernel's),
     reading the traces the kernel reads: `soc` and `want_charge` bit-equal,
     every flow within rtol 1e-4 / atol 1e-3, the derate echo equal; its
     totals bit-equal to the totals route's; one launch counted under its
@@ -474,7 +452,7 @@ def test_probed_run_on_card_matches_cpu(cuda_device, backend):
                               dyn={**dyn, "n_active_hosts": 20}, device=dev)
         results[dev.type] = P.result_to_numpy(P.summarize(final, cfg))
         counts[dev.type] = ops.launch_counts()
-    want = {"first_fit_place": S}
+    want = {"first_fit_place": S, "per_host_sum": 2 * S}
     if backend == "megakernel":
         want.update(fused_power_carbon=S, fused_facility_series=1)
     else:
@@ -556,7 +534,7 @@ def test_fleet_on_card_matches_cpu(cuda_device, backend):
     _, dyn = _traces(11)
     cfg = _cfg(backend=backend)
     fleet = _fleet()
-    want = {"first_fit_place": S}
+    want = {"first_fit_place": S, "per_host_sum": 2 * S}
     if backend == "megakernel":
         want.update(fused_power_carbon=S, fused_facility_totals=1)
     else:
@@ -729,7 +707,8 @@ def test_resilience_on_card_matches_cpu(cuda_device, backend):
                               dyn={**dyn, "n_active_hosts": 20}, device=dev)
         results[dev.type] = P.result_to_numpy(P.summarize(final, cfg))
         counts = ops.launch_counts()
-    want = {"first_fit_place": S, "fused_power_carbon": S}
+    want = {"first_fit_place": S, "fused_power_carbon": S,
+            "per_host_sum": 2 * S}
     if backend == "megakernel":
         want["fused_facility_totals"] = 1
     assert {k: v for k, v in counts.items() if v} == want
@@ -773,7 +752,7 @@ def test_aggregate_and_tasktrace_on_card_match_cpu(cuda_device, backend):
             results[(dev.type, name)] = P.result_to_numpy(run())
             counts[name] = {k: v for k, v in ops.launch_counts().items()
                             if v}
-    want = {"fused_power_carbon": S}
+    want = {"fused_power_carbon": S, "per_host_sum": 2 * S}
     if backend == "megakernel":
         want["fused_facility_totals"] = 1
     assert counts["aggregate"] == want
@@ -955,3 +934,33 @@ def test_serving_never_waits_for_the_card(cuda_device, arch_id):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(logits).all()) and tok.shape == (2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,running", [
+    (0, 192_817, 972, 0.03), (64, 50_000, 972, 0.03), (3, 20_000, 4096, 0.5),
+    (2, 9_000, 3, 1.0), (1, 0, 17, 1.0)])
+def test_per_host_sum_repeats_and_equals_cpu(cuda_device, b, t, h, running):
+    """The per-host sum kernel ([T] or [B, T] rows): the same bits on two
+    launches, and the plain version's on the CPU (`scatter_add_` in task
+    order) bit for bit; one launch a call."""
+    from repro_torch.core import scheduler
+    rng = np.random.default_rng(t + h)
+    shape = (b, t) if b else (t,)
+    run = torch.tensor(rng.uniform(size=shape) < running)
+    host = torch.tensor(rng.integers(0, h, shape))
+    seg = torch.where(run, host, torch.arange(h, h + t))
+    vals = tuple(torch.where(run, torch.tensor(
+        rng.choice(np.float32([4, 8, 16, 32, 48]), shape)
+        * rng.uniform(size=shape).astype(np.float32)), 0.0) for _ in range(2))
+    want = ref.per_host_sum(*vals, seg, h)
+    d = cuda_device
+    on_card = (*(v.to(d) for v in vals), seg.to(d))
+    ops.reset_launch_counts()
+    first = scheduler._per_host_sum(*on_card, h)
+    again = scheduler._per_host_sum(*on_card, h)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["per_host_sum"] == 2
+    for x, y, w in zip(first, again, want):
+        assert torch.equal(x, y)
+        assert torch.equal(x.cpu(), w)

@@ -31,6 +31,7 @@ import repro_torch.core.config as pconfig
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import first_fit as ff
 from repro_torch.kernels import fused_step as fs
+from repro_torch.kernels import host_sum as hs
 from repro_torch.kernels import power_carbon as pc
 
 torch.set_num_threads(1)
@@ -270,6 +271,38 @@ def test_power_carbon_launches_the_row_pass_block(recorded_launch, h):
         assert args[6:9] == (1, h, pc.facility_block(h))
 
 
+@pytest.mark.parametrize("shape", [(50,), (3, 50), (3, 0)])
+def test_host_sum_launch_passes_its_rows(recorded_launch, shape):
+    """The per-host sum wrapper hands the kernel B contiguous rows of T
+    (a [T] input is one row) and one [2, ..., H] output; it counts one
+    launch."""
+    h = 17
+    ops.reset_launch_counts()
+    out = hs.per_host_sum(torch.ones(shape), torch.ones(shape),
+                          torch.zeros(shape, dtype=torch.int64), h)
+    (args,) = recorded_launch.calls
+    assert args[3:6] == (shape[0] if len(shape) == 2 else 1, shape[-1], h)
+    assert len(out) == 2 and all(o.shape == (*shape[:-1], h) for o in out)
+    assert args[7].value - args[6].value == 4 * out[0].numel()
+    assert ops.launch_counts()["per_host_sum"] == 1
+
+
+def test_host_sum_wrapper_refuses_what_the_kernel_cannot_take(
+        recorded_launch):
+    seg = torch.zeros((2, 8), dtype=torch.int64)
+    vals = torch.ones((2, 8))
+    with pytest.raises(ValueError, match="one shape"):
+        hs.per_host_sum(vals, torch.ones(8), seg, 4)
+    with pytest.raises(ValueError, match="one shape"):
+        hs.per_host_sum(vals, vals, seg[:1], 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        hs.per_host_sum(vals, vals, seg, hs.MAX_HOSTS + 1)
+    # the largest host count's accumulators and tiles fit one block
+    assert hs.smem_bytes(hs.MAX_HOSTS) + hs.STATIC_SMEM <= hs.SMEM_MAX
+    assert hs.smem_bytes(hs.MAX_HOSTS + 4) + hs.STATIC_SMEM > hs.SMEM_MAX
+    assert not recorded_launch.calls
+
+
 @pytest.mark.parametrize("s", [0, 1, 31, 32, 33, 255, 1023, 1024, 1025, 2880,
                                35040, 35041, 105120, 10 ** 6])
 def test_facility_launch_plan_covers_the_horizon(s):
@@ -301,14 +334,14 @@ def test_facility_launch_passes_the_plan(recorded_launch, s):
     fcfg, store, b = args[11]._obj, args[12], args[13]
     assert (fcfg.n_steps, fcfg.tile, store, b) == (s, fs.launch_plan(s)[0],
                                                    0, 1)
-    assert acc.shape == (1, fs.N_ACC) == (1, fs.A_SLOW + 1)
+    assert acc.shape == (1, fs.N_ACC) == (1, fs.A_CUR + 1)
 
 
 @pytest.mark.parametrize("pricing", [False, True])
 @pytest.mark.parametrize("renewables", [False, True])
 def test_facility_rows_map_to_the_totals(pricing, renewables):
     """Each total reads its own accumulator lane (times the step where it is
-    an energy); the count of slow tiles reaches no total."""
+    an energy)."""
     cfg = _cfg(pconfig, True, pricing, renewables, "carbon")
     acc = torch.arange(1, 2 * fs.N_ACC + 1, dtype=torch.float32).reshape(
         2, fs.N_ACC)
@@ -326,8 +359,6 @@ def test_facility_rows_map_to_the_totals(pricing, renewables):
         scale = 1.0 if key in ("soc_final", "peak_power", "demand_cost",
                                "window_peak_kw") else dt
         torch.testing.assert_close(got[key], acc[:, lane] * scale)
-    assert not any(bool((v == acc[:, fs.A_SLOW]).any()) for k, v in
-                   got.items() if k != "was_charging")
 
 
 def test_power_params_are_built_once_per_configuration():

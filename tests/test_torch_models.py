@@ -244,8 +244,7 @@ def test_compute_params_give_the_same_bits():
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch_id", ["qwen2-1.5b", "paligemma-3b",
-                                     "qwen3-moe-235b-a22b", "whisper-base"])
+@pytest.mark.parametrize("arch_id", ["qwen3-moe-235b-a22b", "whisper-base"])
 def test_unported_families_raise(arch_id):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(pconfigs.reduced(arch_id))

@@ -316,8 +316,28 @@ def test_cross_region_spill_bit_equal(healthy, max_spills):
 # the derated cooling model and the facility chain
 # ---------------------------------------------------------------------------
 
+def _jitted_quotient_economizer(monkeypatch):
+    """The reference's economizer fraction with its quotient as the jitted
+    simulator takes it: `x / rng` with the range a compile-time constant is
+    XLA's product with the f32 reciprocal, which the port computes
+    (`config.inv_f32`).  The derate's availability is applied after it as
+    the reference writes it, eagerly (under jit XLA would contract it into a
+    fused multiply-add, which the port does not)."""
+    real = jthermal.economizer_fraction
+    frac = jax.jit(lambda w, s, cfg: real(w, cfg, s), static_argnums=2)
+
+    def econ(wet_bulb_c, cfg, setpoint_c=None, availability=None):
+        f = frac(wet_bulb_c, setpoint_c, cfg)
+        if availability is None:
+            return f
+        return 1.0 - (1.0 - f) * jnp.asarray(availability, jnp.float32)
+
+    monkeypatch.setattr(jthermal, "economizer_fraction", econ)
+
+
 @pytest.mark.parametrize("setpoint", [None, 22.0])
-def test_derated_cooling_bit_equal(setpoint):
+def test_derated_cooling_bit_equal(setpoint, monkeypatch):
+    _jitted_quotient_economizer(monkeypatch)
     rng = np.random.default_rng(4)
     n = 200
     it = rng.uniform(1.0, 30.0, n).astype(np.float32)
