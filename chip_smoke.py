@@ -137,6 +137,41 @@ Phases, each printing one JSON line:
                  reduced on the card and on the CPU (the same weights):
                  logits and 16 decode steps within 1e-4, flash launches 2,
                  2, 0, 1, 2.  Each part prints its wall time.
+  7c. train  -- training, which launches no kernel (the kernels have no
+                 backward; the losses take the plain paths, as the
+                 reference trains on its jnp code), each part a line with
+                 its wall time: (a) qwen2-1.5b as configured (28 layers, d
+                 1536, f32 params, bf16 compute, remat "nothing", random
+                 weights from a seed), batch 2 x 4096 from the port's
+                 pipeline, AdamW (lr 3e-4, warm-up 2, 10 steps): the
+                 gradient of `Model.init`'s weights recorded (the
+                 reference's fan-in rule makes it explode through 28
+                 layers), then with the attention projections at their
+                 input's fan-in (`input_fan_in`) a warm-up
+                 step and 4 timed steps on one batch, launch counts all 0,
+                 every loss and gradient norm finite, the last loss below
+                 the first step's (at the initial weights) by 1e-3 (the
+                 reference's smoke criterion), the optimizer's step
+                 5; step ms, tokens/s, model-FLOP utilisation, peak memory;
+                 then 2 steps under the profiler, device time a step split
+                 into GEMM / attention glue / optimizer / the rest; (b) its
+                 first 2 layers at full width in f32, the same weights and
+                 a 2 x 256 batch on the card and on the CPU: the loss, the
+                 gradient norm and every gradient leaf within rtol 1e-4 /
+                 atol 1e-4 x the leaf's largest magnitude; (c) the seven
+                 served configs reduced, card against CPU one step at a
+                 time over three steps (loss within 1e-4), stablelm with
+                 int8 compression, qwen2's 2 microbatches against 1 (the
+                 loss within 1e-6, the gradient norm 1e-4), the ops guard
+                 on the card; (d) the carbon-aware
+                 trainer in the reference's two setups and the example's
+                 (200 steps), counts equal to the reference's CPU answers
+                 (scripts/reference_experiments.py --train), carbon within
+                 rtol 1e-6, falling losses, a checkpoint saved and restored
+                 bit for bit; (e) `python -m repro_torch.launch.train
+                 --arch qwen2-1.5b --reduced --steps 20 --carbon-aware
+                 --failures 0.02`, its JSON the reference CLI's.  Files go
+                 under the git-ignored results/train_smoke/.
   8. timing   -- each kernel beside its plain version (CUDA events) at the
                  main paths' shapes, its device time (profiler), its bound,
                  and for flash attention (zamba2's, qwen2's and paligemma's
@@ -167,6 +202,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -205,6 +241,17 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.layers import (flatten, layer_window,  # noqa: E402
                                        tree_map)
 from repro_torch.tasktraces import make_arrival_sets  # noqa: E402
+from repro_torch.data.pipeline import (DataConfig,  # noqa: E402
+                                       TokenPipeline, to_device)
+from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.train.carbon_aware import (  # noqa: E402
+    CarbonAwareConfig, run_carbon_aware_training)
+from repro_torch.train.optimizer import (AdamWConfig,  # noqa: E402
+                                         OptState, global_norm)
+from repro_torch.train.step import (TrainConfig, TrainState,  # noqa: E402
+                                    init_train_state, make_train_step,
+                                    new_train_state, trainable,
+                                    value_and_grad)
 from repro_torch.weathertraces import make_weather_traces  # noqa: E402
 from repro_torch.workloads import make_workload  # noqa: E402
 
@@ -3097,6 +3144,516 @@ def time_model_kernels(dev, results: dict) -> None:
     torch.cuda.synchronize()
 
 
+# --------------------------------------------------------------------------
+# phase 7c: training and carbon-aware training
+# --------------------------------------------------------------------------
+
+TRAIN_BATCH = 2
+TRAIN_SEQ = 4096             # train_4k's length (its global batch of 256
+                             # needs a mesh)
+TRAIN_TIMED_STEPS = 4
+# the profiled steps: the profiler's host-side processing of a step's
+# events (CPU ops, autograd nodes, kernels) took ~20 s a step on the card's
+# host (79 s for 4), and 32 steps' did not finish within the smoke's time
+TRAIN_PROFILE_STEPS = 2
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+# (b): the gradient card against CPU at full width on the first layers in
+# f32 (random weights amplify rounding layer by layer, as in phase 7b)
+TRAIN_GRAD_LAYERS = 2
+TRAIN_GRAD_SEQ = 256
+TRAIN_ARCHS = ("qwen2-1.5b", "stablelm-1.6b", "gemma2-2b", "gemma3-4b",
+               "paligemma-3b", "mamba2-2.7b", "zamba2-7b")
+# the gradient norm's tolerance: gemma2's reduced f32 gradient resolves to
+# ~5e-4 of its scale in both packages (tests/test_torch_train_models.py)
+TRAIN_NORM_RTOL = {"gemma2-2b": 1e-3}
+TRAIN_SMALL_LR = 1e-3
+TRAIN_DIR = os.path.join(ROOT, "results", "train_smoke")
+GEMM_PARTS = ("gemm", "cutlass", "xmma", "nvjet")
+# the carbon-aware setups (scripts/reference_experiments.py TRAIN_SETUPS)
+# and the reference's reports on the CPU (its --train lines)
+CA_SETUPS = {
+    "square_wave": dict(model="reduced", batch=2, seq=32, lr=1e-3, warmup=1,
+                        total=50, steps=16, trace="square", k=3,
+                        ca=dict(ckpt_every=5, step_time_s=3600.0,
+                                shifting=True, failure_prob_per_step=0.0,
+                                seed=0)),
+    "failures": dict(model="reduced", batch=2, seq=32, lr=1e-3, warmup=1,
+                     total=50, steps=10, trace="flat", k=3,
+                     ca=dict(ckpt_every=3, step_time_s=2.0, shifting=False,
+                             failure_prob_per_step=0.3, seed=5)),
+    "example": dict(model="widened", batch=8, seq=128, lr=3e-4, warmup=20,
+                    total=200, steps=200, trace="region4", k=10,
+                    ca=dict(ckpt_every=50, step_time_s=120.0, power_kw=80.0,
+                            idle_power_kw=2.0, shifting=True,
+                            failure_prob_per_step=0.01, seed=0)),
+}
+CA_COUNTS = ("steps_done", "n_pauses", "n_failures", "n_restores",
+             "paused_hours", "busy_hours", "sim_hours")
+CA_CARBON = ("op_carbon_kg", "baseline_carbon_kg")
+CA_REF = {
+    "square_wave": dict(steps_done=16, n_pauses=1, n_failures=0,
+                        n_restores=0, paused_hours=12.0, busy_hours=16.0,
+                        sim_hours=28.0, op_carbon_kg=214.0,
+                        baseline_carbon_kg=480.0),
+    "failures": dict(steps_done=10, n_pauses=0, n_failures=5, n_restores=5,
+                     paused_hours=0.0, busy_hours=0.007777777777777778,
+                     sim_hours=0.007777777777777778,
+                     op_carbon_kg=0.07777777777777777,
+                     baseline_carbon_kg=0.07777777777777777),
+    "example": dict(steps_done=200, n_pauses=2, n_failures=4, n_restores=4,
+                    paused_hours=27.0, busy_hours=10.533333333333307,
+                    sim_hours=37.53333333333316,
+                    op_carbon_kg=26.90641165161131,
+                    baseline_carbon_kg=38.44442897033694),
+}
+TRAIN_CLI = ["--arch", "qwen2-1.5b", "--reduced", "--steps", "20",
+             "--carbon-aware", "--failures", "0.02"]
+CLI_REF = {"steps": 20, "sim_hours": 16.02, "paused_hours": 16.0,
+           "pauses": 1, "failures": 2, "restores": 2, "op_carbon_kg": 12.925,
+           "baseline_carbon_kg": 0.224, "carbon_reduction_pct": -5665.86}
+
+
+def train_flops(cfg, n_params: int, b: int, s: int) -> float:
+    """Model FLOPs of one train step: 6 per parameter a token (forward and
+    backward of every matrix, the tied unembedding included) and 6 B S^2 H
+    hd a layer for causal attention's two products."""
+    return (6.0 * n_params * b * s
+            + 6.0 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.hd)
+
+
+def profile_split(prof, n_steps: int) -> dict:
+    """Device ms a step by class, from a profile taken in a telemetry
+    session (so `layers.attention` and the optimizer are profiler ranges):
+    `gemm`, the matrix-product kernels by name; `attention_glue`, the other
+    kernels launched inside an `attention` range (its forward and
+    checkpoint recompute) or by the backward of an op launched there (the
+    autograd node's sequence number); `optimizer`, inside the `optimizer`
+    range; `rest`, the remaining busy time."""
+    from torch.autograd import DeviceType
+    evs = prof.events()
+
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+    att_seq = {e.sequence_nr for e in evs if e.sequence_nr >= 0
+               and any(a.name == "attention" for a in chain(e))}
+    split = dict.fromkeys(("gemm", "attention_glue", "optimizer", "rest"),
+                          0.0)
+    for e in evs:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        up = list(chain(e))
+        if any(a.name == "optimizer" for a in up):
+            cls = "optimizer"
+        elif any(a.name == "attention" or (
+                a.name.startswith("autograd::engine::evaluate_function")
+                and a.sequence_nr in att_seq) for a in up):
+            cls = "attention_glue"
+        else:
+            cls = "rest"
+        for k in e.kernels:
+            split["gemm" if any(p in k.name.lower() for p in GEMM_PARTS)
+                  else cls] += k.duration
+    # device events less the ranges' own spans on the device timeline
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.key not in ("attention", "optimizer"))
+    split["rest"] += busy - sum(split.values())
+    return {"device_busy_ms_per_step": busy / 1e3 / n_steps,
+            "device_ms_per_step": {k: v / 1e3 / n_steps
+                                   for k, v in split.items()}}
+
+
+def input_fan_in(params: dict) -> dict:
+    """`params` (in place) with each attention projection drawn at the
+    fan-in of its input width: `Model.init`, as the reference's init,
+    takes the last-but-one axis as fan-in, which for the [d, H, hd] query /
+    key / value tensors is H and for the [H, hd, d] output is hd (std
+    1/sqrt(12) and 1/sqrt(128) where 1/sqrt(1536) is the input's at
+    qwen2-1.5b), and with those the gradient grows 2-3x a layer."""
+    with torch.no_grad():
+        for path, t in flatten(params).items():
+            if path[-1] in ("wq", "wk", "wv"):       # [..., d, H, hd]
+                t.mul_(math.sqrt(t.shape[-2] / t.shape[-3]))
+            elif path[-1] == "wo":                   # [..., H, hd, d]
+                t.mul_(math.sqrt(1.0 / t.shape[-3]))
+    return params
+
+
+def train_full(dev, cfg, seq: int, timed: int, profile_steps: int,
+               opt: dict) -> dict:
+    """(a) One model as configured: random weights from a seed, a batch of
+    TRAIN_BATCH x `seq` tokens from the port's pipeline.  First the
+    gradient of `Model.init`'s weights (recorded: at 28 layers its global
+    norm overflows f32, so the clip zeroes the update); then with the
+    attention projections at their input's fan-in (`input_fan_in`) a
+    warm-up step and `timed` timed steps on the batch (host clock ending
+    in a synchronise), no kernel launched, every loss and gradient norm
+    finite, the loss after the last update below the first step's (at the
+    initial weights) by 1e-3; then `profile_steps` steps under the profiler
+    (`profile_split`)."""
+    from torch.profiler import ProfilerActivity, profile
+    model = get_model(cfg)
+    tcfg = TrainConfig(opt=AdamWConfig(**opt))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0),
+                             tcfg, device=dev)
+    _sync(dev)
+    n_params = sum(t.numel() for t in flatten(state.params).values())
+    info = {"model": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+            "remat_policy": cfg.remat_policy, "n_params": n_params,
+            "batch": TRAIN_BATCH, "seq": seq, "opt": opt,
+            "init_s": time.perf_counter() - t0}
+    batch = to_device(TokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=TRAIN_BATCH)).batch_at(0),
+        dev)
+    loss, grads = value_and_grad(model, state.params, batch)
+    flat = flatten(grads)
+    info["model_init_weights"] = {
+        "loss": float(loss), "grad_norm": float(global_norm(grads)),
+        "max_abs_grad": {"/".join(k): float(flat[k].abs().max())
+                         for k in (("embed", "tok"), ("ln_f", "w"))}}
+    del loss, grads, flat
+    input_fan_in(state.params)
+    step = make_train_step(model, tcfg)
+    losses, norms, walls = [], [], []
+    ops.reset_launch_counts()
+    for i in range(1 + timed):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        _sync(dev)
+        if i:
+            walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    check(counts == {}, f"train steps launched kernels: {counts}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"train: non-finite loss or norm {losses} {norms}")
+    # the reference's criterion (tests/test_archs_smoke.py): the loss after
+    # the updates below the first step's, at the initial weights, by 1e-3
+    check(losses[timed] < losses[0] - 1e-3,
+          f"train: loss did not fall by 1e-3: {losses}")
+    check(int(state.opt.step) == 1 + timed, "train: optimizer step count")
+    step_s = sum(walls) / len(walls)
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, seq)
+    info.update(losses=losses, grad_norms=norms, ln_vocab=math.log(cfg.vocab),
+                launches=counts, step_wall_s=walls, step_ms=step_s * 1e3,
+                tokens_per_s=TRAIN_BATCH * seq / step_s,
+                model_flops_per_step=flops,
+                mfu=flops / step_s / PEAK_BF16_OPS_S,
+                opt_step=int(state.opt.step))
+    if dev.type == "cuda":
+        info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if profile_steps:
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with telemetry.session(out_dir=os.path.join(TRAIN_DIR, "telemetry")):
+            with profile(activities=acts) as prof:
+                _sync(dev)
+                t0 = time.perf_counter()
+                for _ in range(profile_steps):
+                    state, m = step(state, batch)
+                _sync(dev)
+                wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info["profile"] = {"steps": profile_steps,
+                           "wall_ms_per_step": wall / profile_steps * 1e3,
+                           **profile_split(prof, profile_steps)}
+        info["profile"]["processing_s"] = time.perf_counter() - t0
+        busy = info["profile"]["device_busy_ms_per_step"]
+        info["profile"]["device_idle_share"] = 1.0 - busy / (
+            wall / profile_steps * 1e3)
+        check(math.isfinite(float(m["loss"])), "train: profiled loss")
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return info
+
+
+def _leaf_close(got, want, rtol: float, what: str) -> float:
+    """Max abs error of `got` against `want`, held within rtol / atol rtol
+    x the leaf's largest magnitude."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = float(want.abs().max())
+    return _close(got, want, rtol, rtol * scale, what)
+
+
+def train_grads_card_vs_cpu(dev, cfg, n_layers: int, seq: int) -> dict:
+    """(b) The first `n_layers` layers at full width in f32, the same
+    weights and batch on the card and on the CPU: the loss, the gradient
+    norm and every gradient leaf within rtol 1e-4 / atol 1e-4 x the leaf's
+    largest magnitude."""
+    cfg = cfg.replace(n_layers=n_layers, compute_dtype="float32")
+    model = get_model(cfg)
+    # the weights of (a) (Model.init's attention projections saturate the
+    # softmax at full width: the f32 gradient norm then moved by 4 %
+    # between the card and the CPU)
+    p_cpu = input_fan_in(model.init(torch.Generator().manual_seed(3),
+                                    device="cpu"))
+    batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                     global_batch=TRAIN_BATCH,
+                                     seed=1)).batch_at(0)
+    res, walls = {}, {}
+    for d in (dev, torch.device("cpu")):
+        params = trainable(tree_map(lambda t: t.to(d).clone(), p_cpu))  # noqa: B023
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(model, params, to_device(batch, d))
+        _sync(d)
+        walls[d.type] = time.perf_counter() - t0
+        check(not any(ops.launch_counts().values()), "grads launched a kernel")
+        res[d.type] = (loss, global_norm(grads), flatten(grads))
+        del params
+    (cl, cn, cg), (pl, pn, pg) = res[dev.type], res["cpu"]
+    errs = {"loss": _close(cl.cpu(), pl, 1e-4, 1e-4 * abs(float(pl)),
+                           "train grads: loss"),
+            "grad_norm": _close(cn.cpu(), pn, 1e-4, 1e-4 * float(pn),
+                                "train grads: norm")}
+    leaf_err = max(_leaf_close(cg[k], pg[k], 1e-4, f"train grads: {k}")
+                   / max(float(pg[k].abs().max()), 1e-30) for k in pg)
+    return {"n_layers": n_layers, "d_model": cfg.d_model, "seq": seq,
+            "loss": float(pl), "grad_norm": float(pn), "errors": errs,
+            "max_leaf_err_over_scale": leaf_err, "n_leaves": len(pg),
+            "wall_s": walls}
+
+
+def _state_to(state, dev):
+    """A copy of a TrainState on `dev`, parameters trainable."""
+    copy = lambda t: t.detach().to(dev).clone()  # noqa: E731
+    tree = lambda t: tree_map(copy, t)  # noqa: E731
+    return TrainState(trainable(tree(state.params)), OptState(
+        copy(state.opt.step), tree(state.opt.m), tree(state.opt.v)),
+        None if state.ef is None else tree(state.ef))
+
+
+def _train_batch(cfg, b: int, s: int, seed: int = 1) -> dict:
+    """A pipeline batch of `s` positions on the CPU (a VLM: its patch
+    embeddings, standard normal, then s - P tokens)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(np.float32))
+        s -= cfg.n_frontend_tokens
+    out.update(to_device(TokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=s, global_batch=b, seed=seed)).batch_at(0),
+        "cpu"))
+    return out
+
+
+def train_small_card_vs_cpu(dev) -> dict:
+    """(c) The reduced configs, the same weights and batch: three steps on
+    the CPU, and at each the card's step from a copy of the CPU's state:
+    the loss within 1e-4, the gradient norm within relative 1e-4 (gemma2's
+    1e-3), the learning rate equal, every new parameter within 2.5 lr, no
+    kernel launched (one step at a time: Adam's sign flips of near-zero
+    gradient elements make free-running trajectories drift); stablelm
+    again with int8 compression; qwen2's step over 2 microbatches against
+    the whole batch's (the loss within 1e-6, the gradient norm 1e-4); the
+    ops guard on the card."""
+    out = {}
+    cases = [(a, {}) for a in TRAIN_ARCHS] + [("stablelm-1.6b",
+                                               {"grad_compression": True})]
+    for arch, tkw in cases:
+        cfg = reduced(arch)
+        model = get_model(cfg)
+        tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_SMALL_LR, warmup_steps=1,
+                                           total_steps=10), **tkw)
+        state = new_train_state(model.init(torch.Generator().manual_seed(0),
+                                           device="cpu"), tcfg)
+        batch = _train_batch(cfg, 2, 64)
+        bd = {k: v.to(dev) for k, v in batch.items()}
+        step = make_train_step(model, tcfg)
+        errs = []
+        for _ in range(3):
+            ops.reset_launch_counts()
+            card, cm = step(_state_to(state, dev), bd)
+            check(not any(ops.launch_counts().values()),
+                  f"{arch}: a train step launched a kernel")
+            state, pm = step(state, batch)
+            what = f"train small {arch} {tkw}"
+            e_loss = _close(cm["loss"].cpu(), pm["loss"], 0, 1e-4,
+                            f"{what}: loss")
+            rt = TRAIN_NORM_RTOL.get(arch, 1e-4)
+            _close(cm["grad_norm"].cpu(), pm["grad_norm"], rt, 0,
+                   f"{what}: grad norm")
+            check(float(cm["lr"]) == float(pm["lr"]), f"{what}: lr")
+            cp = flatten(card.params)
+            e_par = max(_close(cp[k].detach().cpu(), p.detach(), 0,
+                               2.5 * TRAIN_SMALL_LR, f"{what}: {k}")
+                        for k, p in flatten(state.params).items())
+            errs.append({"loss": e_loss, "params": e_par,
+                         "loss_value": float(pm["loss"])})
+        out[arch + ("+compression" if tkw else "")] = errs
+    # gradient accumulation: 2 microbatches against the whole batch, one
+    # step from the same state on the card
+    cfg = reduced("qwen2-1.5b")
+    model = get_model(cfg)
+    p0 = model.init(torch.Generator().manual_seed(0), device="cpu")
+    bd = {k: v.to(dev) for k, v in _train_batch(cfg, 2, 64).items()}
+    mets = []
+    for mb in (1, 2):
+        tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_SMALL_LR, warmup_steps=1,
+                                           total_steps=10), microbatches=mb)
+        st = new_train_state(tree_map(lambda t: t.to(dev).clone(), p0), tcfg)
+        _, m = make_train_step(model, tcfg)(st, bd)
+        mets.append(m)
+    # the loss within 1e-6; the gradient norm within 1e-4 like the others
+    # (cuBLAS takes other kernels for the half batch: 4.9e-5 apart)
+    mb_errs = {k: _close(mets[1][k], mets[0][k], rt, 0,
+                         f"microbatches 2 vs 1: {k}")
+               for k, rt in (("loss", 1e-6), ("grad_norm", 1e-4))}
+    out["qwen2-1.5b microbatches 2 vs 1"] = mb_errs
+    # the guard: a tensor that requires grad never reaches a kernel
+    q = torch.randn((1, 64, 4, 32), device=dev, requires_grad=True)
+    refused = False
+    try:
+        ops.flash_attention(q, q.detach(), q.detach(), scale=0.25)
+    except RuntimeError as e:
+        refused = "use_kernels=False" in str(e)
+    check(refused, "ops.flash_attention took a tensor that requires grad")
+    out["guard_refuses"] = refused
+    return out
+
+
+def _ca_trace(name: str) -> np.ndarray:
+    if name == "square":
+        return np.tile(np.r_[np.full(12, 100.0), np.full(12, 900.0)], 30)
+    if name == "flat":
+        return np.full(100, 100.0)
+    return make_region_traces(24 * 30, dt_h=1.0, n_regions=1, seed=4)[0]
+
+
+def carbon_aware_phase(dev) -> list:
+    """(d) The carbon-aware trainer on `dev` in CA_SETUPS: counts and hours
+    the reference's (CA_REF) exactly, carbon within rtol 1e-6, the mean of
+    the last k losses below the first k's; then the example's final state
+    saved and restored bit for bit."""
+    lines, example = [], None
+    for name, st in CA_SETUPS.items():
+        cfg = reduced("qwen2-1.5b")
+        if st["model"] == "widened":
+            cfg = cfg.replace(n_layers=4, d_model=256, n_heads=8,
+                              n_kv_heads=2, head_dim=32, d_ff=768, vocab=4096)
+        model = get_model(cfg)
+        tcfg = TrainConfig(opt=AdamWConfig(lr=st["lr"],
+                                           warmup_steps=st["warmup"],
+                                           total_steps=st["total"]))
+        state = init_train_state(model,
+                                 torch.Generator(device=dev).manual_seed(0),
+                                 tcfg, device=dev)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=st["seq"],
+                                        global_batch=st["batch"]))
+        d = os.path.join(TRAIN_DIR, name)
+        shutil.rmtree(d, ignore_errors=True)
+        ca = dict(st["ca"], shifting=C.ShiftingConfig(
+            enabled=st["ca"]["shifting"]))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, rep = run_carbon_aware_training(
+            model, tcfg, state,
+            lambda s: to_device(pipe.batch_at(s), dev),  # noqa: B023
+            st["steps"], _ca_trace(st["trace"]),
+            CarbonAwareConfig(ckpt_dir=d, **ca))
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        check(not any(ops.launch_counts().values()),
+              f"carbon-aware {name}: a kernel launched")
+        want = CA_REF[name]
+        for k in CA_COUNTS:
+            check(getattr(rep, k) == want[k],
+                  f"carbon-aware {name}: {k} {getattr(rep, k)} != {want[k]}")
+        for k in CA_CARBON:
+            check(math.isclose(getattr(rep, k), want[k], rel_tol=1e-6),
+                  f"carbon-aware {name}: {k} {getattr(rep, k)} != {want[k]}")
+        k = st["k"]
+        first, last = np.mean(rep.losses[:k]), np.mean(rep.losses[-k:])
+        check(bool(np.isfinite(rep.losses).all()) and last < first,
+              f"carbon-aware {name}: losses {first} -> {last}")
+        lines.append({"part": "d", "setup": name, "wall_s": wall,
+                      **{k: getattr(rep, k) for k in CA_COUNTS + CA_CARBON},
+                      "carbon_reduction_pct": rep.carbon_reduction_pct,
+                      "loss_first": float(first), "loss_last": float(last),
+                      "opt_step": int(state.opt.step)})
+        example = state
+    # a checkpoint's save and restore on the card, bit for bit
+    d = os.path.join(TRAIN_DIR, "roundtrip")
+    shutil.rmtree(d, ignore_errors=True)
+    _sync(dev)
+    t0 = time.perf_counter()
+    ckpt_lib.save(d, int(example.opt.step), example)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt_lib.restore(d, int(example.opt.step), example, device=dev)
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    got, want = ckpt_lib._leaf_paths(back), ckpt_lib._leaf_paths(example)
+    check([n for n, _ in got] == [n for n, _ in want]
+          and all(torch.equal(a, b) and a.device == b.device
+                  for (_, a), (_, b) in zip(got, want)),
+          "checkpoint round trip not bit-equal")
+    nbytes = sum(t.numel() * t.element_size() for _, t in want)
+    lines.append({"part": "d", "checkpoint_roundtrip": "bit-equal",
+                  "leaves": len(want), "bytes": nbytes, "save_s": save_s,
+                  "restore_s": restore_s})
+    return lines
+
+
+def train_cli_phase(dev) -> dict:
+    """(e) `python -m repro_torch.launch.train` with TRAIN_CLI on `dev`: its
+    JSON report's counts, hours and carbon equal the reference CLI's
+    (CLI_REF)."""
+    d = os.path.join(TRAIN_DIR, "cli")
+    shutil.rmtree(d, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+           "--ckpt-dir", d, "--device", dev.type]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=ROOT, env=env)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"train CLI failed: {out.stderr[-2000:]}")
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    for k, v in CLI_REF.items():
+        check(rep[k] == v, f"train CLI: {k} {rep[k]} != {v}")
+    check(math.isfinite(rep["final_loss"]), "train CLI: final loss")
+    return {"part": "e", "argv": TRAIN_CLI, "wall_s": wall, **rep}
+
+
+def train_phase(dev, full_cfg, seq: int, timed: int, profile_steps: int,
+                opt: dict):
+    """Phase 7c's lines, each yielded when its part ends: (a) `full_cfg`
+    trained, (b) its gradient card against CPU, (c) the reduced configs
+    card against CPU, (d) carbon-aware training, (e) the CLI; each part's
+    wall time in its line."""
+    t0 = time.perf_counter()
+    yield {"phase": "train", "part": "a",
+           **train_full(dev, full_cfg, seq, timed, profile_steps, opt),
+           "part_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    yield {"phase": "train", "part": "b", **train_grads_card_vs_cpu(
+        dev, full_cfg, TRAIN_GRAD_LAYERS,
+        TRAIN_GRAD_SEQ if dev.type == "cuda" else 64),
+        "part_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    yield {"phase": "train", "part": "c", **train_small_card_vs_cpu(dev),
+           "part_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    lines = carbon_aware_phase(dev)
+    lines[-1]["part_s"] = time.perf_counter() - t0
+    for line in lines:
+        yield {"phase": "train", **line}
+    yield {"phase": "train", **train_cli_phase(dev)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -3140,6 +3697,10 @@ def main() -> int:
             emit({"phase": "serve", "rehearsal": True, **info})
         emit({"phase": "small_dense_card_vs_cpu", "rehearsal": True,
               **small_models_card_vs_cpu(cpu, DENSE_ARCHS)})
+        for line in train_phase(cpu, reduced("qwen2-1.5b").replace(
+                remat=True), 64, TRAIN_TIMED_STEPS, 2,
+                dict(TRAIN_OPT, lr=1e-3)):
+            emit({"rehearsal": True, **line})
         emit({"rehearsal": True, "ok_on_cpu": True})
         return 0
     if not torch.cuda.is_available():
@@ -3370,6 +3931,16 @@ def main() -> int:
           **small_models_card_vs_cpu(dev, DENSE_ARCHS),
           "part_s": time.perf_counter() - t1,
           "dense_phase_s": time.perf_counter() - t0})
+
+    # training: qwen2-1.5b as configured (no kernel launches), its gradient
+    # card against CPU, the reduced configs, carbon-aware training and the
+    # CLI (each part's wall time in its line)
+    t0 = time.perf_counter()
+    for line in train_phase(dev, get_config("qwen2-1.5b"), TRAIN_SEQ,
+                            TRAIN_TIMED_STEPS, TRAIN_PROFILE_STEPS,
+                            TRAIN_OPT):
+        emit({"nvidia_smi": smi, **line})
+    emit({"phase": "train_summary", "seconds": time.perf_counter() - t0})
 
     main_cfg = main_config(MAIN_STEPS, meta["embodied"])
     time_kernels(dev, kres, main_cfg)

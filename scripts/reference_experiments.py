@@ -33,6 +33,22 @@ Runs the JAX reference (`src/repro/`) on the CPU at full-scale Marconi
 Each full-scale run takes 15-30 s on a few CPU cores (a full-width fleet a
 few minutes); the whole script about half an hour.  The port's phases 4b
 ("experiments") and 4d ("fleet") must reproduce these numbers on the card.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python3 scripts/reference_experiments.py --train
+
+prints instead the reference's carbon-aware training reports that
+`chip_smoke.py`'s phase 7c (d) and (e) hold the port to (a few minutes):
+
+  * `carbon_aware`: `train/carbon_aware.py` in the three setups of
+    `TRAIN_SETUPS` (the reference's two test setups on reduced qwen2, and
+    `examples/carbon_aware_training.py`'s widened reduced qwen2 over 200
+    steps of 2 minutes): steps, pauses, failures, restores, the hours and
+    the carbon sums;
+  * `train_cli`: `python -m repro.launch.train --arch qwen2-1.5b --reduced
+    --steps 20 --carbon-aware --failures 0.02`'s JSON line.
+
+The schedule does not depend on the model's numbers, so the port's
+reports must equal these whatever weights it trains.
 """
 from __future__ import annotations
 
@@ -168,7 +184,93 @@ def fleet_main(tasks, hosts, meta) -> None:
               **out})
 
 
+# the carbon-aware setups of chip_smoke.py's phase 7c (d): name -> (model
+# (reduced qwen2, or the example's widening of it), batch, seq, lr, warm-up,
+# total, steps, the trace, CarbonAwareConfig fields)
+TRAIN_SETUPS = {
+    "square_wave": dict(model="reduced", batch=2, seq=32, lr=1e-3, warmup=1,
+                        total=50, steps=16, trace="square",
+                        ca=dict(ckpt_every=5, step_time_s=3600.0,
+                                shifting=True, failure_prob_per_step=0.0,
+                                seed=0)),
+    "failures": dict(model="reduced", batch=2, seq=32, lr=1e-3, warmup=1,
+                     total=50, steps=10, trace="flat",
+                     ca=dict(ckpt_every=3, step_time_s=2.0, shifting=False,
+                             failure_prob_per_step=0.3, seed=5)),
+    "example": dict(model="widened", batch=8, seq=128, lr=3e-4, warmup=20,
+                    total=200, steps=200, trace="region4",
+                    ca=dict(ckpt_every=50, step_time_s=120.0, power_kw=80.0,
+                            idle_power_kw=2.0, shifting=True,
+                            failure_prob_per_step=0.01, seed=0)),
+}
+TRAIN_CLI = ["--arch", "qwen2-1.5b", "--reduced", "--steps", "20",
+             "--carbon-aware", "--failures", "0.02"]
+
+
+def train_trace(name: str) -> np.ndarray:
+    if name == "square":
+        return np.tile(np.r_[np.full(12, 100.0), np.full(12, 900.0)], 30)
+    if name == "flat":
+        return np.full(100, 100.0)
+    return make_region_traces(24 * 30, dt_h=1.0, n_regions=1, seed=4)[0]
+
+
+def train_main() -> None:
+    """The `carbon_aware` and `train_cli` lines."""
+    import contextlib
+    import io
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import reduced
+    from repro.core.config import ShiftingConfig
+    from repro.data.pipeline import DataConfig, TokenPipeline
+    from repro.launch import train as cli
+    from repro.models.registry import get_model
+    from repro.train.carbon_aware import (CarbonAwareConfig,
+                                          run_carbon_aware_training)
+    from repro.train.optimizer import AdamWConfig
+    from repro.train.step import TrainConfig, init_train_state
+    for name, st in TRAIN_SETUPS.items():
+        cfg = reduced("qwen2-1.5b")
+        if st["model"] == "widened":
+            cfg = cfg.replace(n_layers=4, d_model=256, n_heads=8,
+                              n_kv_heads=2, head_dim=32, d_ff=768, vocab=4096)
+        model = get_model(cfg)
+        tcfg = TrainConfig(opt=AdamWConfig(lr=st["lr"],
+                                           warmup_steps=st["warmup"],
+                                           total_steps=st["total"]))
+        state = init_train_state(model, jax.random.PRNGKey(0), tcfg)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=st["seq"],
+                                        global_batch=st["batch"]))
+        ca = dict(st["ca"])
+        ca["shifting"] = ShiftingConfig(enabled=ca["shifting"])
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            _, rep = run_carbon_aware_training(
+                model, tcfg, state,
+                lambda s: {k: jnp.asarray(v)
+                           for k, v in pipe.batch_at(s).items()},
+                st["steps"], train_trace(st["trace"]),
+                CarbonAwareConfig(ckpt_dir=d, **ca))
+        emit({"carbon_aware": name, "seconds": time.perf_counter() - t0,
+              **{k: getattr(rep, k) for k in (
+                  "steps_done", "n_pauses", "n_failures", "n_restores",
+                  "paused_hours", "busy_hours", "sim_hours", "op_carbon_kg",
+                  "baseline_carbon_kg")},
+              "first_losses": rep.losses[:3], "last_losses": rep.losses[-3:]})
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(out):
+        cli.main(TRAIN_CLI + ["--ckpt-dir", d])
+    emit({"train_cli": TRAIN_CLI,
+          **json.loads(out.getvalue().strip().splitlines()[-1])})
+
+
 def main() -> None:
+    if "--train" in sys.argv[1:]:
+        train_main()
+        return
     tasks, hosts, _, meta = make_workload("marconi", scale=1.0, seed=0,
                                           dt_h=DT_H, horizon_days=30.0)
     if "--fleet" in sys.argv[1:]:

@@ -10,8 +10,18 @@ nowhere else; `launch_counts()` / `reset_launch_counts()` read and clear
 them, so a run can show which kernels its path went through.  An active
 telemetry session is told which way each call went (`plain_kernels` of its
 run records).
+
+No kernel has a backward: each writes its output into a fresh tensor, so
+an output carries no autograd history.  Every entry therefore refuses, on
+every device, to run with grad mode on when an input requires grad (the
+CPU's plain versions refuse too, so a CPU test finds a training path that
+reaches a kernel).  Training takes the models' plain path
+(`use_kernels=False`, as `Model.loss` does); serving runs under
+`torch.no_grad()` (`Model.prefill`, `Model.decode_step`).
 """
 from __future__ import annotations
+
+import torch
 
 from ..core import telemetry
 from . import build, ref
@@ -27,9 +37,22 @@ reset_launch_counts = build.reset_launch_counts
 KERNELS = build.KERNELS
 
 
+def _refuse_autograd(name: str, *tensors) -> None:
+    """Raise when grad mode is on and one of `tensors` requires grad: the
+    kernel's output would silently drop that input's gradient."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"ops.{name}: an input requires grad, and the kernel (and its "
+            "plain version here) has no backward; train through the models' "
+            "plain path (use_kernels=False, as Model.loss does), or call "
+            "under torch.no_grad()")
+
+
 def host_power(cpu_util, gpu_util, n_gpus, on, cpu_cfg, gpu_cfg):
     """(power_kw[H], it_kw): per-host power and its sum (kernel 1, without
     the carbon tail)."""
+    _refuse_autograd("host_power", cpu_util, gpu_util, n_gpus, on)
     telemetry.note_plain_kernels(not cpu_util.is_cuda)
     if cpu_util.is_cuda:
         p, it, _ = _power_carbon.fused_power_carbon(
@@ -43,6 +66,8 @@ def host_power(cpu_util, gpu_util, n_gpus, on, cpu_cfg, gpu_cfg):
 def fused_power_carbon(cpu_util, gpu_util, n_gpus, on, ci, dt_h, cpu_cfg,
                        gpu_cfg):
     """(power_kw, it_kw, op_carbon_kg) in one pass."""
+    _refuse_autograd("fused_power_carbon", cpu_util, gpu_util, n_gpus, on,
+                     ci)
     telemetry.note_plain_kernels(not cpu_util.is_cuda)
     impl = _power_carbon if cpu_util.is_cuda else ref
     return impl.fused_power_carbon(cpu_util, gpu_util, n_gpus, on, ci, dt_h,
@@ -53,6 +78,8 @@ def facility_power(cpu_util, gpu_util, n_gpus, on, wet_bulb_c, setpoint_c,
                    cpu_cfg, gpu_cfg, cooling_cfg):
     """(power_kw, it_kw, cooling_kw, water_l_per_h) in one pass: the power
     block, the host-axis sum and the cooling model of core/thermal.py."""
+    _refuse_autograd("facility_power", cpu_util, gpu_util, n_gpus, on,
+                     wet_bulb_c, setpoint_c)
     telemetry.note_plain_kernels(not cpu_util.is_cuda)
     impl = _power_carbon if cpu_util.is_cuda else ref
     return impl.fused_facility_power(cpu_util, gpu_util, n_gpus, on,
@@ -63,6 +90,8 @@ def facility_power(cpu_util, gpu_util, n_gpus, on, wet_bulb_c, setpoint_c,
 def first_fit_place(cand_cores, cand_gpus, free_cores, free_gpus):
     """Greedy first-fit of K candidates onto H hosts:
     (assign i32[K], free cores, free GPUs)."""
+    _refuse_autograd("first_fit_place", cand_cores, cand_gpus, free_cores,
+                     free_gpus)
     telemetry.note_plain_kernels(not cand_cores.is_cuda)
     impl = _first_fit if cand_cores.is_cuda else ref
     return impl.first_fit_place(cand_cores, cand_gpus, free_cores, free_gpus)
@@ -72,6 +101,9 @@ def fused_facility_totals(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
                           pv_cf, batt_threshold, ci_rising, cfg, **kwargs):
     """The megakernel's facility half over the whole horizon, reduced to
     the totals dict of `engine.facility_totals_from_flows`."""
+    _refuse_autograd("fused_facility_totals", it_kw, ci, wet_bulb_c, price,
+                     price_lo, price_hi, pv_cf, batt_threshold, ci_rising,
+                     *kwargs.values())
     telemetry.note_plain_kernels(not it_kw.is_cuda)
     impl = _fused_step if it_kw.is_cuda else ref
     return impl.fused_facility_totals(it_kw, ci, wet_bulb_c, price, price_lo,
@@ -86,6 +118,9 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
     `trace_store`) and the totals of `fused_facility_totals`.  On the card
     one launch of kernel 3's series route writes both; its totals are the
     totals route's bits."""
+    _refuse_autograd("fused_facility_chain", it_kw, ci, wet_bulb_c, price,
+                     price_lo, price_hi, pv_cf, batt_threshold, ci_rising,
+                     *kwargs.values())
     telemetry.note_plain_kernels(not it_kw.is_cuda)
     impl = _fused_step if it_kw.is_cuda else ref
     return impl.fused_facility_series(it_kw, ci, wet_bulb_c, price, price_lo,
@@ -97,6 +132,7 @@ def per_host_sum(v0, v1, seg, h: int) -> tuple:
     """Per-host sums of two value channels over the bins `seg` ([T] / [B, T]
     like the values; bins >= h are spare and dropped), each host's values
     added in task order: ([..., h], [..., h]) f32."""
+    _refuse_autograd("per_host_sum", v0, v1)
     telemetry.note_plain_kernels(not seg.is_cuda)
     impl = _host_sum if seg.is_cuda else ref
     return impl.per_host_sum(v0, v1, seg, h)
@@ -105,6 +141,7 @@ def per_host_sum(v0, v1, seg, h: int) -> tuple:
 def ssd_intra_chunk(xdt, da, b, c):
     """Mamba-2 SSD intra-chunk quadratic form: xdt [B,C,Q,H,P], da
     [B,C,H,Q], b / c [B,C,Q,G,N] (H % G == 0) -> y f32 [B,C,Q,H,P]."""
+    _refuse_autograd("ssd_intra_chunk", xdt, da, b, c)
     telemetry.note_plain_kernels(not xdt.is_cuda)
     impl = _ssd_chunk if xdt.is_cuda else ref
     return impl.ssd_intra_chunk(xdt, da, b, c)
@@ -113,6 +150,7 @@ def ssd_intra_chunk(xdt, da, b, c):
 def flash_attention(q, k, v, *, scale: float, causal: bool = True):
     """Online-softmax attention: q [B,Sq,H,D], k / v [B,Sk,KV,D] -> like q
     (causal mask top-left aligned, f32 accumulation)."""
+    _refuse_autograd("flash_attention", q, k, v)
     telemetry.note_plain_kernels(not q.is_cuda)
     impl = _flash_attn if q.is_cuda else ref
     return impl.flash_attention(q, k, v, scale=scale, causal=causal)

@@ -45,28 +45,42 @@ def hybrid_model_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-def _shared_block(cfg: ArchConfig, sp: dict, ap: dict, x, positions):
+def _shared_block(cfg: ArchConfig, sp: dict, ap: dict, x, positions,
+                  use_kernels: bool = True):
     h = x @ L._c(ap["w"], x.dtype)
     h = L.apply_norm(cfg, sp["ln1"], h)
-    x = x + L.attention(cfg, sp["attn"], h, positions)
+    x = x + L.attention(cfg, sp["attn"], h, positions,
+                        use_kernels=use_kernels)
     return x + L.ffn(cfg, sp["mlp"], L.apply_norm(cfg, sp["ln2"], x))
 
 
 def hybrid_logits(cfg: ArchConfig, params: dict, tokens,
-                  last_only: bool = False):
+                  last_only: bool = False, use_kernels: bool = True):
+    """Mamba layers checkpointed one by one under `cfg.remat`, the shared
+    block not, as in the reference.  use_kernels=False: no SSD or flash
+    kernel (the training path)."""
     n_groups, per, trailing = _split(cfg)
     x = L.embed(cfg, params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for g in range(n_groups):
-        x = mamba_stack(cfg, L.layer(params["groups"], g), x, per)
+        x = mamba_stack(cfg, L.layer(params["groups"], g), x, per,
+                        use_kernels)
         x = _shared_block(cfg, params["shared"],
-                          L.layer(params["adapters"], g), x, positions)
+                          L.layer(params["adapters"], g), x, positions,
+                          use_kernels)
     if trailing:
-        x = mamba_stack(cfg, params["trailing"], x, trailing)
+        x = mamba_stack(cfg, params["trailing"], x, trailing, use_kernels)
     x = L.apply_norm(cfg, params["ln_f"], x)
     if last_only:
         x = x[:, -1:]
     return L.logits_out(cfg, params["embed"], x)
+
+
+def hybrid_loss(cfg: ArchConfig, params: dict, batch: dict):
+    """Mean next-token cross-entropy on the plain path (the reference's
+    `use_pallas=False`; its shared attention is the blockwise softmax)."""
+    logits = hybrid_logits(cfg, params, batch["tokens"], use_kernels=False)
+    return L.cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 # --------------------------------------------------------------------------

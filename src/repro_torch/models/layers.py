@@ -1,10 +1,12 @@
-"""Building blocks of the model substrate's serving path.
+"""Building blocks of the model substrate.
 
 The port of the reference package's `models/layers.py`, the parts the
 `ssm`, `hybrid`, `dense` and `vlm` families use: parameter tables and their
 initialisation, normalisation, rotary embeddings, attention (prefill, with
 the local / global window of a layer, and one-token decode against a KV
-cache), the gated feed-forward block, embedding and logits.
+cache), the gated feed-forward block, embedding, logits, the
+cross-entropy loss and activation checkpointing (`remat_policy`,
+`checkpointed`).
 Everything is a function over explicit parameter dicts whose leaves carry
 the reference's stacked layer axes, so a parameter tree converts leaf for
 leaf (`models/convert.py`).
@@ -21,17 +23,37 @@ constraints are dropped.  Two liberties, both bit-neutral:
 
 Attention with no softcap and no window goes through
 `kernels.ops.flash_attention`: the tensor's device decides (the kernel on
-the card, its plain version on the CPU), not `cfg.attn_impl`.
+the card, its plain version on the CPU), not `cfg.attn_impl`.  With
+`use_kernels=False` (the losses') attention is the reference's plain
+path, the blockwise or whole-matrix softmax, as its training takes.
+
+Training differentiates these functions with autograd.  Weights are cast
+to the compute type at each use (`_c`), inside the graph, so gradients
+reach the parameters; `cast_for_compute` is for serving only.  One
+difference from the reference under a bf16 compute type: the embedding
+gathers rows of the f32 table and casts them, so its backward adds
+repeated tokens' gradients in f32, where the reference's gather of the
+cast table adds them in bf16 (with f32 compute both are the same sums).
+
+The reference's `scan_layers` has no counterpart: the port's Python loops
+over layers are its unrolled form, and `checkpointed` wraps a loop's body
+where the reference wraps its scan body in `jax.checkpoint`.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
+from ..core import telemetry
+from ..core.config import inv_f32
 from ..kernels import ops
 from .config import ArchConfig
 
@@ -171,6 +193,48 @@ def _gemma_like(cfg: ArchConfig) -> bool:
     return cfg.name.startswith(("gemma", "paligemma"))
 
 
+# --------------------------------------------------------------------------
+# activation checkpointing
+# --------------------------------------------------------------------------
+
+# the matrix products a "dots" policy keeps (the reference's
+# checkpoint_dots): x @ w and einsum lower to these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_policy(cfg: ArchConfig):
+    """The `context_fn` of `torch.utils.checkpoint.checkpoint` for
+    `cfg.remat_policy`: "dots" keeps the matrix products' outputs and
+    recomputes the rest; any other policy keeps nothing (the reference's
+    `nothing_saveable`)."""
+    if cfg.remat_policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+    return noop_context_fn
+
+
+def checkpointed(cfg: ArchConfig, fn: Callable) -> Callable:
+    """`fn` under activation checkpointing when `cfg.remat` is set and grad
+    mode is on (backward recomputes it from its inputs); `fn` itself
+    otherwise.  Recomputing gives the same bits."""
+    if not cfg.remat:
+        return fn
+    context_fn = remat_policy(cfg)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return run
+
+
 def norm_defs(cfg: ArchConfig, kind: str | None = None) -> dict:
     kind = kind or getattr(cfg, "norm", "rms")
     if cfg.family == "encdec" or kind == "layer":
@@ -290,35 +354,45 @@ def sdpa_blockwise(q, k, v, scale: float, softcap: float = 0.0, *,
     """`sdpa` over query blocks of `block` rows (causal + optional sliding
     window), so the scores are [B, H, block, Sk] at a time; the reference
     falls back to one block when `block` does not divide Sq, and so does
-    this."""
+    this.  Under grad mode each block is checkpointed, as the reference's
+    scan body is: backward recomputes a block's scores rather than keeping
+    every block's [B, H, block, Sk] softmax."""
     sq, sk = q.shape[1], k.shape[1]
     blk = max(min(block, sq), 1)
     if sq % blk:
         blk = sq
+    grad = torch.is_grad_enabled()
     outs = []
     for q0 in range(0, sq, blk):
         m = causal_mask(blk, sk, q0 + q_offset, window, device=q.device)
-        outs.append(sdpa(q[:, q0:q0 + blk], k, v, m, scale, softcap))
+        args = (q[:, q0:q0 + blk], k, v, m, scale, softcap)
+        outs.append(checkpoint(sdpa, *args, use_reentrant=False) if grad
+                    else sdpa(*args))
     return torch.cat(outs, dim=1)
 
 
 def attention(cfg: ArchConfig, p: dict, x, positions, *, window: int = 0,
-              theta: float | None = None, scale: float | None = None):
+              theta: float | None = None, scale: float | None = None,
+              use_kernels: bool = True):
     """Full (prefill) self-attention with causal (+window) mask.  Without
     softcap and window it is `ops.flash_attention` (the kernel on the card);
-    otherwise the blockwise or whole-matrix softmax of the reference."""
+    otherwise, and always with `use_kernels=False` (the reference's
+    `attn_impl="xla"`, the path its training takes), the blockwise or
+    whole-matrix softmax of the reference."""
     theta = cfg.rope_theta if theta is None else theta
-    q, k, v = _qk_project(cfg, p, x, positions, theta)
     scale = (1.0 / math.sqrt(cfg.hd)) if scale is None else scale
-    if not cfg.attn_softcap and not window:
-        out = ops.flash_attention(q, k, v, scale=scale, causal=True)
-    elif cfg.attn_block:
-        out = sdpa_blockwise(q, k, v, scale, cfg.attn_softcap,
-                             block=cfg.attn_block, window=window)
-    else:
-        mask = causal_mask(x.shape[1], x.shape[1], 0, window, device=x.device)
-        out = sdpa(q, k, v, mask, scale, cfg.attn_softcap)
-    return _merge_heads(out, _c(p["wo"], out.dtype))
+    with telemetry.stage_scope("attention", x.device):
+        q, k, v = _qk_project(cfg, p, x, positions, theta)
+        if use_kernels and not cfg.attn_softcap and not window:
+            out = ops.flash_attention(q, k, v, scale=scale, causal=True)
+        elif cfg.attn_block:
+            out = sdpa_blockwise(q, k, v, scale, cfg.attn_softcap,
+                                 block=cfg.attn_block, window=window)
+        else:
+            mask = causal_mask(x.shape[1], x.shape[1], 0, window,
+                               device=x.device)
+            out = sdpa(q, k, v, mask, scale, cfg.attn_softcap)
+        return _merge_heads(out, _c(p["wo"], out.dtype))
 
 
 def layer_window(cfg: ArchConfig, layer_idx: int) -> int:
@@ -332,11 +406,13 @@ def layer_window(cfg: ArchConfig, layer_idx: int) -> int:
 
 
 def attention_traced_window(cfg: ArchConfig, p: dict, x, positions,
-                            window: int):
+                            window: int, use_kernels: bool = True):
     """Attention of a dense layer whose window is `layer_window`'s (the
     reference traces it; here it is a host integer, so `attention`'s
-    dispatch applies: flash for a global layer without softcap)."""
-    return attention(cfg, p, x, positions, window=window)
+    dispatch applies: flash for a global layer without softcap, unless
+    `use_kernels` is False)."""
+    return attention(cfg, p, x, positions, window=window,
+                     use_kernels=use_kernels)
 
 
 def cache_update(cache, new, pos: int):
@@ -410,7 +486,7 @@ def ffn(cfg: ArchConfig, p: dict, x):
 
 
 # --------------------------------------------------------------------------
-# embedding / logits
+# embedding / logits / loss
 # --------------------------------------------------------------------------
 
 def embed_defs(cfg: ArchConfig) -> dict:
@@ -440,3 +516,24 @@ def logits_out(cfg: ArchConfig, p: dict, x):
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logits f32[B,S,V], labels int[B,S]; mean NLL over unmasked tokens
+    (`mask` [B,S], nonzero = counted).
+
+    The gold logit is picked with `gather`.  The reference sums the logits
+    under a compare with the vocab ids (a gather over a vocab-sharded
+    tensor would all-gather it), which adds only zeros to the gold logit:
+    the same bits, without a [B, S, V] f32 temporary (5 GB at qwen2-1.5b's
+    2 x 4096 positions and 151,936 ids).  The unmasked mean is the sum
+    times the f32 reciprocal of the count, as the jitted reference computes
+    `jnp.mean`.
+    """
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.sum() * inv_f32(nll.numel())
+    m = mask.to(F32)
+    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)

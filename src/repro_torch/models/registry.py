@@ -1,19 +1,26 @@
 """One model API over the architecture families (the port of the
-reference's `models/registry.py`, its serving half):
+reference's `models/registry.py`):
 
     model = get_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    loss = model.loss(params, {"tokens": tokens, "labels": labels})
     logits = model.prefill(params, {"tokens": tokens})         # [B,1,V] f32
     cache = model.init_cache(batch, seq)
     logits, cache = model.decode_step(params, cache, tokens[:, t:t+1], t)
 
 `decode_step` writes the cache in place and returns it.  `init` and
 `init_cache` take `device=` and default to "cuda"; the tensors' device
-decides whether the kernels or their plain versions run.  The port serves
-four families: `ssm` (mamba2), `hybrid` (zamba2), `dense` (qwen2, stablelm,
-gemma2, gemma3) and `vlm` (paligemma, whose prefill batch may carry
-"patch_embeds" [B, P, frontend_dim]).  The others, and training (`loss`),
-raise NotImplementedError naming the ROADMAP item they wait for.
+decides whether the kernels or their plain versions run.  Serving
+(`prefill`, `decode_step`) runs under `torch.no_grad()` and takes the
+kernels; `loss` (mean next-token cross-entropy over the labels, a batch
+"mask" [B, S] optional) takes each family's plain path, the port of the
+reference's jnp code (`use_kernels=False`), which autograd
+differentiates: no kernel has a backward, as the reference trains on its
+jnp paths too.  The port serves and trains four families: `ssm`
+(mamba2), `hybrid` (zamba2), `dense` (qwen2, stablelm, gemma2, gemma3)
+and `vlm` (paligemma, whose batch may carry "patch_embeds" [B, P,
+frontend_dim]; its labels cover the text tokens only).  The others raise
+NotImplementedError naming the ROADMAP item they wait for.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ _WAITS = {
 class Model:
     cfg: ArchConfig
     param_defs: dict
+    loss: Callable          # (params, batch) -> scalar f32
     prefill: Callable       # (params, batch) -> last-position logits
     decode_step: Callable   # (params, cache, tokens[B,1], pos) -> (logits, cache)
     cache_shape: Callable   # (batch, seq) -> {name: TensorSpec}
@@ -55,10 +63,8 @@ class Model:
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
                 for k, s in self.cache_shape(batch, seq).items()}
 
-    def loss(self, params, batch):
-        raise NotImplementedError(
-            "training (loss, train/) waits for ROADMAP Queue 1 item 6e; the "
-            "port serves (prefill, decode_step) only")
+
+_serve = torch.no_grad()
 
 
 def get_model(cfg: ArchConfig) -> Model:
@@ -66,26 +72,30 @@ def get_model(cfg: ArchConfig) -> Model:
     if fam in ("dense", "vlm"):
         return Model(
             cfg=cfg, param_defs=transformer.dense_defs(cfg),
-            prefill=lambda p, b: transformer.dense_logits(
-                cfg, p, b["tokens"], b.get("patch_embeds"), last_only=True),
-            decode_step=lambda p, c, t, pos: transformer.dense_decode_step(
-                cfg, p, c, t, pos),
+            loss=lambda p, b: transformer.dense_loss(cfg, p, b),
+            prefill=_serve(lambda p, b: transformer.dense_logits(
+                cfg, p, b["tokens"], b.get("patch_embeds"), last_only=True)),
+            decode_step=_serve(lambda p, c, t, pos:
+                               transformer.dense_decode_step(cfg, p, c, t,
+                                                             pos)),
             cache_shape=lambda b, s: transformer.dense_cache_shape(cfg, b, s))
     if fam == "ssm":
         return Model(
             cfg=cfg, param_defs=ssm.ssm_model_defs(cfg),
-            prefill=lambda p, b: ssm.ssm_logits(cfg, p, b["tokens"],
-                                                last_only=True),
-            decode_step=lambda p, c, t, pos: ssm.ssm_decode_step(
-                cfg, p, c, t, pos),
+            loss=lambda p, b: ssm.ssm_loss(cfg, p, b),
+            prefill=_serve(lambda p, b: ssm.ssm_logits(cfg, p, b["tokens"],
+                                                       last_only=True)),
+            decode_step=_serve(lambda p, c, t, pos: ssm.ssm_decode_step(
+                cfg, p, c, t, pos)),
             cache_shape=lambda b, s: ssm.ssm_state_shape(cfg, b, s))
     if fam == "hybrid":
         return Model(
             cfg=cfg, param_defs=hybrid.hybrid_model_defs(cfg),
-            prefill=lambda p, b: hybrid.hybrid_logits(cfg, p, b["tokens"],
-                                                      last_only=True),
-            decode_step=lambda p, c, t, pos: hybrid.hybrid_decode_step(
-                cfg, p, c, t, pos),
+            loss=lambda p, b: hybrid.hybrid_loss(cfg, p, b),
+            prefill=_serve(lambda p, b: hybrid.hybrid_logits(
+                cfg, p, b["tokens"], last_only=True)),
+            decode_step=_serve(lambda p, c, t, pos: hybrid.hybrid_decode_step(
+                cfg, p, c, t, pos)),
             cache_shape=lambda b, s: hybrid.hybrid_state_shape(cfg, b, s))
     if fam in _WAITS:
         raise NotImplementedError(f"{cfg.name}: {_WAITS[fam]}")

@@ -4,9 +4,11 @@ zamba2-7b hybrid backbone (the port of the reference's `models/ssm.py`).
 The SSD forward is the chunked dual form of the selective-state recurrence
 (Dao & Gu, arXiv:2405.21060): within a chunk the output is a masked
 quadratic ("attention-like") form, `kernels.ops.ssd_intra_chunk` (the
-kernel on the card, its segsum plain version on the CPU); across chunks a
-small recurrence carries the [H, N, P] state.  Decode is the O(1)
-recurrent form over the same parameters, in plain tensor ops.
+kernel on the card, its segsum plain version on the CPU) when serving,
+and the reference's segsum einsums with `use_kernels=False` (the training
+path, `ssm_loss`); across chunks a small recurrence carries the [H, N, P]
+state.  Decode is the O(1) recurrent form over the same parameters, in
+plain tensor ops.
 
 Einsum letters: b=batch, c=chunk, q/k=position-in-chunk, h=head,
 g=group, r=head-in-group, p=head-channel, s=ssm-state.
@@ -72,12 +74,34 @@ def conv_step(state, xt, w):
 # SSD chunked scan (prefill)
 # --------------------------------------------------------------------------
 
-def ssd_scan(x, dt, a, b, c, chunk: int):
+def _segsum(a):
+    """a: [..., Q] -> a-sums over (k, q] as lower-triangular [..., Q, Q]
+    (-inf above the diagonal)."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
+    return torch.where(mask, diff, -torch.inf)
+
+
+def _intra_chunk_plain(xdt, da_h, bg, cg, r: int):
+    """The intra-chunk term as the reference's jnp path computes it
+    (`ssd_scan` with use_pallas=False): B and C repeated per head, the
+    decayed scores `cb * exp(segsum)`, then their product with xdt."""
+    bh = bg.repeat_interleave(r, dim=3)
+    ch = cg.repeat_interleave(r, dim=3)
+    decay = torch.exp(_segsum(da_h))                          # [b,c,h,q,k]
+    cb = torch.einsum("bcqhs,bckhs->bchqk", ch, bh)
+    return torch.einsum("bchqk,bckhp->bcqhp", cb * decay, xdt)
+
+
+def ssd_scan(x, dt, a, b, c, chunk: int, use_kernels: bool = True):
     """Chunked SSD.  x:[B,S,H,P] dt:[B,S,H] a:[H] b,c:[B,S,G,N].
 
     Returns (y [B,S,H,P], final_state [B,H,N,P]) in x's type; the math is
     f32.  B and C stay in their G groups (head h reads group h // (H // G))
-    and are never repeated per head.
+    and are never repeated per head, except on the plain intra-chunk path
+    (use_kernels=False), which is the reference's.
     """
     bt, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -96,7 +120,10 @@ def ssd_scan(x, dt, a, b, c, chunk: int):
     total = cum[..., -1]                          # [b,c,h]
     xdt = xf * dtf[..., None]                     # [b,c,q,h,p]
 
-    y_intra = ops.ssd_intra_chunk(xdt, da_h, bg, cg)
+    if use_kernels:
+        y_intra = ops.ssd_intra_chunk(xdt, da_h, bg, cg)
+    else:
+        y_intra = _intra_chunk_plain(xdt, da_h, bg, cg, r)
 
     # per-chunk input->state summaries
     decay_out = torch.exp(total[..., None] - cum)                # [b,c,h,q]
@@ -148,8 +175,8 @@ def _gated_out(cfg: ArchConfig, p: dict, y, z):
     return y @ L._c(p["out"], y.dtype)
 
 
-def mamba2_block(cfg: ArchConfig, p: dict, u):
-    """u: [B,S,D] -> [B,S,D] (prefill path)."""
+def mamba2_block(cfg: ArchConfig, p: dict, u, use_kernels: bool = True):
+    """u: [B,S,D] -> [B,S,D] (prefill and training path)."""
     s_cfg = cfg.ssm
     d_in, n_heads = _dims(cfg)
     z, x, braw, craw, dtraw = _block_inputs(cfg, p, u)
@@ -164,7 +191,7 @@ def mamba2_block(cfg: ArchConfig, p: dict, u):
     dt = F.softplus(dtraw.to(F32) + p["dt_bias"].to(F32))
     a = -torch.exp(p["a_log"].to(F32))
 
-    y, _ = ssd_scan(xh, dt, a, bmat, cmat, s_cfg.chunk)
+    y, _ = ssd_scan(xh, dt, a, bmat, cmat, s_cfg.chunk, use_kernels)
     y = y + xh * L._c(p["d_skip"], xh.dtype)[None, None, :, None]
     return _gated_out(cfg, p, y.reshape(bsz, s, d_in), z)
 
@@ -215,22 +242,34 @@ def ssm_model_defs(cfg: ArchConfig) -> dict:
             "ln_f": L.norm_defs(cfg)}
 
 
-def mamba_stack(cfg: ArchConfig, lps: dict, x, n: int):
-    """n residual mamba layers, stacked on the leading axis of `lps`."""
+def mamba_stack(cfg: ArchConfig, lps: dict, x, n: int,
+                use_kernels: bool = True):
+    """n residual mamba layers, stacked on the leading axis of `lps`; each
+    layer checkpointed under `cfg.remat` (the reference's scan body)."""
+    def fn(x, lp):
+        return x + mamba2_block(cfg, lp["mix"], L.apply_norm(cfg, lp["ln"], x),
+                                use_kernels)
+    fn = L.checkpointed(cfg, fn)
     for i in range(n):
-        lp = L.layer(lps, i)
-        x = x + mamba2_block(cfg, lp["mix"], L.apply_norm(cfg, lp["ln"], x))
+        x = fn(x, L.layer(lps, i))
     return x
 
 
 def ssm_logits(cfg: ArchConfig, params: dict, tokens,
-               last_only: bool = False):
+               last_only: bool = False, use_kernels: bool = True):
     x = L.embed(cfg, params["embed"], tokens)
-    x = mamba_stack(cfg, params["layers"], x, cfg.n_layers)
+    x = mamba_stack(cfg, params["layers"], x, cfg.n_layers, use_kernels)
     x = L.apply_norm(cfg, params["ln_f"], x)
     if last_only:
         x = x[:, -1:]
     return L.logits_out(cfg, params["embed"], x)
+
+
+def ssm_loss(cfg: ArchConfig, params: dict, batch: dict):
+    """Mean next-token cross-entropy on the plain SSD path (the reference's
+    `use_pallas=False`, the way its registry trains)."""
+    logits = ssm_logits(cfg, params, batch["tokens"], use_kernels=False)
+    return L.cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 def ssm_state_shape(cfg: ArchConfig, batch: int, seq: int) -> dict:

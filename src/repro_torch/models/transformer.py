@@ -1,14 +1,17 @@
 """Dense decoder-only transformer: qwen2, stablelm, gemma2, gemma3, and the
 text backbone of paligemma (the port of the reference's
-`models/transformer.py`, its serving half).
+`models/transformer.py`).
 
 The reference scans one layer body over stacked weights with the window
 size a traced per-layer value.  The port runs on one device, eagerly: a
-Python loop over the layers, each layer's window a host integer
-(`layers.layer_window`).  Attention of a global layer with no softcap goes
-through `ops.flash_attention` (the kernel on the card); a local layer, or
-any layer of a softcapped model (gemma2), takes the blockwise softmax of
-the reference.
+Python loop over the layers (the scan's unrolled form), each layer's
+window a host integer (`layers.layer_window`), each layer checkpointed
+under `cfg.remat` as the reference's scan body is.  For serving,
+attention of a global layer with no softcap goes through
+`ops.flash_attention` (the kernel on the card); a local layer, or any
+layer of a softcapped model (gemma2), takes the blockwise softmax of the
+reference.  `dense_loss` takes the blockwise softmax on every layer
+(`use_kernels=False`), as the reference's layers always do.
 
 The paligemma ("vlm") variant prepends `n_frontend_tokens` precomputed
 SigLIP patch embeddings: a learned projection from `frontend_dim` to
@@ -56,12 +59,22 @@ def _mlp_half(cfg: ArchConfig, lp: dict, x, h):
     return x + h
 
 
+def _layer_fn(cfg: ArchConfig, use_kernels: bool):
+    def fn(x, lp, positions, window):
+        h = L.attention_traced_window(
+            cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x), positions,
+            window, use_kernels)
+        return _mlp_half(cfg, lp, x, h)
+    return L.checkpointed(cfg, fn)
+
+
 def dense_logits(cfg: ArchConfig, params: dict, tokens, extra_embeds=None,
-                 last_only: bool = False):
+                 last_only: bool = False, use_kernels: bool = True):
     """tokens int[B,S] -> logits f32[B,S,V] (last_only: [B,1,V], the
     prefill's).  extra_embeds (vlm): [B,P,D_f] frontend embeddings
     prepended to the token sequence; their positions are dropped from the
-    full logits."""
+    full logits.  use_kernels=False: attention without the flash kernel
+    (the training path)."""
     x = L.embed(cfg, params["embed"], tokens)
     if extra_embeds is not None:
         proj = extra_embeds.to(x.dtype) @ L._c(params["vision_proj"], x.dtype)
@@ -70,12 +83,10 @@ def dense_logits(cfg: ArchConfig, params: dict, tokens, extra_embeds=None,
                                        device=x.device)
         x = torch.cat([proj, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    fn = _layer_fn(cfg, use_kernels)
     for i in range(cfg.n_layers):
-        lp = L.layer(params["layers"], i)
-        h = L.attention_traced_window(
-            cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x), positions,
-            L.layer_window(cfg, i))
-        x = _mlp_half(cfg, lp, x, h)
+        x = fn(x, L.layer(params["layers"], i), positions,
+               L.layer_window(cfg, i))
     x = L.apply_norm(cfg, params["ln_f"], x)
     if last_only:
         return L.logits_out(cfg, params["embed"], x[:, -1:])
@@ -83,6 +94,14 @@ def dense_logits(cfg: ArchConfig, params: dict, tokens, extra_embeds=None,
     if extra_embeds is not None:
         logits = logits[:, extra_embeds.shape[1]:]
     return logits
+
+
+def dense_loss(cfg: ArchConfig, params: dict, batch: dict):
+    """Mean next-token cross-entropy of the text positions (a vlm's labels
+    cover its tokens only: `dense_logits` drops the patch positions)."""
+    logits = dense_logits(cfg, params, batch["tokens"],
+                          batch.get("patch_embeds"), use_kernels=False)
+    return L.cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,153 @@
+"""Checkpoints as numpy files (the port of the reference's
+`train/checkpoint.py`).
+
+Layout: one directory per step, `step_%08d`, one .npy file per leaf plus a
+JSON manifest (names, files, shapes, dtypes, step).  The files are the
+interface, shared with the reference: the same leaf names (the reference
+names a leaf by its JAX tree path: a NamedTuple field as ".name", a dict
+key as itself, a sequence index as its number, joined with "_", so a
+`TrainState`'s leaves are ".params_embed_tok", ".opt_.step",
+".opt_.m_layers_attn_bq", ...), the same manifest, and bf16 leaves stored
+as their uint16 bits with the dtype "bfloat16".  A directory written by
+either package restores in the other.
+
+Fault-tolerance contract (used by train/carbon_aware.py): atomic directory
+rename on completion, `latest_step()` discovery on restart, and tolerance
+of a torn (unrenamed) tmp directory from a crashed writer.  Elastic
+restore onto a mesh (the reference's `shardings=`) waits for ROADMAP
+Queue 1 item 6f.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+
+import numpy as np
+import torch
+
+def _children(node) -> list | None:
+    """(key, child) pairs in the reference's tree order, or None for a
+    leaf: a NamedTuple's fields as ".name", a dict's sorted keys, a list's
+    or tuple's indices; None holds no leaf."""
+    if node is None:
+        return []
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, (list, tuple)):
+        return [(str(i), c) for i, c in enumerate(node)]
+    return None
+
+
+def _leaf_paths(tree) -> list:
+    """[(name, leaf)] in the reference's flatten order."""
+    out = []
+
+    def walk(node, path):
+        kids = _children(node)
+        if kids is None:
+            out.append(("_".join(path), node))
+            return
+        for k, c in kids:
+            walk(c, path + (k,))
+    walk(tree, ())
+    return out
+
+
+def _rebuild(like, leaves: list):
+    """`like`'s structure with its leaves taken in order from `leaves`."""
+    it = iter(leaves)
+
+    def walk(node):
+        if node is None:
+            return None
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*[walk(getattr(node, f))
+                                for f in node._fields])
+        if isinstance(node, dict):
+            built = {k: walk(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(c) for c in node)
+        return next(it)
+    return walk(like)
+
+
+def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    """(array to write, dtype name for the manifest)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+        return arr, str(arr.dtype)
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def save(ckpt_dir: str, step: int, state) -> str:
+    """Write `state` (a tree of tensors) for `step`.  Atomic via rename."""
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)          # torn write from a crashed run
+    os.makedirs(tmp, exist_ok=True)
+    manifest = {"step": step, "leaves": []}
+    for name, leaf in _leaf_paths(state):
+        arr, dtype = _to_numpy(leaf)
+        fname = f"{name}.npy"
+        np.save(os.path.join(tmp, fname), arr, allow_pickle=False)
+        manifest["leaves"].append(
+            {"name": name, "file": fname, "shape": list(arr.shape),
+             "dtype": dtype})
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+             if d.startswith("step_") and not d.endswith(".tmp")
+             and os.path.exists(os.path.join(ckpt_dir, d, "manifest.json"))]
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str, step: int, like, device="cuda"):
+    """Load into the structure of `like` (a tree of tensors): each leaf in
+    its `like` leaf's type, on `device`, requiring grad where that leaf
+    does."""
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    by_name = {m["name"]: m for m in manifest["leaves"]}
+    out = []
+    for name, leaf in _leaf_paths(like):
+        meta = by_name[name]
+        arr = np.load(os.path.join(d, meta["file"]))
+        if meta["dtype"] == "bfloat16":
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != "
+                             f"expected {tuple(leaf.shape)}")
+        t = t.to(device=device, dtype=leaf.dtype)
+        out.append(t.requires_grad_(True) if leaf.requires_grad else t)
+    return _rebuild(like, out)
+
+
+def prune(ckpt_dir: str, keep: int = 3):
+    """Retain only the most recent `keep` checkpoints."""
+    if not os.path.isdir(ckpt_dir):
+        return
+    dirs = sorted(d for d in os.listdir(ckpt_dir)
+                  if d.startswith("step_") and not d.endswith(".tmp"))
+    for d in dirs[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, d))

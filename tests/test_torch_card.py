@@ -18,7 +18,8 @@ aggregate scheduling (no first-fit launch), a task-trace grid and the §III
 analytical model, and a run with the probe bus (kernel 3's series route,
 held bit for bit to the plain chain on the CPU); a reduced zamba2 / mamba2
 prefill launches exactly its SSD and flash kernels, and serving never waits
-for the card.
+for the card; the kernel entries refuse a tensor that requires grad, and a
+train step launches no kernel and gives the CPU's loss.
 """
 from __future__ import annotations
 
@@ -964,3 +965,62 @@ def test_per_host_sum_repeats_and_equals_cpu(cuda_device, b, t, h, running):
     for x, y, w in zip(first, again, want):
         assert torch.equal(x, y)
         assert torch.equal(x.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_kernel_entries_refuse_autograd_on_the_card(cuda_device):
+    """A CUDA tensor that requires grad never reaches a kernel: the kernel
+    has no backward, so its output would drop that input's gradient."""
+    d = cuda_device
+    q = torch.randn((1, 64, 4, 32), device=d, requires_grad=True)
+    k, v = torch.randn((1, 64, 2, 32), device=d), torch.randn(
+        (1, 64, 2, 32), device=d)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="use_kernels=False"):
+        ops.flash_attention(q, k, v, scale=0.25)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_intra_chunk(torch.randn((1, 2, 8, 2, 4), device=d,
+                                        requires_grad=True),
+                            -torch.rand((1, 2, 2, 8), device=d),
+                            torch.randn((1, 2, 8, 1, 4), device=d),
+                            torch.randn((1, 2, 8, 1, 4), device=d))
+    assert not any(ops.launch_counts().values())
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, scale=0.25)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert not out.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["qwen2-1.5b", "zamba2-7b"])
+def test_train_step_on_the_card_matches_cpu(cuda_device, arch_id):
+    """One train step of a reduced config on the card launches no kernel
+    and gives the CPU's loss and gradient norm (the same weights); the
+    next loss falls."""
+    from repro_torch.configs import reduced
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import (TrainConfig, make_train_step,
+                                        new_train_state)
+    cfg = reduced(arch_id)
+    model = get_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 65),
+                           generator=torch.Generator().manual_seed(1))
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                       total_steps=10))
+    out = {}
+    for d in (cuda_device, torch.device("cpu")):
+        state = new_train_state(tree_map(lambda t: t.to(d).clone(), p_cpu),
+                                tcfg)
+        batch = {"tokens": tokens[:, :-1].to(d), "labels": tokens[:, 1:].to(d)}
+        step = make_train_step(model, tcfg)
+        ops.reset_launch_counts()
+        state, m1 = step(state, batch)
+        state, m2 = step(state, batch)
+        assert not any(ops.launch_counts().values()), d
+        out[d.type] = [float(m1["loss"]), float(m1["grad_norm"]),
+                       float(m2["loss"])]
+    np.testing.assert_allclose(out["cuda"][:2], out["cpu"][:2], rtol=1e-4)
+    assert out["cuda"][2] < out["cuda"][0]

@@ -429,7 +429,11 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
-        "assert 'repro_torch.core.telemetry' in sys.modules\n"
+        "for name in ('repro_torch.core.telemetry', 'repro_torch.train.step',\n"
+        "             'repro_torch.train.carbon_aware',\n"
+        "             'repro_torch.train.checkpoint',\n"
+        "             'repro_torch.data.pipeline', 'repro_torch.launch.train'):\n"
+        "    assert name in sys.modules, name\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     src = os.path.join(os.path.dirname(__file__), "..", "src")

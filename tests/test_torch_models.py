@@ -250,7 +250,3 @@ def test_unported_families_raise(arch_id):
         get_model(pconfigs.reduced(arch_id))
 
 
-def test_training_raises():
-    model = get_model(pconfigs.reduced("mamba2-2.7b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss({}, {})
