@@ -105,7 +105,7 @@ Phases, each printing one JSON line:
                  peak memory, a 32-step profile (host ms a step, device
                  idle share), launch counts equal to one run's; cell 0
                  equal to the main run, every cell of an 8 x 2
-                 megakernel grid over the first 720 steps equal to its own
+                 megakernel grid over the first 360 steps equal to its own
                  run, B = 64's repeated
                  cells equal to B = 16's, the backends equal cell by cell;
                  then a small 16-cell grid on the card and on the CPU.
@@ -153,7 +153,7 @@ Phases, each printing one JSON line:
                  the first step's (at the initial weights) by 1e-3 (the
                  reference's smoke criterion), the optimizer's step
                  5; step ms, tokens/s, model-FLOP utilisation, peak memory;
-                 then 2 steps under the profiler, device time a step split
+                 then 1 step under the profiler, device time a step split
                  into GEMM / attention glue / optimizer / the rest; (b) its
                  first 2 layers at full width in f32, the same weights and
                  a 2 x 256 batch on the card and on the CPU: the loss, the
@@ -171,11 +171,38 @@ Phases, each printing one JSON line:
                  bit for bit; (e) `python -m repro_torch.launch.train
                  --arch qwen2-1.5b --reduced --steps 20 --carbon-aware
                  --failures 0.02`, its JSON the reference CLI's.  Files go
-                 under the git-ignored results/train_smoke/.
+                 under the git-ignored results/train_smoke/.  Part (c)
+                 also trains reduced qwen3-moe, deepseek-v2 and whisper.
+  7d. moe    -- qwen3-moe-235b-a22b and deepseek-v2-236b at their published
+                 widths, depth cut to what the card holds (MOE_LAYERS: 10
+                 of 94 layers, 1 dense + 6 MoE of 60; bf16 params and
+                 compute, random weights from a seed): the decode-vs-prefill
+                 contract over 2 x 512 tokens in f32 on the first 2 layers
+                 at the capacity factor n_experts / top_k (`contract_config`
+                 says why), a warm-up and two timed prefills of 2 x 4096
+                 tokens with one flash launch a layer, the same prefill
+                 twice through the sort dispatch (bit for bit), a profile
+                 of one prefill split into flash / GEMM outside and inside
+                 the `moe` range / the `moe` range's other kernels / the
+                 rest, 32 greedy decode tokens, peak memory; then both
+                 reduced configs on the card and on the CPU (the same
+                 weights): logits and 16 decode steps within 1e-4, flash
+                 launches 2 and 3, each through both dispatch modes.
+  7e. whisper -- whisper-base as configured (6 + 6 layers, d 512, f32
+                 params, bf16 compute): batch 8 x (1500 frame embeddings,
+                 448 tokens); the f32 contract on its first 2 decoder
+                 layers over 448 tokens (WHISPER_CONTRACT_LAYERS says why),
+                 the cross-attention cache built from the encoder output;
+                 timed prefills with exactly 18 flash
+                 launches (encoder, decoder, cross-attention), 32 greedy
+                 tokens; then the reduced config on the card and on the CPU
+                 (6 flash launches).  Each part of 7d / 7e prints its wall
+                 time and peak memory.
   8. timing   -- each kernel beside its plain version (CUDA events) at the
                  main paths' shapes, its device time (profiler), its bound,
-                 and for flash attention (zamba2's, qwen2's and paligemma's
-                 prefill shapes) one call of PyTorch's
+                 and for flash attention (zamba2's, qwen2's, paligemma's,
+                 qwen3-moe's, deepseek-v2's padded MLA and whisper's
+                 encoder and cross-attention shapes) one call of PyTorch's
                  scaled_dot_product_attention as a yardstick; the per-host
                  sums at B = 1 and 64 beside `scatter_add_` and one
                  `index_add_`; first-fit's
@@ -197,6 +224,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -237,9 +265,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import power_carbon as pc_k  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_k  # noqa: E402
 from repro_torch.launch import simulate as cli  # noqa: E402
-from repro_torch.models import get_model  # noqa: E402
-from repro_torch.models.layers import (flatten, layer_window,  # noqa: E402
-                                       tree_map)
+from repro_torch.models import get_model, whisper  # noqa: E402
+from repro_torch.models.layers import (dtype_of, flatten,  # noqa: E402
+                                       layer, layer_window, tree_map)
 from repro_torch.tasktraces import make_arrival_sets  # noqa: E402
 from repro_torch.data.pipeline import (DataConfig,  # noqa: E402
                                        TokenPipeline, to_device)
@@ -286,8 +314,9 @@ MAIN_STEPS = 2880            # 30 days at 15 minutes
 PROFILE_STEPS = 32
 # the horizon of the grid phase's check of each cell against its own run
 # (the full-scale workload): sixteen single runs of the whole 2880 steps
-# took two of the smoke's twenty minutes
-SINGLES_STEPS = 720
+# took two of the smoke's twenty minutes; 720 steps took 28.4 s of a ~970 s
+# smoke on a slow host once phases 7d / 7e joined, so 360 (3.75 days)
+SINGLES_STEPS = 360
 MARCONI_ACTIVE = 750         # the published Marconi optimum (of 972 hosts)
 KWH_PER_HOST = 9.0           # Marconi battery sizing (benchmarks/common.py)
 CURVES = ("linear", "sqrt", "square", "cubic")
@@ -768,6 +797,37 @@ def check_ssd_kernel(dev, results: dict) -> None:
                                   "cases": len(errs)}
 
 
+# the flash shapes of the MoE and encoder-decoder slice (b, sq, sk, h, kv,
+# d, causal, dtype, rtol, atol): qwen3-moe's and deepseek-v2's prefill (MLA:
+# q / k of nope 128 + rope 64, v of 128 padded to it) and whisper-base's
+# encoder, cross-attention and decoder at batch 8
+MLA_QK, MLA_V = 192, 128
+FLASH_NEW_SHAPES = {
+    "qwen3-moe-235b-a22b": (2, 4096, 4096, 64, 4, 128, True, torch.bfloat16,
+                            2.0 ** -7, 1e-4),
+    "deepseek-v2-236b (MLA, v padded)": (2, 4096, 4096, 128, 128, MLA_QK,
+                                         True, torch.bfloat16, 2.0 ** -7,
+                                         1e-4),
+    "whisper-base encoder": (8, 1500, 1500, 8, 8, 64, False, torch.bfloat16,
+                             2.0 ** -7, 1e-4),
+    "whisper-base cross": (8, 448, 1500, 8, 8, 64, False, torch.bfloat16,
+                           2.0 ** -7, 1e-4),
+    "whisper-base decoder": (8, 448, 448, 8, 8, 64, True, torch.bfloat16,
+                             2.0 ** -7, 1e-4)}
+
+
+def _flash_plain(q, k, v, scale: float, causal: bool, max_heads: int = 32):
+    """Flash's plain version over at most `max_heads` query heads at a time
+    (with their KV heads; every head's attention is its own), so the f32
+    scores of the 64- and 128-head shapes fit beside the inputs."""
+    kvh, g = k.shape[2], q.shape[2] // k.shape[2]
+    step = max(max_heads // g, 1)
+    return torch.cat([ref.flash_attention(
+        q[:, :, i * g:(i + step) * g], k[:, :, i:i + step],
+        v[:, :, i:i + step], scale=scale, causal=causal)
+        for i in range(0, kvh, step)], dim=2)
+
+
 def check_flash_kernel(dev, results: dict) -> None:
     """Kernel 6 against its plain version: the reference tests' shapes in
     f32 (2e-5) and bf16 (2e-2); causal with Sq != Sk both ways, ragged
@@ -781,7 +841,15 @@ def check_flash_kernel(dev, results: dict) -> None:
     128 and 256 (GQA, Sq != Sk, ragged), a head dim off the 16-byte rows
     (D 36, padded by the wrapper), and the whole prefill shapes (B 2, S
     4096) of zamba2 (H = KV = 32, D 112), qwen2-1.5b (H 12, KV 2, D 128)
-    and paligemma-3b (H 8, KV 1, D 256) under the S = 1024 rule."""
+    and paligemma-3b (H 8, KV 1, D 256) under the S = 1024 rule; then the
+    MoE and encoder-decoder shapes under the same rule: qwen3-moe's prefill
+    (B 2, S 4096, H 64, KV 4, D 128), deepseek-v2's MLA (H = KV = 128, q
+    / k of 192 and v of 128 zero-padded to 192, as `moe.mla_attention`
+    passes it: the padded columns come out exactly 0) and whisper-base's
+    at batch 8 (D 64, 8 heads: the encoder's 1500 x 1500 and the
+    cross-attention's 448 x 1500 without the causal mask, the decoder's
+    448 causal).  The plain version runs a group of heads at a time
+    (`_flash_plain`)."""
     gen = torch.Generator(device=dev).manual_seed(6)
     cases = [  # (b, sq, sk, h, kv, d, causal, dtype, rtol, atol)
         (2, 64, 64, 4, 2, 16, True, torch.float32, 2e-5, 2e-5),
@@ -806,18 +874,24 @@ def check_flash_kernel(dev, results: dict) -> None:
         (1, 70, 70, 2, 1, 36, True, torch.bfloat16, 2e-2, 2e-2),
         (2, 4096, 4096, 32, 32, 112, True, torch.bfloat16, 2.0 ** -7, 1e-4),
         (2, 4096, 4096, 12, 2, 128, True, torch.bfloat16, 2.0 ** -7, 1e-4),
-        (2, 4096, 4096, 8, 1, 256, True, torch.bfloat16, 2.0 ** -7, 1e-4)]
+        (2, 4096, 4096, 8, 1, 256, True, torch.bfloat16, 2.0 ** -7, 1e-4),
+        *FLASH_NEW_SHAPES.values()]
     errs = {torch.float32: [], torch.bfloat16: []}
     for b, sq, sk, h, kv, d, causal, dt, rtol, atol in cases:
         q, k, v = (torch.randn(s, generator=gen, device=dev).to(dt)
                    for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+        if d == MLA_QK:                  # MLA: v of 128 padded with zeros
+            v[..., MLA_V:] = 0
         scale = 1.0 / math.sqrt(d)
         got = fa_k.flash_attention(q, k, v, scale=scale, causal=causal)
-        want = ref.flash_attention(q, k, v, scale=scale, causal=causal)
+        want = _flash_plain(q, k, v, scale, causal)
         check(got.dtype == dt, "flash_attention keeps q's type")
         errs[dt].append(_close(got, want, rtol, atol,
                                f"flash_attention {(b, sq, sk, h, kv, d)} "
                                f"causal={causal} {dt}"))
+        if d == MLA_QK:
+            check(not bool(got[..., MLA_V:].any()),
+                  "flash_attention: MLA's padded columns not zero")
         del q, k, v, got, want
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -2784,6 +2858,7 @@ def small_fleet_card_vs_cpu(dev) -> dict:
 # --------------------------------------------------------------------------
 
 SERVE_BATCH = 2
+SERVE_DIR = os.path.join(ROOT, "results", "serve_smoke")
 PREFILL_LEN = 4096           # the train_4k length
 CONTRACT_LEN = 512           # two SSD chunks
 GREEDY_TOKENS = 32
@@ -2815,13 +2890,46 @@ DENSE_CONTRACT_LAYERS = 2
 CONTRACT_RTOL = 5e-3
 DENSE_ARCHS = ("qwen2-1.5b", "stablelm-1.6b", "gemma2-2b", "gemma3-4b",
                "paligemma-3b")
+# phase 7d: the MoE decoders at their published widths, the depth cut to
+# what one 80 GB card holds beside the phase's working memory (a peak of
+# max_memory_allocated at or under 72 GB): qwen3-moe 10 of 94 layers (4.98
+# GB of bf16 a layer, 2.49 GB of embedding and head: 52.3 GB of weights),
+# deepseek-v2 its dense first layer and 6 of its 59 MoE layers (7.94 GB an
+# MoE layer, 0.68 GB the dense one, 2.10 GB of embeddings: 50.4 GB).  The
+# whole models (94 and 60 layers, ~470 GB of bf16) need a mesh.
+MOE_LAYERS = {"qwen3-moe-235b-a22b": 10, "deepseek-v2-236b": 7}
+# the f32 contract's layers: qwen3-moe's first two MoE layers; deepseek's
+# dense layer and first MoE layer (MLA's absorbed decode against its
+# expanded prefill at kv_lora 512 and 128 heads).  Random weights amplify
+# rounding layer by layer at full width (DENSE_CONTRACT_LAYERS).
+MOE_CONTRACT_LAYERS = 2
+MOE_ARCHS = tuple(MOE_LAYERS)
+# phase 7e: whisper-base at batch 8 x (1500 frame embeddings, 448 decoder
+# tokens), Whisper's decoder context (arXiv:2212.04356)
+WHISPER_BATCH = 8
+WHISPER_DEC_LEN = 448
+# whisper's f32 contract runs on its first WHISPER_CONTRACT_LAYERS decoder
+# layers (after the whole encoder): `Model.init`'s fan-in rule gives the
+# [d, 8, 64] projections std 1/sqrt(8), the softmax saturates, and rounding
+# grows layer by layer.  On one set of full-width weights, 48 tokens, on
+# the CPU: the port's decode against prefill 2.0e-5, 5.1e-5, 7.3e-4 and
+# 0.135 of the logits' scale at 1, 2, 3 and 6 layers, the reference's own
+# 1.2e-3 and 5.0e-2 at 3 and 6; on the card at 448 tokens all 6 layers
+# were 0.77 apart with one argmax differing.
+WHISPER_CONTRACT_LAYERS = 2
 
 
 def expected_launches(cfg) -> dict:
     """Kernel launches of one prefill: one SSD per mamba layer and one
     flash per shared-attention site (hybrid); one flash per global layer
     of a model without attention softcap (dense, vlm: the dispatch of
-    `layers.attention`)."""
+    `layers.attention`); one flash a layer (moe, deepseek's dense first
+    layers and MLA included); one a self-attention and one a
+    cross-attention (encdec: encoder, decoder, cross)."""
+    if cfg.family == "moe":
+        return {"flash_attention": cfg.n_layers}
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers}
     if cfg.family in ("dense", "vlm"):
         n = 0 if cfg.attn_softcap else sum(
             layer_window(cfg, i) == 0 for i in range(cfg.n_layers))
@@ -2852,7 +2960,12 @@ def _batch(gen, cfg, b, s, dev) -> dict:
     """A prefill batch of `s` positions: tokens, and for the VLM its
     `n_frontend_tokens` patch embeddings first (standard normal, as the
     reference's `make_batch` draws them) and s - n_frontend_tokens
-    tokens."""
+    tokens; for the encoder-decoder `enc_seq` frame embeddings (standard
+    normal) and `s` decoder tokens."""
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                      generator=gen, device=dev),
+                "tokens": _tokens(gen, cfg, b, s, dev)}
     if cfg.family != "vlm":
         return {"tokens": _tokens(gen, cfg, b, s, dev)}
     p = cfg.n_frontend_tokens
@@ -2874,14 +2987,34 @@ def timed_prefill(model, params, batch: dict, dev) -> tuple:
     return logits, wall, counts
 
 
-def decode_contract(model, params, tokens, dev) -> dict:
+def decode_cache(model, params, batch: dict, b: int, s: int, dev) -> dict:
+    """An empty decode cache of `s` positions; for the encoder-decoder the
+    cross-attention K / V projected from the encoder output of the batch's
+    frames, which `whisper_decode_step` reads and its caller fills (as the
+    reference's tests fill it)."""
+    cache = model.init_cache(b, s, device=dev)
+    cfg = model.cfg
+    if cfg.family == "encdec":
+        cdt = dtype_of(cfg.compute_dtype)
+        with torch.no_grad():
+            enc = whisper.encode(cfg, params, batch["frames"])
+            for i in range(cfg.n_layers):
+                lp = layer(params["dec_layers"], i)["cross_attn"]
+                cache["cross_k"][i] = whisper._project(lp, enc, cdt, "k")
+                cache["cross_v"][i] = whisper._project(lp, enc, cdt, "v")
+    return cache
+
+
+def decode_contract(model, params, batch: dict, dev) -> dict:
     """The serving contract: the prefill's last logits (kernels) against
     those after one decode step per token from an empty cache (plain
-    recurrences)."""
-    full, _, counts = timed_prefill(model, params, {"tokens": tokens}, dev)
+    recurrences; the encoder-decoder's cross-attention cache from its
+    encoder output)."""
+    full, _, counts = timed_prefill(model, params, batch, dev)
     check_launches(counts, model.cfg, dev, "contract prefill")
+    tokens = batch["tokens"]
     b, s = tokens.shape
-    cache = model.init_cache(b, s, device=dev)
+    cache = decode_cache(model, params, batch, b, s, dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     for t in range(s):
@@ -2890,6 +3023,10 @@ def decode_contract(model, params, tokens, dev) -> dict:
     _sync(dev)
     wall = time.perf_counter() - t0
     check(not any(ops.launch_counts().values()), "decode launched a kernel")
+    # the vocab's own columns (a padded vocab's pad columns are -1e30 on
+    # both sides and would set the scale)
+    v = model.cfg.vocab
+    full, logits = full[..., :v], logits[..., :v]
     err = float((logits - full).abs().max())
     tol = CONTRACT_RTOL * float(full.abs().max())
     # argmax must agree wherever the prefill's top two are further apart
@@ -2908,8 +3045,22 @@ def decode_contract(model, params, tokens, dev) -> dict:
 def cut_depth(cfg, params: dict, n_layers: int) -> tuple:
     """(config, params) of the first `n_layers` layers of the same weights
     (views); for the hybrid, of its mamba layers: the leading groups, their
-    adapters and sites, and the leading trailing layers."""
+    adapters and sites, and the leading trailing layers; for an MoE model
+    its dense first layers, then MoE layers; for the encoder-decoder its
+    first decoder layers after the whole encoder."""
     cut = cfg.replace(n_layers=n_layers)
+    if cfg.family == "moe":
+        nd = min(cfg.moe.first_dense, n_layers)
+        cut = cut.replace(moe=dataclasses.replace(cfg.moe, first_dense=nd))
+        out = dict(params, layers=tree_map(lambda t: t[:n_layers - nd],
+                                           params["layers"]))
+        if nd:
+            out["dense_layers"] = tree_map(lambda t: t[:nd],
+                                           params["dense_layers"])
+        return cut, out
+    if cfg.family == "encdec":
+        return cut, dict(params, dec_layers=tree_map(lambda t: t[:n_layers],
+                                                      params["dec_layers"]))
     if cfg.family in ("dense", "vlm"):
         return cut, dict(params, layers=tree_map(lambda t: t[:n_layers],
                                                   params["layers"]))
@@ -2927,10 +3078,14 @@ def cut_depth(cfg, params: dict, n_layers: int) -> tuple:
     return cut, out
 
 
-def greedy_decode(model, params, first, n: int, cache_len: int, dev) -> dict:
-    """n greedy tokens from `first` [B,1] on a cache of `cache_len`
-    positions; the tokens stay on the device (argmax feeds the next step)."""
-    cache = model.init_cache(first.shape[0], cache_len, device=dev)
+def greedy_decode(model, params, batch: dict, n: int, cache_len: int,
+                  dev) -> dict:
+    """n greedy tokens from the batch's last token on a cache of
+    `cache_len` positions (`decode_cache`); the tokens stay on the device
+    (argmax feeds the next step)."""
+    first = batch["tokens"][:, -1:]
+    cache = decode_cache(model, params, batch, first.shape[0], cache_len,
+                         dev)
     tok, out = first, []
     _sync(dev)
     ops.reset_launch_counts()
@@ -2950,16 +3105,38 @@ def greedy_decode(model, params, first, n: int, cache_len: int, dev) -> dict:
             "ms_per_token": wall / n * 1e3}
 
 
+def contract_config(cfg):
+    """The f32 contract's config: f32 compute; for an MoE model the capacity
+    factor raised to ceil(n_experts / top_k) (16 for qwen3-moe, 27 for
+    deepseek-v2), so that every group's capacity is at least its size (c
+    >= group at prefill, c >= batch at decode) and neither path drops a
+    token.  At the configured 1.25 the reference itself drops tokens at
+    prefill (groups of 512: capacity 40 against a mean load of 32) and at
+    batch-2 decode whenever both rows pick one expert (capacity 1), so the
+    two paths would see other experts; the reference's own contract raises
+    the factor for this reason (tests/test_decode_consistency.py)."""
+    cfg = cfg.replace(compute_dtype="float32")
+    if cfg.family == "moe":
+        m = cfg.moe
+        cfg = cfg.replace(moe=dataclasses.replace(
+            m, capacity_factor=float(math.ceil(m.n_experts / m.top_k))))
+    return cfg
+
+
 def serve(dev, cfg, prefill_len: int, contract_len: int, greedy: int,
           profile: bool = False,
-          contract_layers: int = CONTRACT_LAYERS) -> tuple[dict, dict]:
+          contract_layers: int = CONTRACT_LAYERS,
+          batch_size: int = SERVE_BATCH,
+          sort_repeat: bool = False) -> tuple[dict, dict]:
     """One model as configured: params from a seeded generator on `dev`;
-    the decode-vs-prefill contract in f32 (`contract_len` tokens, text
-    only, on the first `contract_layers` layers, skipped at 0 tokens); a
-    warm-up and two timed prefills of SERVE_BATCH x `prefill_len` positions
-    (a VLM's patch prefix among them) at the config's types with exact
-    launch counts; `greedy` greedy decode tokens.  Returns (info, launches
-    of the last timed prefill)."""
+    the decode-vs-prefill contract in f32 (`contract_config`;
+    `contract_len` tokens, text only, on the first `contract_layers`
+    layers, skipped at 0 tokens); a warm-up and two timed prefills of
+    `batch_size` x `prefill_len` positions (a VLM's patch prefix among
+    them; an encoder-decoder's frames beside them) at the config's types
+    with exact launch counts; with `sort_repeat` (MoE) the same prefill
+    twice through the sort dispatch, bit for bit; `greedy` greedy decode
+    tokens.  Returns (info, launches of the last timed prefill)."""
     model = get_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     if dev.type == "cuda":
@@ -2973,58 +3150,146 @@ def serve(dev, cfg, prefill_len: int, contract_len: int, greedy: int,
             "compute_dtype": cfg.compute_dtype,
             "n_params": sum(t.numel() for t in flatten(params).values()),
             "init_s": time.perf_counter() - t0}
+    if cfg.family == "moe":
+        info["n_layers_configured"] = get_config(cfg.name).n_layers
     if contract_len:
-        cfg32 = cfg.replace(compute_dtype="float32")
-        tokens = _tokens(gen, cfg, SERVE_BATCH, contract_len, dev)
+        t0 = time.perf_counter()
+        cfg32 = contract_config(cfg)
+        cbatch = (_batch(gen, cfg, batch_size, contract_len, dev)
+                  if cfg.family == "encdec" else
+                  {"tokens": _tokens(gen, cfg, batch_size, contract_len,
+                                     dev)})
         ccfg, cut_params = cut_depth(cfg32, params, min(contract_layers,
                                                         cfg.n_layers))
-        info["contract_f32"] = dict(n_layers=ccfg.n_layers, **decode_contract(
-            get_model(ccfg), cut_params, tokens, dev))
+        info["contract_f32"] = dict(
+            n_layers=ccfg.n_layers, capacity_factor=ccfg.moe.capacity_factor
+            if cfg.family == "moe" else None,
+            **decode_contract(get_model(ccfg), cut_params, cbatch, dev),
+            wall_s=time.perf_counter() - t0)
         check(info["contract_f32"]["ok"],
               f"decode vs prefill: {info}")
+        del cbatch, cut_params
     cparams = model.compute_params(params)
-    batch = _batch(gen, cfg, SERVE_BATCH, prefill_len, dev)
+    batch = _batch(gen, cfg, batch_size, prefill_len, dev)
     timed_prefill(model, cparams, batch, dev)              # warm-up
     walls = []
     for _ in range(2):
         logits, wall, counts = timed_prefill(model, cparams, batch, dev)
         walls.append(wall)
         check_launches(counts, cfg, dev, f"{cfg.name} prefill")
-    check(tuple(logits.shape) == (SERVE_BATCH, 1, cfg.padded_vocab)
+    check(tuple(logits.shape) == (batch_size, 1, cfg.padded_vocab)
           and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
           f"{cfg.name} prefill logits")
-    n_tok = SERVE_BATCH * prefill_len
-    info.update(prefill={"batch": SERVE_BATCH, "seq": prefill_len,
+    n_tok = batch_size * prefill_len
+    info.update(prefill={"batch": batch_size, "seq": prefill_len,
                          "patch_positions": cfg.n_frontend_tokens
                          if cfg.family == "vlm" else 0,
+                         "frames": cfg.enc_seq
+                         if cfg.family == "encdec" else 0,
                          "wall_s": walls,
                          "tokens_per_s": [n_tok / w for w in walls],
                          "launches": counts})
+    if sort_repeat:
+        scfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch="sort"))
+        smodel = get_model(scfg)
+        runs = [timed_prefill(smodel, cparams, batch, dev) for _ in range(3)]
+        for _, _, c in runs:
+            check_launches(c, scfg, dev, f"{cfg.name} sort prefill")
+        check(torch.equal(runs[1][0], runs[2][0]),
+              f"{cfg.name}: the sort dispatch did not repeat bit for bit")
+        info["sort_dispatch"] = {
+            "bit_equal": True, "wall_s": [r[1] for r in runs[1:]],
+            "max_abs_diff_vs_einsum": float((runs[2][0] - logits).abs()
+                                            .max())}
+        del runs
     if profile:
-        info["prefill_profile"] = profiled(
-            lambda: model.prefill(cparams, batch), top_n=10,
-            watch=("ssd_intra_kernel", "flash"),
-            classes=(("flash", ("flash",)),
-                     ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
-                     ("ssd", ("ssd_intra_kernel",))))
+        if cfg.family == "moe":
+            info["prefill_profile"] = profiled_moe(
+                lambda: model.prefill(cparams, batch), dev)
+        else:
+            info["prefill_profile"] = profiled(
+                lambda: model.prefill(cparams, batch), top_n=10,
+                watch=("ssd_intra_kernel", "flash"),
+                classes=(("flash", ("flash",)),
+                         ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
+                         ("ssd", ("ssd_intra_kernel",))))
     if greedy:
         info["greedy_decode"] = greedy_decode(
-            model, cparams, batch["tokens"][:, -1:], greedy,
-            prefill_len + greedy, dev)
+            model, cparams, batch, greedy, prefill_len + greedy, dev)
     if dev.type == "cuda":
         info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     return info, counts
+
+
+def profiled_moe(fn, dev) -> dict:
+    """One MoE prefill under the profiler in a telemetry session (so
+    `moe.moe_ffn` is the profiler range `moe`): device ms by class, flash
+    (by kernel name), GEMMs outside and inside the `moe` range (the
+    latter the expert products and the dispatch / combine einsums),
+    the `moe` range's other kernels (routing, one-hots, capacity
+    arithmetic, casts: the glue), and the rest; wall, busy and idle share,
+    the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _sync(dev)
+    with telemetry.session(out_dir=os.path.join(SERVE_DIR, "telemetry")):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            wall = time.perf_counter() - t0
+
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+    split = dict.fromkeys(("flash", "gemm", "moe_gemm", "moe_glue", "rest"),
+                          0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        in_moe = any(a.name == "moe" for a in chain(e))
+        for k in e.kernels:
+            if any(p in k.name.lower() for p in GEMM_PARTS):
+                cls = "moe_gemm" if in_moe else "gemm"
+            else:
+                cls = "moe_glue" if in_moe else "rest"
+            split[cls] += k.duration
+    events = [(e.key, e.self_device_time_total, e.count)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.key not in ("moe", "attention")]
+    busy_us = sum(t for _, t, _ in events)
+    # the flash kernel launches through ctypes, under no aten op: its time
+    # is taken by name
+    split["flash"] = sum(t for k, t, _ in events if "flash" in k)
+    split["rest"] += busy_us - sum(split.values())
+    top = sorted(events, key=lambda e: -e[1])
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_ms_by_class": {k: v / 1e3 for k, v in split.items()},
+            "top_kernels": [{"name": k[:80], "device_ms": t / 1e3,
+                             "count": n} for k, t, n in top[:10]]}
 
 
 def small_models_card_vs_cpu(dev, archs=("zamba2-7b", "mamba2-2.7b")
                              ) -> dict:
     """Reduced models (f32) with the same weights on the card (the kernels)
     and on the CPU (their plain versions): prefill logits of 2 x 64
-    positions (paligemma's 8 patch embeddings among them) and 16 decode
-    steps, within 1e-4; prefill launch counts exact on the card."""
+    positions (paligemma's 8 patch embeddings among them; whisper's 16
+    frames beside them) and 16 decode steps (whisper's cross-attention
+    cache from its encoder output), within 1e-4; prefill launch counts
+    exact on the card.  An MoE config runs through both dispatch modes
+    (keys "<arch>" and "<arch> sort")."""
     out = {}
-    for arch in archs:
+    variants = [(a, "einsum") for a in archs] + [
+        (a, "sort") for a in archs if reduced(a).family == "moe"]
+    for arch, dispatch in variants:
         cfg = reduced(arch)
+        if dispatch == "sort":
+            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                      dispatch="sort"))
         model = get_model(cfg)
         p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
         batch = _batch(torch.Generator().manual_seed(1), cfg, 2, 64,
@@ -3036,7 +3301,7 @@ def small_models_card_vs_cpu(dev, archs=("zamba2-7b", "mamba2-2.7b")
             full, _, counts = timed_prefill(model, params, bd, d)
             check_launches(counts, cfg, d, f"small {arch}")
             card_counts = card_counts if card_counts is not None else counts
-            cache = model.init_cache(2, 64, device=d)
+            cache = decode_cache(model, params, bd, 2, 64, d)
             steps = []
             tk = bd["tokens"]
             for t in range(16):
@@ -3046,8 +3311,9 @@ def small_models_card_vs_cpu(dev, archs=("zamba2-7b", "mamba2-2.7b")
             res.append((full.cpu(), torch.cat(steps, 1).cpu()))
         errs = [_close(g, w, 1e-4, 1e-4, f"small {arch} card vs cpu")
                 for g, w in zip(*res)]
-        out[arch] = {"prefill_max_abs_err": errs[0],
-                     "decode_max_abs_err": errs[1], "launches": card_counts}
+        key = arch + (" sort" if dispatch == "sort" else "")
+        out[key] = {"prefill_max_abs_err": errs[0],
+                    "decode_max_abs_err": errs[1], "launches": card_counts}
     return out
 
 
@@ -3144,6 +3410,114 @@ def time_model_kernels(dev, results: dict) -> None:
     torch.cuda.synchronize()
 
 
+def time_new_flash_shapes(dev, results: dict) -> None:
+    """Kernel 6 at the MoE and encoder-decoder shapes (FLASH_NEW_SHAPES):
+    ms, plain ms (the plain version 32 query heads at a time,
+    `_flash_plain`), device ms, one call of scaled_dot_product_attention on
+    the function's own inputs (MLA: v of 128, not padded), and the bound
+    of the function: bytes of q, k, v and the output once, operations 2 d_qk
+    + 2 d_v a (row, column) pair and head that the mask keeps.  MLA's
+    kernel runs on v padded to 192, 1.2x the function's operations."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, (b, sq, sk, h, kv, d, causal, dt, _, _) in \
+            FLASH_NEW_SHAPES.items():
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dt)
+        dv = MLA_V if d == MLA_QK else d
+        v = torch.randn((b, sk, kv, dv), generator=gen, device=dev).to(dt)
+        vp = torch.nn.functional.pad(v, (0, d - dv))
+        scale = 1.0 / math.sqrt(d)
+        pairs = b * (sq * (sq + 1) // 2 if causal else sq * sk)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + b * sq * h * dv)
+        b_ms, b_by = bound(nbytes, pairs * h * (2 * d + 2 * dv),
+                           PEAK_BF16_OPS_S)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        out[name] = {
+            "shape": {"q": list(q.shape), "kv": list(k.shape), "v_width": dv,
+                      "causal": causal, "dtype": "bfloat16"},
+            "ms": time_ms(lambda: fa_k.flash_attention(  # noqa: B023
+                q, k, vp, scale=scale, causal=causal)),  # noqa: B023
+            "plain_ms": time_ms(lambda: _flash_plain(  # noqa: B023
+                q, k, vp, scale, causal)),  # noqa: B023
+            "device_ms": device_ms(lambda: fa_k.flash_attention(  # noqa: B023
+                q, k, vp, scale=scale, causal=causal),  # noqa: B023
+                "flash_tc_kernel", reps=10),
+            "library_ms": time_ms(lambda: sdpa(  # noqa: B023
+                qt, kt, vt, is_causal=causal, scale=scale,  # noqa: B023
+                enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del q, k, v, vp, qt, kt, vt
+        torch.cuda.empty_cache()
+    results["flash_attention"]["moe_encdec_shapes"] = out
+    torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# phases 7d / 7e: the MoE decoders and the encoder-decoder
+# --------------------------------------------------------------------------
+
+def _peak(dev) -> int | None:
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def moe_phase(dev, layers: dict, prefill_len: int, contract_len: int,
+              greedy: int, reduced_archs: bool = False):
+    """Phase 7d's (line, prefill launches) pairs, each yielded when its part
+    ends: each MoE config at `layers[arch]` layers through `serve` (the
+    contract at `contract_config`'s capacity, prefills with one flash
+    launch a layer, the sort dispatch twice bit for bit, the profile split
+    by the `moe` range, greedy decode), then both reduced configs card
+    against CPU through both dispatch modes.  `reduced_archs`: serve the
+    reduced configs instead (the CPU rehearsal)."""
+    for arch, n in layers.items():
+        t0 = time.perf_counter()
+        cfg = (reduced(arch) if reduced_archs else get_config(arch)
+               ).replace(n_layers=n)
+        info, counts = serve(dev, cfg, prefill_len, contract_len, greedy,
+                             profile=dev.type == "cuda",
+                             contract_layers=MOE_CONTRACT_LAYERS,
+                             sort_repeat=True)
+        yield ({"phase": "serve_moe", **info,
+                "part_s": time.perf_counter() - t0}, counts)
+    t0 = time.perf_counter()
+    _reset_peak(dev)
+    yield ({"phase": "small_moe_card_vs_cpu",
+            **small_models_card_vs_cpu(dev, MOE_ARCHS),
+            "max_memory_allocated": _peak(dev),
+            "part_s": time.perf_counter() - t0}, {})
+
+
+def whisper_phase(dev, cfg, batch: int, dec_len: int, greedy: int):
+    """Phase 7e's (line, prefill launches) pairs: `cfg` through `serve` (the
+    f32 contract on its first WHISPER_CONTRACT_LAYERS decoder layers over
+    `dec_len` tokens with the cross-attention cache from the encoder
+    output, prefills of `batch` x
+    (enc_seq frames, `dec_len` tokens) with one flash launch an attention,
+    a profile, greedy decode), then the reduced config card against
+    CPU."""
+    t0 = time.perf_counter()
+    info, counts = serve(dev, cfg, dec_len, dec_len, greedy,
+                         profile=dev.type == "cuda",
+                         contract_layers=WHISPER_CONTRACT_LAYERS,
+                         batch_size=batch)
+    yield ({"phase": "serve_whisper", **info,
+            "part_s": time.perf_counter() - t0}, counts)
+    t0 = time.perf_counter()
+    _reset_peak(dev)
+    yield ({"phase": "small_whisper_card_vs_cpu",
+            **small_models_card_vs_cpu(dev, ("whisper-base",)),
+            "max_memory_allocated": _peak(dev),
+            "part_s": time.perf_counter() - t0}, {})
+
+
 # --------------------------------------------------------------------------
 # phase 7c: training and carbon-aware training
 # --------------------------------------------------------------------------
@@ -3153,16 +3527,19 @@ TRAIN_SEQ = 4096             # train_4k's length (its global batch of 256
                              # needs a mesh)
 TRAIN_TIMED_STEPS = 4
 # the profiled steps: the profiler's host-side processing of a step's
-# events (CPU ops, autograd nodes, kernels) took ~20 s a step on the card's
-# host (79 s for 4), and 32 steps' did not finish within the smoke's time
-TRAIN_PROFILE_STEPS = 2
+# events (CPU ops, autograd nodes, kernels) took ~20-26 s a step on the
+# card's host (79 s for 4, 51.5 s for 2), and 32 steps' did not finish
+# within the smoke's time; one step keeps the smoke under ~900 s with
+# phases 7d / 7e
+TRAIN_PROFILE_STEPS = 1
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
 # (b): the gradient card against CPU at full width on the first layers in
 # f32 (random weights amplify rounding layer by layer, as in phase 7b)
 TRAIN_GRAD_LAYERS = 2
 TRAIN_GRAD_SEQ = 256
 TRAIN_ARCHS = ("qwen2-1.5b", "stablelm-1.6b", "gemma2-2b", "gemma3-4b",
-               "paligemma-3b", "mamba2-2.7b", "zamba2-7b")
+               "paligemma-3b", "mamba2-2.7b", "zamba2-7b",
+               "qwen3-moe-235b-a22b", "deepseek-v2-236b", "whisper-base")
 # the gradient norm's tolerance: gemma2's reduced f32 gradient resolves to
 # ~5e-4 of its scale in both packages (tests/test_torch_train_models.py)
 TRAIN_NORM_RTOL = {"gemma2-2b": 1e-3}
@@ -3436,9 +3813,13 @@ def _state_to(state, dev):
 
 def _train_batch(cfg, b: int, s: int, seed: int = 1) -> dict:
     """A pipeline batch of `s` positions on the CPU (a VLM: its patch
-    embeddings, standard normal, then s - P tokens)."""
+    embeddings, standard normal, then s - P tokens; the encoder-decoder:
+    its frame embeddings, standard normal, beside s tokens)."""
     rng = np.random.default_rng(seed)
     out = {}
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32))
     if cfg.family == "vlm":
         out["patch_embeds"] = torch.from_numpy(rng.standard_normal(
             (b, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(np.float32))
@@ -3697,6 +4078,12 @@ def main() -> int:
             emit({"phase": "serve", "rehearsal": True, **info})
         emit({"phase": "small_dense_card_vs_cpu", "rehearsal": True,
               **small_models_card_vs_cpu(cpu, DENSE_ARCHS)})
+        for line, _ in moe_phase(cpu, {a: reduced(a).n_layers
+                                       for a in MOE_ARCHS}, 64, 64, 4,
+                                 reduced_archs=True):
+            emit({"rehearsal": True, **line})
+        for line, _ in whisper_phase(cpu, reduced("whisper-base"), 2, 64, 4):
+            emit({"rehearsal": True, **line})
         for line in train_phase(cpu, reduced("qwen2-1.5b").replace(
                 remat=True), 64, TRAIN_TIMED_STEPS, 2,
                 dict(TRAIN_OPT, lr=1e-3)):
@@ -3932,6 +4319,25 @@ def main() -> int:
           "part_s": time.perf_counter() - t1,
           "dense_phase_s": time.perf_counter() - t0})
 
+    # the MoE decoders at their published widths (depth cut to the card)
+    # and whisper-base as configured; then their reduced configs card
+    # against CPU (each part's wall time and peak memory in its line)
+    t0 = time.perf_counter()
+    for line, counts in moe_phase(dev, MOE_LAYERS, PREFILL_LEN, CONTRACT_LEN,
+                                  GREEDY_TOKENS):
+        emit({"nvidia_smi": smi, **line})
+        for k, n in counts.items():
+            launches[k] += n
+    moe_s = time.perf_counter() - t0
+    for line, counts in whisper_phase(dev, get_config("whisper-base"),
+                                      WHISPER_BATCH, WHISPER_DEC_LEN,
+                                      GREEDY_TOKENS):
+        emit({"nvidia_smi": smi, **line})
+        for k, n in counts.items():
+            launches[k] += n
+    emit({"phase": "moe_whisper_summary", "moe_phase_s": moe_s,
+          "whisper_phase_s": time.perf_counter() - t0 - moe_s})
+
     # training: qwen2-1.5b as configured (no kernel launches), its gradient
     # card against CPU, the reduced configs, carbon-aware training and the
     # CLI (each part's wall time in its line)
@@ -3948,6 +4354,7 @@ def main() -> int:
     for name, ms in rows64["device_ms"].items():
         kres[name]["device_ms_b64"] = ms
     time_model_kernels(dev, kres)
+    time_new_flash_shapes(dev, kres)
     time_host_sum(dev, kres)
     emit({"phase": "timing", "results": kres})
     sources = {"fused_power_carbon": ("power_carbon.cu",

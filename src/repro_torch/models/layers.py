@@ -1,12 +1,13 @@
 """Building blocks of the model substrate.
 
 The port of the reference package's `models/layers.py`, the parts the
-`ssm`, `hybrid`, `dense` and `vlm` families use: parameter tables and their
-initialisation, normalisation, rotary embeddings, attention (prefill, with
-the local / global window of a layer, and one-token decode against a KV
-cache), the gated feed-forward block, embedding, logits, the
-cross-entropy loss and activation checkpointing (`remat_policy`,
-`checkpointed`).
+model families use: parameter tables and their initialisation (a bf16
+leaf drawn a few slabs at a time, never whole in f32), normalisation,
+rotary embeddings, attention (prefill, with the local / global window of
+a layer, the blockwise softmax with or without the causal mask, and
+one-token decode against a KV cache), the gated and plain feed-forward
+blocks, embedding, logits, the cross-entropy loss and activation
+checkpointing (`remat_policy`, `checkpointed`).
 Everything is a function over explicit parameter dicts whose leaves carry
 the reference's stacked layer axes, so a parameter tree converts leaf for
 leaf (`models/convert.py`).
@@ -88,6 +89,9 @@ def _c(w, dt: torch.dtype):
     return w if w.dtype == dt else w.to(dt)
 
 
+_INIT_CHUNK = 1 << 26
+
+
 def _init_leaf(gen, d: ParamDef, dtype: str, device) -> torch.Tensor:
     dt = dtype_of(d.dtype or dtype)
     if d.init == "zeros":
@@ -99,8 +103,20 @@ def _init_leaf(gen, d: ParamDef, dtype: str, device) -> torch.Tensor:
     else:  # fan-in scaled normal: last-but-one axis is fan-in for matrices
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         std = d.scale / math.sqrt(max(fan_in, 1))
-    x = torch.randn(d.shape, generator=gen, dtype=F32, device=device)
-    return x.mul_(std).to(dt)
+    if dt == F32 or len(d.shape) < 2:
+        x = torch.randn(d.shape, generator=gen, dtype=F32, device=device)
+        return x.mul_(std).to(dt)
+    # a narrower type: drawn in f32 a few leading-axis slabs at a time (at
+    # most _INIT_CHUNK elements, or one slab) into the final tensor, so no
+    # f32 copy of the whole leaf is held (a bf16 stack of experts is tens
+    # of GB)
+    out = torch.empty(d.shape, dtype=dt, device=device)
+    rows = max(_INIT_CHUNK // math.prod(d.shape[1:]), 1)
+    for i in range(0, d.shape[0], rows):
+        n = min(rows, d.shape[0] - i)
+        out[i:i + n] = torch.randn((n,) + d.shape[1:], generator=gen,
+                                   dtype=F32, device=device).mul_(std)
+    return out
 
 
 def init_params(defs: dict, generator: torch.Generator, param_dtype: str,
@@ -150,16 +166,17 @@ def layer(tree: dict, *idx) -> dict:
 
 
 # leaves (and subtrees) the forward reads in f32, never in the compute type
-_NOT_CAST = ("a_log", "dt_bias", "gate_norm")
-_NORMS = ("ln", "ln1", "ln2", "ln_f", "q_norm", "k_norm", "post_attn",
-          "post_mlp")
+_NOT_CAST = ("a_log", "dt_bias", "gate_norm", "router")
+_NORMS = ("ln", "ln1", "ln2", "ln_f", "ln_x", "enc_ln", "dec_ln", "q_norm",
+          "k_norm", "kv_norm", "post_attn", "post_mlp")
 
 
 def cast_for_compute(cfg: ArchConfig, params: dict) -> dict:
     """The parameter tree with every weight that the forward casts to
     `cfg.compute_dtype` before use (matrices, convolutions, embedding,
-    skip gains) cast once; norm weights and the SSM's decay and step
-    parameters, which the forward reads in f32, stay as they are."""
+    skip gains, biases) cast once; norm weights, the SSM's decay and step
+    parameters and the MoE router, which the forward reads in f32, stay
+    as they are."""
     cdt = dtype_of(cfg.compute_dtype)
     flat = flatten(params)
     return unflatten({
@@ -350,13 +367,15 @@ def sdpa(q, k, v, mask, scale: float, softcap: float = 0.0):
 
 
 def sdpa_blockwise(q, k, v, scale: float, softcap: float = 0.0, *,
-                   block: int, window: int = 0, q_offset: int = 0):
+                   block: int, window: int = 0, q_offset: int = 0,
+                   causal: bool = True):
     """`sdpa` over query blocks of `block` rows (causal + optional sliding
-    window), so the scores are [B, H, block, Sk] at a time; the reference
-    falls back to one block when `block` does not divide Sq, and so does
-    this.  Under grad mode each block is checkpointed, as the reference's
-    scan body is: backward recomputes a block's scores rather than keeping
-    every block's [B, H, block, Sk] softmax."""
+    window; `causal=False`: every key, as whisper's encoder and
+    cross-attention take), so the scores are [B, H, block, Sk] at a time;
+    the reference falls back to one block when `block` does not divide Sq,
+    and so does this.  Under grad mode each block is checkpointed, as the
+    reference's scan body is: backward recomputes a block's scores rather
+    than keeping every block's [B, H, block, Sk] softmax."""
     sq, sk = q.shape[1], k.shape[1]
     blk = max(min(block, sq), 1)
     if sq % blk:
@@ -364,7 +383,9 @@ def sdpa_blockwise(q, k, v, scale: float, softcap: float = 0.0, *,
     grad = torch.is_grad_enabled()
     outs = []
     for q0 in range(0, sq, blk):
-        m = causal_mask(blk, sk, q0 + q_offset, window, device=q.device)
+        m = (causal_mask(blk, sk, q0 + q_offset, window, device=q.device)
+             if causal else torch.ones((blk, sk), dtype=torch.bool,
+                                       device=q.device))
         args = (q[:, q0:q0 + blk], k, v, m, scale, softcap)
         outs.append(checkpoint(sdpa, *args, use_reentrant=False) if grad
                     else sdpa(*args))

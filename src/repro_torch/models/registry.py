@@ -16,11 +16,14 @@ kernels; `loss` (mean next-token cross-entropy over the labels, a batch
 "mask" [B, S] optional) takes each family's plain path, the port of the
 reference's jnp code (`use_kernels=False`), which autograd
 differentiates: no kernel has a backward, as the reference trains on its
-jnp paths too.  The port serves and trains four families: `ssm`
-(mamba2), `hybrid` (zamba2), `dense` (qwen2, stablelm, gemma2, gemma3)
-and `vlm` (paligemma, whose batch may carry "patch_embeds" [B, P,
-frontend_dim]; its labels cover the text tokens only).  The others raise
-NotImplementedError naming the ROADMAP item they wait for.
+jnp paths too.  The port serves and trains every family of the
+reference: `ssm` (mamba2), `hybrid` (zamba2), `dense` (qwen2, stablelm,
+gemma2, gemma3), `vlm` (paligemma, whose batch may carry "patch_embeds"
+[B, P, frontend_dim]; its labels cover the text tokens only), `moe`
+(qwen3-moe, deepseek-v2; the loss adds the router's load-balancing term)
+and `encdec` (whisper, whose batch carries "frames" [B, enc_seq,
+d_model]; its decode cache's "cross_k" / "cross_v" are the caller's to
+fill).
 """
 from __future__ import annotations
 
@@ -29,15 +32,8 @@ from typing import Callable
 
 import torch
 
-from . import hybrid, layers, ssm, transformer
+from . import hybrid, layers, moe, ssm, transformer, whisper
 from .config import ArchConfig
-
-_WAITS = {
-    "moe": "the MoE family (models/moe.py) waits for ROADMAP Queue 1 item 6c",
-    "encdec": "the encoder-decoder family (models/whisper.py) waits for "
-              "ROADMAP Queue 1 item 6d",
-}
-
 
 @dataclass(frozen=True)
 class Model:
@@ -97,6 +93,24 @@ def get_model(cfg: ArchConfig) -> Model:
             decode_step=_serve(lambda p, c, t, pos: hybrid.hybrid_decode_step(
                 cfg, p, c, t, pos)),
             cache_shape=lambda b, s: hybrid.hybrid_state_shape(cfg, b, s))
-    if fam in _WAITS:
-        raise NotImplementedError(f"{cfg.name}: {_WAITS[fam]}")
+    if fam == "moe":
+        return Model(
+            cfg=cfg, param_defs=moe.moe_model_defs(cfg),
+            loss=lambda p, b: moe.moe_loss(cfg, p, b),
+            prefill=_serve(lambda p, b: moe.moe_logits(
+                cfg, p, b["tokens"], last_only=True)[0]),
+            decode_step=_serve(lambda p, c, t, pos: moe.moe_decode_step(
+                cfg, p, c, t, pos)),
+            cache_shape=lambda b, s: moe.moe_cache_shape(cfg, b, s))
+    if fam == "encdec":
+        return Model(
+            cfg=cfg, param_defs=whisper.whisper_model_defs(cfg),
+            loss=lambda p, b: whisper.whisper_loss(cfg, p, b),
+            prefill=_serve(lambda p, b: whisper.decode_train(
+                cfg, p, b["tokens"], whisper.encode(cfg, p, b["frames"]),
+                last_only=True)),
+            decode_step=_serve(lambda p, c, t, pos:
+                               whisper.whisper_decode_step(cfg, p, c, t,
+                                                           pos)),
+            cache_shape=lambda b, s: whisper.whisper_cache_shape(cfg, b, s))
     raise ValueError(f"unknown family '{fam}'")

@@ -937,6 +937,63 @@ def test_serving_never_waits_for_the_card(cuda_device, arch_id):
     assert bool(torch.isfinite(logits).all()) and tok.shape == (2, 1)
 
 
+def _new_family_batch(cfg, dev):
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (2, 64)),
+                                    device=dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.tensor(rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32), device=dev)
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id,want", [
+    ("qwen3-moe-235b-a22b", 2), ("deepseek-v2-236b", 3), ("whisper-base", 6)])
+def test_moe_and_encdec_prefill_launch_flash(cuda_device, arch_id, want):
+    """One flash launch a layer of the MoE decoders (MLA's v padded to the
+    q / k width, deepseek's dense first layer included) and three a
+    whisper layer pair (encoder, decoder self- and cross-attention), the
+    logits within 1e-4 of the CPU's on the same weights."""
+    from repro_torch.configs import reduced
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import tree_map
+    model = get_model(reduced(arch_id))
+    p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = _new_family_batch(model.cfg, "cpu")
+    want_logits = model.prefill(p_cpu, batch)
+    params = tree_map(lambda t: t.to(cuda_device), p_cpu)
+    ops.reset_launch_counts()
+    logits = model.prefill(params, {k: v.to(cuda_device)
+                                    for k, v in batch.items()})
+    assert {k: v for k, v in ops.launch_counts().items() if v} == \
+        {"flash_attention": want}
+    torch.testing.assert_close(logits.cpu(), want_logits, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_sort_dispatch_repeats_bit_for_bit(cuda_device, cdt):
+    """The sort dispatch's combine gathers each token's slots and adds them
+    in expert order (no atomics): two runs on the card give the same
+    bits."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_params
+    cfg = get_config("qwen3-moe-235b-a22b")
+    cfg = cfg.replace(d_model=512, compute_dtype=cdt, moe=dataclasses.replace(
+        cfg.moe, dispatch="sort", n_experts=32, d_ff_expert=256))
+    p = init_params(moe.moe_defs(cfg),
+                    torch.Generator(device=cuda_device).manual_seed(0),
+                    "float32", cuda_device)
+    x = torch.randn((2, 512, cfg.d_model), device=cuda_device)
+    a, aux_a = moe.moe_ffn_sort(cfg, p, x)
+    b, aux_b = moe.moe_ffn_sort(cfg, p, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,h,running", [
     (0, 192_817, 972, 0.03), (64, 50_000, 972, 0.03), (3, 20_000, 4096, 0.5),

@@ -78,6 +78,30 @@ def test_configs_equal_field_for_field(arch_id):
                                for k, v in jconfigs.SHAPES.items()}
 
 
+@pytest.mark.parametrize("arch_id", list(jconfigs.ARCH_IDS))
+def test_param_defs_and_cache_shapes_match_reference(arch_id):
+    """`get_model` serves every family of the reference: at the full and
+    the reduced config its parameter table has the reference's leaves
+    (shape, init, scale) and its decode cache the reference's shapes and
+    types, without allocating either."""
+    for get in ("get_config", "reduced"):
+        jm = j_get_model(getattr(jconfigs, get)(arch_id))
+        pm = get_model(getattr(pconfigs, get)(arch_id))
+        want = {path: (d.shape, d.init, d.scale, d.dtype)
+                for path, d in PL.flatten(
+                    jax.tree.map(lambda d: {"_": d}, jm.param_defs,
+                                 is_leaf=lambda d: isinstance(
+                                     d, JL.ParamDef))).items()}
+        got = {path + ("_",): (d.shape, d.init, d.scale, d.dtype)
+               for path, d in PL.flatten(pm.param_defs).items()}
+        assert got == want, (arch_id, get)
+        jc, pc = jm.cache_shape(2, 16), pm.cache_shape(2, 16)
+        assert {k: (tuple(v.shape), jnp.dtype(v.dtype).name)
+                for k, v in jc.items()} == \
+            {k: (v.shape, str(v.dtype).removeprefix("torch."))
+             for k, v in pc.items()}, (arch_id, get)
+
+
 @pytest.mark.parametrize("arch_id", ARCHS)
 def test_param_trees_match_and_round_trip(arch_id):
     cfg, jp = _weights(arch_id)
@@ -243,10 +267,5 @@ def test_compute_params_give_the_same_bits():
     b = model.prefill(cast, {"tokens": tokens})
     assert torch.equal(a, b)
 
-
-@pytest.mark.parametrize("arch_id", ["qwen3-moe-235b-a22b", "whisper-base"])
-def test_unported_families_raise(arch_id):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(pconfigs.reduced(arch_id))
 
 

@@ -214,9 +214,3 @@ def test_serving_path_refuses_and_serving_runs_without_grad(arch):
     cache = model.init_cache(2, 4, device="cpu")
     lg, _ = model.decode_step(train, cache, tokens[:, :1], 0)
     assert not lg.requires_grad
-
-
-def test_loss_waits_for_moe_and_encdec():
-    for arch, item in (("qwen3-moe-235b-a22b", "6c"), ("whisper-base", "6d")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_model(pconfigs.reduced(arch))
