@@ -26,10 +26,12 @@ Phases, each printing one JSON line:
                  known answers, and its uniforms, the
                  failure probabilities and a full-scale run's [2880, 1, 972]
                  failure draws bit for bit against the CPU's; the per-host
-                 sum kernel (the port's own, in place of segment_sum) at
-                 Marconi's shapes, [T] and [64, T] rows: two launches the
-                 same bits, and the plain version's on the CPU
-                 (`scatter_add_` in task order).
+                 sum kernel (the port's own, in place of segment_sum) on
+                 the task table's columns at Marconi's shapes, [T] and
+                 [64, T] rows, [64, T] status with [1, T] values, long
+                 same-host chains: two launches the same bits, and the
+                 plain version's on the CPU (`scatter_add_` in task
+                 order).
   4. main     -- a full-scale Marconi run (192,817 tasks, 972 hosts, 30 days
                  at 15 minutes = 2880 steps) with every technique on, through
                  both step executors; launch counts are reset just before
@@ -105,7 +107,7 @@ Phases, each printing one JSON line:
                  peak memory, a 32-step profile (host ms a step, device
                  idle share), launch counts equal to one run's; cell 0
                  equal to the main run, every cell of an 8 x 2
-                 megakernel grid over the first 360 steps equal to its own
+                 megakernel grid over the first 180 steps equal to its own
                  run, B = 64's repeated
                  cells equal to B = 16's, the backends equal cell by cell;
                  then a small 16-cell grid on the card and on the CPU.
@@ -204,8 +206,9 @@ Phases, each printing one JSON line:
                  qwen3-moe's, deepseek-v2's padded MLA and whisper's
                  encoder and cross-attention shapes) one call of PyTorch's
                  scaled_dot_product_attention as a yardstick; the per-host
-                 sums at B = 1 and 64 beside `scatter_add_` and one
-                 `index_add_`; first-fit's
+                 sums at B = 1 and 64 beside their plain version and one
+                 `index_add_`, and the device time of a whole
+                 `scheduler.host_utilization` call at both B; first-fit's
                  latency bound (the least dependent chain of its K
                  placements), the model kernels' bounds at their
                  tensor-core rates, the facility kernel's latency bound
@@ -256,6 +259,8 @@ from repro_torch.core import (STORES, EnergyFlow, FleetSpec,  # noqa: E402
 from repro_torch.core import analytical  # noqa: E402
 from repro_torch.core import telemetry  # noqa: E402
 from repro_torch.core.fleet import fleet_place  # noqa: E402
+from repro_torch.core.state import (PENDING, RUNNING,  # noqa: E402
+                                    cell_tables)
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import first_fit as ff_k  # noqa: E402
 from repro_torch.kernels import flash_attn as fa_k  # noqa: E402
@@ -380,12 +385,48 @@ def device_ms(fn, kernel_name: str, reps: int = 50):
     return None
 
 
+def call_device_ms(fn, reps: int = 20):
+    """Mean device time of everything one call of `fn` launches: the
+    profiler's CUDA activity summed over `reps` calls (no host gaps).  A
+    profile that recorded no kernel is taken again, up to three times;
+    None if none did."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / reps / 1e3
+    return None
+
+
 def bound(nbytes: float, nops: float,
           peak_ops: float = PEAK_F32_OPS_S) -> tuple[float, str]:
     """Least time on the card (ms): bytes over HBM rate or operations over
     the peak rate of their type (f32 unless said), whichever is larger."""
     tb, to = nbytes / PEAK_BYTES_S, nops / peak_ops
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def host_sum_bytes(status, host, cols, h: int) -> int:
+    """Bytes the per-host sums must move on these inputs: the status of
+    every (row, task), the host of each RUNNING one, each value and weight
+    column at the running tasks with a host only (a column shared by the
+    rows once a distinct such task), and the sums, two [B, h] f32, written
+    once."""
+    st, ho = (x.reshape(-1, x.shape[-1]) for x in (status, host))
+    run = st == RUNNING
+    use = run & (ho >= 0)
+    n_use, n_any = int(use.sum()), int(use.any(0).sum())
+    return (4 * st.numel() + 4 * int(run.sum()) + 2 * 4 * st.shape[0] * h
+            + sum(4 * (n_use if x.dim() == 2 and x.shape[0] > 1 else n_any)
+                  for x in cols))
 
 
 # --------------------------------------------------------------------------
@@ -903,92 +944,147 @@ def check_flash_kernel(dev, results: dict) -> None:
 
 
 def _host_sum_inputs(gen, b: int, t: int, h: int, dev, running=0.03,
-                     hosts: int = MARCONI_ACTIVE) -> tuple:
-    """The scheduler's per-host sum inputs ([T] rows for b = 0): bins of
-    `_running_seg` (a running task's host among the first `hosts`, every
-    other task in a spare bin of its own past h) and two channels, cores
-    and GPUs weighted by utilization, zero where not running."""
+                     hosts: int = MARCONI_ACTIVE, shared: bool = False):
+    """The task table's columns as the scheduler hands them to the per-host
+    sums ([T] rows for b = 0): status (RUNNING for a share `running` of the
+    tasks), host among the first `hosts` or -1 (a running task that holds
+    no host adds nothing), and cores, GPUs and their utilizations, [B, T],
+    or one [1, T] row shared by the rows (`shared`, a grid's columns that
+    no step writes).  Returns (status, host, cores, gpus, cpu_util,
+    gpu_util)."""
     shape = (b, t) if b else (t,)
-    run = torch.rand(shape, generator=gen, device=dev) < running
-    host = torch.randint(0, min(hosts, h), shape, generator=gen, device=dev)
-    seg = torch.where(run, host, torch.arange(h, h + t, device=dev))
+    vshape = (1, t) if shared and b else shape
+    status = torch.where(torch.rand(shape, generator=gen, device=dev)
+                         < running, RUNNING, PENDING).to(torch.int32)
+    host = torch.randint(-1, min(hosts, h), shape, generator=gen,
+                         device=dev).to(torch.int32)
     cores = torch.tensor([4.0, 8.0, 16.0, 32.0, 48.0], device=dev)[
-        torch.randint(0, 5, shape, generator=gen, device=dev)]
-    gpus = torch.randint(0, 5, shape, generator=gen, device=dev).float()
-    vals = tuple(torch.where(run, x * torch.rand(shape, generator=gen,
-                                                 device=dev), 0.0)
-                 for x in (cores, gpus))
-    return vals, seg
+        torch.randint(0, 5, vshape, generator=gen, device=dev)]
+    gpus = torch.randint(0, 5, vshape, generator=gen, device=dev).float()
+    utils = [torch.rand(vshape, generator=gen, device=dev) for _ in range(2)]
+    return status, host, cores, gpus, *utils
 
 
 def check_host_sum(dev, results: dict) -> None:
-    """The per-host sum kernel against its plain version: at Marconi's
-    shapes (T = 192,817, H = 972, 3 % running, [T] and [64, T] rows), at
-    H = 4096, with every task running on 3 hosts (long same-host groups),
-    and with no tasks: two launches give the same bits, and the plain
+    """The per-host sum kernel against its plain version on the task
+    table's columns: at Marconi's shapes (T = 192,817, H = 972, 3 %
+    running, [T] and [64, T] rows, and [64, T] status and host with [1, T]
+    value columns shared by the rows), at H = 4096, with every task
+    running on 3 hosts (chains of ~6,700 adds; [B, T] and [1, T] values)
+    and with no tasks (tests/test_torch_card.py adds 2.2 M tasks); each
+    unweighted (`free_capacity`'s call) and weighted by utilization
+    (`host_utilization`'s): two launches give the same bits, and the plain
     version on the CPU (`scatter_add_`, task order) the same bits too; the
     plain version on the card (atomic adds, any order) within the
-    reference's tolerance between its executors (rtol 1e-5; its 1e-6 margin
-    between orders of tests/test_megakernel.py holds for 257 values, and a
-    host here sums up to 6,667)."""
+    reference's tolerance between its executors (rtol 1e-5; its 1e-6
+    margin between orders of tests/test_megakernel.py holds for 257
+    values, and a host here sums up to 6,667).  The kernel leaves its
+    ticket counters at 0."""
     gen = torch.Generator(device=dev).manual_seed(11)
-    cases = ((0, 192817, 972, 0.03, MARCONI_ACTIVE),
-             (64, 192817, 972, 0.03, MARCONI_ACTIVE),
-             (4, 50000, 4096, 0.5, 4096), (2, 20000, 972, 1.0, 3),
-             (1, 0, 17, 1.0, 17))
+    cases = ((0, 192817, 972, 0.03, MARCONI_ACTIVE, False),
+             (64, 192817, 972, 0.03, MARCONI_ACTIVE, False),
+             (64, 192817, 972, 0.03, MARCONI_ACTIVE, True),
+             (4, 50000, 4096, 0.5, 4096, False),
+             (2, 20000, 972, 1.0, 3, False),
+             (2, 20000, 972, 1.0, 3, True),
+             (1, 0, 17, 1.0, 17, False))
     err = 0.0
-    for b, t, h, running, hosts in cases:
-        vals, seg = _host_sum_inputs(gen, b, t, h, dev, running, hosts)
-        what = f"per_host_sum b={b} t={t} h={h}"
-        got = hs_k.per_host_sum(*vals, seg, h)
-        again = hs_k.per_host_sum(*vals, seg, h)
-        on_cpu = ref.per_host_sum(*(v.cpu() for v in vals), seg.cpu(), h)
-        plain = ref.per_host_sum(*vals, seg, h)
-        for g, a, w, p in zip(got, again, on_cpu, plain):
-            check(torch.equal(g, a), f"{what}: two launches differ")
-            check(torch.equal(g.cpu(), w), f"{what}: not the CPU's bits, "
-                  f"max abs err {_err(g.cpu(), w):.3e}")
-            err = max(err, _close(g, p, 1e-5, 1e-5, f"{what} (card plain)"))
+    for b, t, h, running, hosts, shared in cases:
+        status, host, cores, gpus, cu, gu = _host_sum_inputs(
+            gen, b, t, h, dev, running, hosts, shared)
+        for weights in ((), (cu, gu)):
+            args = (status, host, cores, gpus, h, *weights)
+            what = (f"per_host_sum b={b} t={t} h={h} shared={shared} "
+                    f"weighted={bool(weights)}")
+            got = hs_k.per_host_sum(*args)
+            again = hs_k.per_host_sum(*args)
+            on_cpu = ref.per_host_sum(*(x.cpu() if torch.is_tensor(x) else x
+                                        for x in args))
+            plain = ref.per_host_sum(*args)
+            for g, a, w, p in zip(got, again, on_cpu, plain):
+                check(torch.equal(g, a), f"{what}: two launches differ")
+                check(torch.equal(g.cpu(), w), f"{what}: not the CPU's bits, "
+                      f"max abs err {_err(g.cpu(), w):.3e}")
+                err = max(err, _close(g, p, 1e-5, 1e-5,
+                                      f"{what} (card plain)"))
     torch.cuda.synchronize()
-    results["per_host_sum"] = {"max_abs_err": err, "cases": len(cases),
+    check(not bool(hs_k._tickets[status.device].any()),
+          "per_host_sum: ticket counters not left at 0")
+    results["per_host_sum"] = {"max_abs_err": err, "cases": 2 * len(cases),
                                "bit_equal_to_cpu": True,
                                "repeats_bit_for_bit": True}
 
 
+def host_sum_tables(gen, b: int, tasks, hosts, dev):
+    """Marconi's tables laid out for a timed scheduler call, 3 % of tasks
+    running on the first 750 of 972 hosts: B = 1 as `simulate` lays them
+    out, B > 1 as a grid does ([B, T] status and host, the rest [1, T])."""
+    tasks, hosts = cell_tables(tasks, hosts, b)
+    status, host, *_ = _host_sum_inputs(gen, b, tasks.n, 972, dev)
+    return tasks._replace(status=status, host=host), hosts
+
+
 def time_host_sum(dev, results: dict) -> None:
-    """The per-host sum kernel beside its plain version (`scatter_add_` a
-    channel) at Marconi's shapes, [T] rows (B = 1) and [64, T] rows (the
-    grid's B = 64), 3 % of tasks running, two channels; one `index_add_`
-    of both channels stacked (B = 1, into a preallocated buffer) as the
-    library yardstick, which the port never calls.  Bound: every input
-    read once (an int64 bin and two f32 values a task) and the sums
-    written once; the adds (one a running task and channel) are far
-    below it."""
+    """The per-host sum kernel at Marconi's shapes as `host_utilization`
+    calls it (status and host [B, T], cores, GPUs and utilizations [1, T],
+    3 % running), B = 1 and the grid's B = 64: mean ms a call (CUDA
+    events), device ms, beside its plain version on the card and one
+    `index_add_` of both channels (bins and products made beforehand, into
+    a preallocated buffer: the library yardstick, which the port never
+    calls); and the device time and ms of one whole
+    `scheduler.host_utilization` call.  Bound: `host_sum_bytes` (what the
+    call must move on these inputs); the operations (a product and an add
+    a running task and channel) are far below it.  The workspace: the
+    kernel library's size at (B, T)."""
+    from repro_torch.core import scheduler
+    t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(12)
     t, h = 192817, 972
+    marconi = make_workload("marconi", scale=1.0, seed=0, dt_h=DT_H,
+                            horizon_days=30, device=dev)[:2]
     rows = {}
     for b in (1, 64):
-        vals, seg = _host_sum_inputs(gen, 0 if b == 1 else b, t, h, dev)
-        n_run = int((seg < h).sum())
-        b_ms, b_by = bound(b * t * (8 + 2 * 4) + b * h * 2 * 4, 2 * n_run)
-        rows[b] = {"ms": time_ms(lambda: hs_k.per_host_sum(*vals, seg, h)),
-                   "plain_ms": time_ms(lambda: ref.per_host_sum(*vals, seg,
-                                                                 h)),
-                   "device_ms": device_ms(lambda: hs_k.per_host_sum(
-                       *vals, seg, h), "host_sum_kernel", reps=20),
-                   "bound_ms": b_ms, "bound_by": b_by, "running": n_run}
-        if b == 1:
-            stacked = torch.stack(vals)
-            buf = torch.zeros((2, h + t), device=dev)
-            rows[b]["library_ms"] = time_ms(
-                lambda: buf.index_add_(1, seg, stacked))
+        status, host, cores, gpus, cu, gu = _host_sum_inputs(
+            gen, b, t, h, dev, shared=True)
+        args = (status, host, cores, gpus, h, cu, gu)
+        n_run = int(((status == RUNNING) & (host >= 0)).sum())
+        b_ms, b_by = bound(host_sum_bytes(status, host, args[2:4] + args[5:],
+                                          h), 4 * n_run)
+        # the yardstick's inputs: bins (spare ones past h) and both
+        # channels' products, one row after another
+        run = (status == RUNNING) & (host >= 0)
+        seg = (torch.where(run, host.long().clamp(0, h - 1),
+                           torch.arange(h, h + t, device=dev))
+               + torch.arange(b, device=dev)[:, None] * (h + t)).reshape(-1)
+        stacked = torch.stack([torch.where(run, cores * cu, 0.0),
+                               torch.where(run, gpus * gu, 0.0)]).reshape(
+            2, -1)
+        buf = torch.zeros((2, b * (h + t)), device=dev)
+        tasks, hosts = host_sum_tables(gen, b, *marconi, dev)
+        call = lambda: scheduler.host_utilization(  # noqa: E731
+            tasks, hosts)
+        rows[b] = {"ms": time_ms(lambda: hs_k.per_host_sum(*args)),
+                   "plain_ms": time_ms(lambda: ref.per_host_sum(*args)),
+                   "device_ms": device_ms(lambda: hs_k.per_host_sum(*args),
+                                          "host_sum_kernel", reps=10),
+                   "library_ms": time_ms(
+                       lambda: buf.index_add_(1, seg, stacked)),
+                   "library_device_ms": call_device_ms(
+                       lambda: buf.index_add_(1, seg, stacked), reps=10),
+                   "bound_ms": b_ms, "bound_by": b_by, "running": n_run,
+                   "workspace_bytes": hs_k.workspace_bytes(b, t),
+                   "host_utilization_ms": time_ms(call),
+                   "host_utilization_device_ms": call_device_ms(call,
+                                                                reps=10)}
+        del seg, stacked, buf, tasks, hosts
     results["per_host_sum"].update(
         {**{k: rows[1][k] for k in ("ms", "plain_ms", "device_ms",
                                     "bound_ms", "bound_by", "library_ms")},
          "b64": rows[64], "device_ms_b64": rows[64]["device_ms"],
-         "running_b1": rows[1]["running"],
-         "smem_bytes": hs_k.smem_bytes(h), "max_hosts": hs_k.MAX_HOSTS,
-         "shape": {"t": t, "h": h, "channels": 2}})
+         "b1": rows[1],
+         "blocks_per_sm": hs_k.blocks_per_sm(), "max_hosts": hs_k.MAX_HOSTS,
+         "shape": {"t": t, "h": h, "channels": 2, "weighted": True},
+         "seconds": time.perf_counter() - t0})
     torch.cuda.synchronize()
 
 
@@ -1260,7 +1356,7 @@ def profile_window(tasks, hosts, cfg, dyn, ci, n_steps: int, dev) -> list:
             tasks, hosts, ci[:n_steps], c, dyn=dyn, device=dev)[0], c)
         run()
         row = profiled(run, watch=("first_fit", "facility_power_kernel",
-                                   "power_carbon_kernel"))
+                                   "power_carbon_kernel", "host_sum"))
         rows.append({"backend": backend, "n_steps": n_steps,
                      "host_ms_per_step": row["wall_s"] / n_steps * 1e3,
                      **row})
@@ -1704,7 +1800,7 @@ def grid_profile(tasks, hosts, cfg, dyn, r: int, c: int, backend: str,
     run()
     row = profiled(run, watch=("first_fit", "facility_power_kernel",
                                "power_carbon_kernel",
-                               "facility_totals_kernel"))
+                               "facility_totals_kernel", "host_sum"))
     return {"n_steps": n_steps, "host_ms_per_step": row["wall_s"] / n_steps
             * 1e3, **row}
 
@@ -4114,7 +4210,8 @@ def main() -> int:
     for lib, kernel in (("first_fit", "first_fit_warp_kernel"),
                         ("power_carbon", "power_carbon_kernel"),
                         ("power_carbon", "facility_power_kernel"),
-                        ("fused_step", "facility_totals_kernel")):
+                        ("fused_step", "facility_totals_kernel"),
+                        ("host_sum", "host_sum_kernel")):
         if lib in report:
             resources[kernel] = build.resources(report[lib]["ptxas"], kernel)
             check(bool(resources[kernel]), f"no ptxas report of {kernel}")
@@ -4125,6 +4222,13 @@ def main() -> int:
             check(r.get("stack") == r.get("spill_stores")
                   == r.get("spill_loads") == 0,
                   f"{kernel} uses local memory: {r}")
+    # the per-host sums' kernel keeps two blocks an SM (its registers and
+    # shared memory, as the occupancy calculator counts them), no spills
+    for r in resources.get("host_sum_kernel", []):
+        check(r.get("stack") == r.get("spill_stores") == 0,
+              f"host_sum_kernel uses local memory: {r}")
+    check(hs_k.blocks_per_sm() >= 2,
+          f"host_sum_kernel: {hs_k.blocks_per_sm()} blocks an SM, not 2")
     emit({"phase": "build", "seconds": seconds, "libraries": report,
           "resources": resources})
 

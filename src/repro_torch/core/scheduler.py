@@ -27,47 +27,25 @@ F32 = torch.float32
 I32 = torch.int32
 
 
-def _per_host_sum(v0, v1, seg, h: int) -> tuple:
-    """Per-host sums of v0 and v1 over the bins `seg` of `_running_seg`,
-    along the last axis ([T] -> [H], [B, T] -> [B, H]): each host's tasks
-    added in task order, the same bits on the card as on the CPU
-    (`ops.per_host_sum`, one launch for both)."""
-    return ops.per_host_sum(v0, v1, seg, h)
-
-
-def _running_seg(tasks: TaskTable, h: int):
-    """(running-and-placed mask, bin of each row for `_per_host_sum`).
-
-    A running task's bin is its host (clipped into range; host >= 0, so a
-    RUNNING task carrying host == -1 is not billed to host 0).  Every other
-    row adds nothing, into a spare bin of its own past the H host bins: on
-    the card, sending all of them to one bin would make ~T atomic adds to
-    the same address, which took 0.34 ms a call at T = 192,817."""
-    running = (tasks.status == RUNNING) & (tasks.host >= 0)
-    t = tasks.host.shape[-1]
-    spare = torch.arange(h, h + t, device=tasks.host.device)
-    return running, torch.where(running, torch.clamp(tasks.host, 0, h - 1),
-                                spare)
-
-
 def free_capacity(tasks: TaskTable, hosts: HostTable):
-    """Per-host free CPU cores and GPUs, recomputed from the task table."""
+    """Per-host free CPU cores and GPUs, recomputed from the task table:
+    the running, placed tasks' cores and GPUs summed per host in task order
+    (`ops.per_host_sum`: on the card one launch on the table's own
+    columns)."""
     h = hosts.cores.shape[-1]
-    running, seg = _running_seg(tasks, h)
-    used_c, used_g = _per_host_sum(torch.where(running, tasks.cores, 0.0),
-                                   torch.where(running, tasks.gpus, 0.0),
-                                   seg, h)
+    used_c, used_g = ops.per_host_sum(tasks.status, tasks.host, tasks.cores,
+                                      tasks.gpus, h)
     avail = (hosts.active & hosts.up).to(F32)
     return hosts.cores * avail - used_c, hosts.n_gpus * avail - used_g
 
 
 def host_utilization(tasks: TaskTable, hosts: HostTable):
-    """Per-host CPU/GPU utilization in [0, 1] from running tasks."""
+    """Per-host CPU/GPU utilization in [0, 1] from running tasks (their
+    cores and GPUs weighted by utilization, summed per host in one
+    `ops.per_host_sum`)."""
     h = hosts.cores.shape[-1]
-    running, seg = _running_seg(tasks, h)
-    cpu, gpu = _per_host_sum(
-        torch.where(running, tasks.cores * tasks.cpu_util, 0.0),
-        torch.where(running, tasks.gpus * tasks.gpu_util, 0.0), seg, h)
+    cpu, gpu = ops.per_host_sum(tasks.status, tasks.host, tasks.cores,
+                                tasks.gpus, h, tasks.cpu_util, tasks.gpu_util)
     cpu_u = torch.where(hosts.cores > 0,
                         cpu / torch.clamp(hosts.cores, min=1e-6), 0.0)
     gpu_u = torch.where(hosts.n_gpus > 0,

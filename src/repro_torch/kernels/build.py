@@ -158,14 +158,14 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(lib_name: str, fn_name: str, argtypes):
-    """C entry point `fn_name` of library `lib_name`, its argument types
-    declared once (ctypes would otherwise pass each int as 32 bits and cut
-    the pointers); returns an int CUDA error code."""
+def function(lib_name: str, fn_name: str, argtypes, restype=ctypes.c_int):
+    """C entry point `fn_name` of library `lib_name`, its argument and
+    result types declared once (ctypes would otherwise pass each int as 32
+    bits and cut the pointers); a launch returns an int CUDA error code."""
     fn = _fns.get(fn_name)
     if fn is None:
         fn = getattr(library(lib_name), fn_name)
-        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        fn.argtypes, fn.restype = list(argtypes), restype
         _fns[fn_name] = fn
     return fn
 

@@ -128,14 +128,16 @@ def fused_facility_chain(it_kw, ci, wet_bulb_c, price, price_lo, price_hi,
                                       ci_rising, cfg, **kwargs)
 
 
-def per_host_sum(v0, v1, seg, h: int) -> tuple:
-    """Per-host sums of two value channels over the bins `seg` ([T] / [B, T]
-    like the values; bins >= h are spare and dropped), each host's values
-    added in task order: ([..., h], [..., h]) f32."""
-    _refuse_autograd("per_host_sum", v0, v1)
-    telemetry.note_plain_kernels(not seg.is_cuda)
-    impl = _host_sum if seg.is_cuda else ref
-    return impl.per_host_sum(v0, v1, seg, h)
+def per_host_sum(status, host, a0, a1, h: int, w0=None, w1=None) -> tuple:
+    """Per-host sums of the task table's value columns a0 and a1 (times the
+    weight columns w0 / w1 where given, the product rounded to f32) over
+    the tasks with `status == RUNNING` and `host >= 0`, in the bin
+    `min(host, h - 1)`; each host's values added in task order.  Columns
+    [T], [1, T] or [B, T]: ([..., h], [..., h]) f32."""
+    _refuse_autograd("per_host_sum", status, host, a0, a1, w0, w1)
+    telemetry.note_plain_kernels(not status.is_cuda)
+    impl = _host_sum if status.is_cuda else ref
+    return impl.per_host_sum(status, host, a0, a1, h, w0, w1)
 
 
 def ssd_intra_chunk(xdt, da, b, c):

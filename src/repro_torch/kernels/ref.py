@@ -34,6 +34,7 @@ from ..core import thermal as thermal_mod
 from ..core.power import host_power_kw
 from ..core.quant import dequantize_trace, quantize_trace
 from ..core.config import inv_f32
+from ..core.state import RUNNING
 
 F32 = torch.float32
 
@@ -90,16 +91,28 @@ def first_fit_place(cand_cores, cand_gpus, free_cores, free_gpus):
     return assign, fc, fg
 
 
-def per_host_sum(v0, v1, seg, h: int) -> tuple:
-    """Per-host sums of v0 and v1 over the bins `seg` along the last axis
-    ([T] -> [h], [B, T] -> [B, h]); bins h and up are spare ones, dropped.
+def per_host_sum(status, host, a0, a1, h: int, w0=None, w1=None) -> tuple:
+    """Per-host sums of a0 [* w0] and a1 [* w1] over the running, placed
+    tasks (`status == RUNNING`, `host >= 0`) in the bins `min(host, h - 1)`,
+    along the last axis ([T] -> [h], [B, T] -> [B, h]; columns broadcast).
     On the CPU `scatter_add_` adds in task order, as the reference's
     `segment_sum` does; on the card it adds with atomics, in an order that
-    changes from run to run."""
-    def one(v):
-        acc = v.new_zeros(*seg.shape[:-1], h + v.shape[-1])
-        return acc.scatter_add_(-1, seg, v)[..., :h]
-    return one(v0), one(v1)
+    changes from run to run.  Every other task adds into a spare bin of its
+    own past the h host bins (sent to one bin, ~T atomic adds would meet at
+    one address on the card)."""
+    running = (status == RUNNING) & (host >= 0)
+    t = host.shape[-1]
+    spare = torch.arange(h, h + t, device=host.device)
+    seg = torch.where(running, torch.clamp(host, 0, h - 1), spare)
+    lead = torch.broadcast_shapes(*(x.shape[:-1] for x in (
+        status, host, a0, a1, w0, w1) if x is not None))
+    seg = seg.expand(*lead, t)
+
+    def one(a, w):
+        v = torch.where(running, a if w is None else a * w, 0.0)
+        acc = v.new_zeros(*lead, h + t)
+        return acc.scatter_add_(-1, seg, v.expand(*lead, t))[..., :h]
+    return one(a0, w0), one(a1, w1)
 
 
 def _column(x):

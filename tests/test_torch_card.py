@@ -995,33 +995,71 @@ def test_sort_dispatch_repeats_bit_for_bit(cuda_device, cdt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,h,running", [
-    (0, 192_817, 972, 0.03), (64, 50_000, 972, 0.03), (3, 20_000, 4096, 0.5),
-    (2, 9_000, 3, 1.0), (1, 0, 17, 1.0)])
-def test_per_host_sum_repeats_and_equals_cpu(cuda_device, b, t, h, running):
-    """The per-host sum kernel ([T] or [B, T] rows): the same bits on two
+@pytest.mark.parametrize("b,t,h,running,shared", [
+    (0, 192_817, 972, 0.03, "flat"), (64, 50_000, 972, 0.03, "own"),
+    (3, 20_000, 4096, 0.5, "own"), (2, 9_000, 3, 1.0, "own"),
+    (1, 0, 17, 1.0, "own"), (64, 192_817, 972, 0.03, "row"),
+    (2, 20_000, 3, 1.0, "row"), (1, 2_200_000, 972, 0.03, "row")])
+def test_per_host_sum_repeats_and_equals_cpu(cuda_device, b, t, h, running,
+                                             shared):
+    """The per-host sum kernel on the task table's columns (status and host
+    [T] or [B, T]; values and utilization weights [B, T], or one row shared
+    by all, [T] / [1, T]; RUNNING tasks with host -1; every task running on
+    3 hosts; more tiles than one phase-2 batch): the same bits on two
     launches, and the plain version's on the CPU (`scatter_add_` in task
-    order) bit for bit; one launch a call."""
-    from repro_torch.core import scheduler
+    order) bit for bit, one launch a call, the ticket counters left at 0;
+    the plain version on the card (atomic adds) within rtol 1e-5."""
+    from repro_torch.kernels import host_sum as hs
     rng = np.random.default_rng(t + h)
     shape = (b, t) if b else (t,)
-    run = torch.tensor(rng.uniform(size=shape) < running)
-    host = torch.tensor(rng.integers(0, h, shape))
-    seg = torch.where(run, host, torch.arange(h, h + t))
-    vals = tuple(torch.where(run, torch.tensor(
-        rng.choice(np.float32([4, 8, 16, 32, 48]), shape)
-        * rng.uniform(size=shape).astype(np.float32)), 0.0) for _ in range(2))
-    want = ref.per_host_sum(*vals, seg, h)
+    vshape = {"own": shape, "flat": (t,), "row": (1, t)}[shared]
+    status = torch.tensor(np.where(rng.uniform(size=shape) < running, 1,
+                                   0).astype(np.int32))
+    host = torch.tensor(rng.integers(-1, h, shape).astype(np.int32))
+    cols = [torch.tensor(x) for x in (
+        rng.choice(np.float32([4, 8, 16, 32, 48]), vshape),
+        rng.integers(0, 5, vshape).astype(np.float32),
+        rng.uniform(size=vshape).astype(np.float32),
+        rng.uniform(size=vshape).astype(np.float32))]
     d = cuda_device
-    on_card = (*(v.to(d) for v in vals), seg.to(d))
-    ops.reset_launch_counts()
-    first = scheduler._per_host_sum(*on_card, h)
-    again = scheduler._per_host_sum(*on_card, h)
-    torch.cuda.synchronize()
-    assert ops.launch_counts()["per_host_sum"] == 2
-    for x, y, w in zip(first, again, want):
-        assert torch.equal(x, y)
-        assert torch.equal(x.cpu(), w)
+    for weights in (False, True):
+        args = (status, host, *cols[:2], h, *(cols[2:] if weights else ()))
+        want = ref.per_host_sum(*args)
+        on_card = [x.to(d) if torch.is_tensor(x) else x for x in args]
+        ops.reset_launch_counts()
+        first = ops.per_host_sum(*on_card)
+        again = ops.per_host_sum(*on_card)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["per_host_sum"] == 2
+        assert not bool(hs._tickets[status.to(d).device].any())
+        plain = ref.per_host_sum(*on_card)
+        for x, y, w, p in zip(first, again, want, plain):
+            assert torch.equal(x, y)
+            assert torch.equal(x.cpu(), w)
+            torch.testing.assert_close(p, x, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_host_sum_layout_and_occupancy(cuda_device):
+    """The per-host sum kernel keeps two blocks an SM as compiled, and its
+    library's workspace holds a 16-byte record a (row, task) slot; a launch
+    given less workspace than that is refused."""
+    from repro_torch.kernels import build, host_sum as hs
+    assert hs.blocks_per_sm() >= 2
+    for b, t in ((1, 0), (1, 192_817), (64, 192_817)):
+        assert hs.workspace_bytes(b, t) >= 16 * b * max(t, 1)
+    d = cuda_device
+    status = torch.ones(100, dtype=torch.int32, device=d)
+    vals = torch.ones(100, device=d)
+    ws = torch.empty(16, dtype=torch.int32, device=d)
+    fn = build.function("host_sum", "steam_host_sum", hs._ARGS)
+    out = torch.empty((2, 4), device=d)
+    code = fn(status.data_ptr(), status.data_ptr(), vals.data_ptr(),
+              vals.data_ptr(), None, None, 0, 0, 0, 0, 0, 0, 1, 100, 4, 1,
+              ws.data_ptr(), 4 * ws.numel(),
+              hs._tickets_for(status.device, 1).data_ptr(), out.data_ptr(),
+              out[1].data_ptr(), build.stream_of(status))
+    assert code != 0
 
 
 @pytest.mark.cuda
@@ -1041,6 +1079,12 @@ def test_kernel_entries_refuse_autograd_on_the_card(cuda_device):
                             -torch.rand((1, 2, 2, 8), device=d),
                             torch.randn((1, 2, 8, 1, 4), device=d),
                             torch.randn((1, 2, 8, 1, 4), device=d))
+    status = torch.ones(6, dtype=torch.int32, device=d)
+    host = torch.tensor([0, 1, 1, 0, 2, 2], dtype=torch.int32, device=d)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.per_host_sum(status, host, torch.rand(6, device=d,
+                                                  requires_grad=True),
+                         torch.rand(6, device=d), 3)
     assert not any(ops.launch_counts().values())
     with torch.no_grad():
         out = ops.flash_attention(q, k, v, scale=0.25)

@@ -18,6 +18,8 @@ version on the card at the same tolerances.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +30,8 @@ import repro.core.config as jconfig
 from repro.kernels import ops as jops
 from repro.kernels.fused_step import fused_facility_totals as j_fused_totals
 import repro_torch.core.config as pconfig
+from repro_torch.core import scheduler as pscheduler
+from repro_torch.core import state as pstate
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import first_fit as ff
 from repro_torch.kernels import fused_step as fs
@@ -245,6 +249,12 @@ class _Launch:
         return 0
 
 
+def _host_sum_workspace(b, t):
+    """Stands in for the kernel library's workspace size on the CPU: any
+    size, not a multiple of 4 bytes."""
+    return 1000 * b + 3 * t + 2
+
+
 @pytest.fixture
 def recorded_launch(monkeypatch):
     """The wrappers' launch path with the C entry points recorded instead
@@ -253,6 +263,8 @@ def recorded_launch(monkeypatch):
     monkeypatch.setattr(build, "require_cuda", lambda *a: None)
     monkeypatch.setattr(build, "function", lambda *a: fn)
     monkeypatch.setattr(build, "stream_of", lambda t: None)
+    # the per-host sums' workspace is laid out by the kernel's library
+    monkeypatch.setattr(hs, "workspace_bytes", _host_sum_workspace)
     yield fn
     ops.reset_launch_counts()
 
@@ -271,36 +283,242 @@ def test_power_carbon_launches_the_row_pass_block(recorded_launch, h):
         assert args[6:9] == (1, h, pc.facility_block(h))
 
 
-@pytest.mark.parametrize("shape", [(50,), (3, 50), (3, 0)])
-def test_host_sum_launch_passes_its_rows(recorded_launch, shape):
-    """The per-host sum wrapper hands the kernel B contiguous rows of T
-    (a [T] input is one row) and one [2, ..., H] output; it counts one
+def _host_cols(b, t, h, seed, shared="row"):
+    """Task columns as the scheduler hands them: status and host [B, T] (or
+    [T] for b = 0), values and weights [T] (`shared="flat"`), [1, T]
+    ("row") or [B, T] ("own")."""
+    rng = np.random.default_rng(seed)
+    shape = (b, t) if b else (t,)
+    status = T(np.where(rng.uniform(size=shape) < 0.3, 1, 0).astype(np.int32))
+    host = T(rng.integers(-1, h + 3, shape).astype(np.int32))
+    vshape = {"flat": (t,), "row": (1, t), "own": shape}[shared if b else
+                                                         "flat"]
+    vals = [T(rng.choice(np.float32([4, 8, 16, 32, 48]), vshape))
+            for _ in range(2)]
+    weights = [T(rng.uniform(size=vshape).astype(np.float32))
+               for _ in range(2)]
+    return status, host, vals, weights
+
+
+@pytest.mark.parametrize("shape", [(50,), (3, 50), (3, 0), (1, 50),
+                                   (64, 9000)])
+@pytest.mark.parametrize("shared", ["flat", "row", "own"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_host_sum_launch_passes_its_rows(recorded_launch, shape, shared,
+                                         weighted):
+    """The per-host sum wrapper hands the kernel the columns themselves
+    (their data pointers, no copy), each with its row stride (0 for a [T]
+    or [1, T] column shared by the rows), B, T, H and the RUNNING code, a
+    workspace of the size the kernel's library asks for (whole int32s),
+    the ticket counters and one [2, ..., H] output; it counts one
     launch."""
     h = 17
+    b = shape[0] if len(shape) == 2 else 0
+    status, host, vals, weights = _host_cols(b, shape[-1], h, 3, shared)
+    ws = weights if weighted else [None, None]
     ops.reset_launch_counts()
-    out = hs.per_host_sum(torch.ones(shape), torch.ones(shape),
-                          torch.zeros(shape, dtype=torch.int64), h)
+    out = hs.per_host_sum(status, host, *vals, h, *ws)
     (args,) = recorded_launch.calls
-    assert args[3:6] == (shape[0] if len(shape) == 2 else 1, shape[-1], h)
-    assert len(out) == 2 and all(o.shape == (*shape[:-1], h) for o in out)
-    assert args[7].value - args[6].value == 4 * out[0].numel()
+    cols = (status, host, *vals, *ws)
+    assert args[:6] == tuple(None if x is None else x.data_ptr()
+                             for x in cols)
+    assert args[6:12] == tuple(
+        x.stride(0) if x is not None and x.dim() == 2 and x.shape[0] > 1
+        else 0 for x in cols)
+    rows = max(1, b)
+    assert args[12:16] == (rows, shape[-1], h, pstate.RUNNING)
+    need = _host_sum_workspace(rows, shape[-1])
+    assert args[17] == -(-need // 4) * 4 and args[16] % 16 == 0
+    lead = (rows,) if len(shape) == 2 else ()
+    assert len(out) == 2 and all(o.shape == (*lead, h) for o in out)
+    assert args[19] == out[0].data_ptr()
+    assert args[20] - args[19] == 4 * out[0].numel()
     assert ops.launch_counts()["per_host_sum"] == 1
 
 
 def test_host_sum_wrapper_refuses_what_the_kernel_cannot_take(
         recorded_launch):
-    seg = torch.zeros((2, 8), dtype=torch.int64)
+    status = torch.ones((2, 8), dtype=torch.int32)
+    host = torch.zeros((2, 8), dtype=torch.int32)
     vals = torch.ones((2, 8))
-    with pytest.raises(ValueError, match="one shape"):
-        hs.per_host_sum(vals, torch.ones(8), seg, 4)
-    with pytest.raises(ValueError, match="one shape"):
-        hs.per_host_sum(vals, vals, seg[:1], 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        hs.per_host_sum(vals, vals, seg, hs.MAX_HOSTS + 1)
-    # the largest host count's accumulators and tiles fit one block
-    assert hs.smem_bytes(hs.MAX_HOSTS) + hs.STATIC_SMEM <= hs.SMEM_MAX
-    assert hs.smem_bytes(hs.MAX_HOSTS + 4) + hs.STATIC_SMEM > hs.SMEM_MAX
+    with pytest.raises(ValueError, match="one T and one B"):
+        hs.per_host_sum(status, host, vals, torch.ones(7), 4)
+    with pytest.raises(ValueError, match="one T and one B"):
+        hs.per_host_sum(status, host, vals, torch.ones((3, 8)), 4)
+    with pytest.raises(ValueError, match="one T and one B"):
+        hs.per_host_sum(status, host[:, :4], vals, vals, 4)
+    with pytest.raises(ValueError, match="one T and one B"):
+        hs.per_host_sum(status, host, vals, vals, 4, torch.ones((2, 2, 8)))
+    with pytest.raises(ValueError, match="int32"):
+        hs.per_host_sum(status.long(), host, vals, vals, 4)
+    with pytest.raises(ValueError, match="int32"):
+        hs.per_host_sum(status, host.long(), vals, vals, 4)
+    with pytest.raises(ValueError, match="float32"):
+        hs.per_host_sum(status, host, vals.double(), vals, 4)
+    with pytest.raises(ValueError, match="hosts"):
+        hs.per_host_sum(status, host, vals, vals, hs.MAX_HOSTS + 1)
+    with pytest.raises(ValueError, match="hosts"):
+        hs.per_host_sum(status, host, vals, vals, 0)
+    with pytest.raises(ValueError, match="rows"):
+        hs.per_host_sum(*(x.expand(hs.MAX_ROWS + 1, 8) for x in (
+            status[:1], host[:1], vals[:1], vals[:1])), 4)
+    # the host count bounds no buffer (at least the 17,132 hosts of the
+    # first kernel)
+    assert hs.MAX_HOSTS >= 17132
     assert not recorded_launch.calls
+
+
+def _stable_bucket_sort(key, threads):
+    """Phase 1's counting sort of one tile's n records by bucket, round by
+    round: warp w takes records [w * span, (w + 1) * span) (span a
+    multiple of 32), counts per (warp, bucket), a bucket-major prefix over
+    the warps, ranks within a round of 32.  Returns (order, bucket starts
+    [threads + 1])."""
+    n = len(key)
+    span = -(-n // threads) * 32
+    nw = -(-n // span) if n else 0
+    wcnt = np.zeros((max(nw, 1), threads), np.int64)
+    for w in range(nw):
+        np.add.at(wcnt[w], key[w * span:min((w + 1) * span, n)], 1)
+    starts = np.concatenate([[0], np.cumsum(wcnt.sum(0))])
+    base = (starts[:-1] + np.cumsum(wcnt, 0) - wcnt)  # [warp, bucket]
+    perm = np.full(n, -1)
+    for w in range(nw):
+        for e0 in range(w * span, min(n, (w + 1) * span), 32):
+            e = np.arange(e0, min(e0 + 32, n))
+            for lane, ee in enumerate(e):
+                k = key[ee]
+                perm[base[w, k] + np.sum(key[e[:lane]] == k)] = ee
+            for k in np.unique(key[e]):
+                base[w, k] += np.sum(key[e] == k)
+    assert sorted(perm) == list(range(n))
+    return perm, starts
+
+
+# csrc/host_sum.cu's kTile and kThreads (= kBuckets)
+HOST_SUM_TILE, HOST_SUM_THREADS = 4096, 512
+
+
+def _host_sum_rendering(status, host, a0, a1, h, w0, w1, tile=HOST_SUM_TILE,
+                        threads=HOST_SUM_THREADS):
+    """csrc/host_sum.cu's two phases in numpy: phase 1 compacts each tile's
+    running tasks in task order and sorts them stably by bucket (host mod
+    `threads`) into the tile's slot, with the bucket starts; in phase 2
+    thread j walks bucket j through the tiles in order, adding in f32 onto
+    the hosts' accumulators (threads run side by side: their hosts
+    differ)."""
+    cols = [np.atleast_2d(np.asarray(x)) for x in (status, host, a0, a1)]
+    ws = [None if w is None else np.atleast_2d(np.asarray(w))
+          for w in (w0, w1)]
+    b = max(x.shape[0] for x in cols + [w for w in ws if w is not None])
+    t = cols[0].shape[-1]
+    out = np.zeros((2, b, h), np.float32)
+    for r in range(b):
+        st, ho, x0, x1 = (x[min(r, x.shape[0] - 1)] for x in cols)
+        vals = [x if w is None else x * w[min(r, w.shape[0] - 1)]
+                for x, w in zip((x0, x1), ws)]
+        slots, bounds = [], []
+        for i in range(max(1, -(-t // tile))):    # phase 1
+            idx = np.arange(i * tile, min((i + 1) * tile, t))
+            sel = idx[(st[idx] == pstate.RUNNING) & (ho[idx] >= 0)]
+            rec = (np.minimum(ho[sel], h - 1), vals[0][sel], vals[1][sel])
+            perm, starts = _stable_bucket_sort(rec[0] % threads, threads)
+            slots.append([x[perm] for x in rec])
+            bounds.append(starts)
+        for j in range(threads):                  # phase 2, thread j
+            for (hh, v0, v1), starts in zip(slots, bounds):
+                for q in range(starts[j], starts[j + 1]):
+                    assert hh[q] % threads == j
+                    for c, v in enumerate((v0, v1)):
+                        out[c, r, hh[q]] = np.float32(out[c, r, hh[q]] + v[q])
+    return out if np.ndim(status) == 2 else out[:, 0]
+
+
+@pytest.mark.parametrize("b,t,h,running,small", [
+    (0, 9000, 972, 0.03, False), (2, 9000, 3, 1.0, False),
+    (3, 6000, 1100, 0.5, False), (1, 0, 17, 1.0, False),
+    (2, 9000, 5, 0.6, True), (0, 9000, 100, 0.3, True)])
+def test_host_sum_rendering_gives_the_plain_bits(b, t, h, running, small):
+    """The kernel's design gives the plain version's bits: tiles sorted by
+    bucket (H above the bucket count, several hosts a bucket; every task
+    running on 3 hosts, long chains), T = 0; with small constants (tiles of
+    128, 64 threads and buckets) a row has 71 tiles and a warp's span of a
+    tile more than one round.  Weighted and unweighted channels, a [1, T]
+    value row."""
+    rng = np.random.default_rng(t + h)
+    shape = (b, t) if b else (t,)
+    status = np.where(rng.uniform(size=shape) < running, pstate.RUNNING,
+                      pstate.PENDING).astype(np.int32)
+    host = rng.integers(-1, h + 2, shape).astype(np.int32)
+    a0 = rng.choice(np.float32([4, 8, 16, 32, 48]), (1, t) if b else (t,))
+    a1 = rng.integers(0, 5, shape).astype(np.float32)
+    w0 = rng.uniform(size=shape).astype(np.float32)
+    consts = dict(tile=128, threads=64) if small else {}
+    got = _host_sum_rendering(status, host, a0, a1, h, w0, None, **consts)
+    want = ref.per_host_sum(T(status), T(host), T(a0), T(a1), h, T(w0))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.int32),
+                                      w.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("fn", ["free_capacity", "host_utilization"])
+@pytest.mark.parametrize("cells,written", [(0, False), (1, False),
+                                           (4, False), (4, True)])
+def test_scheduler_hands_the_launch_its_table_columns(
+        recorded_launch, monkeypatch, fn, cells, written):
+    """`free_capacity` and `host_utilization` make one launch a call on
+    the task table's own columns (data pointers equal: no mask, bin or
+    masked column is built, nothing is copied); a shared [1, T] column,
+    and `cell_tables`' [B, T] views of one written row, pass with row
+    stride 0; before the launch only its output and workspace are
+    allocated (no eager op runs).  The CPU's route is swapped for the
+    card's so the recorded launch sees the call."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(ops, "ref", SimpleNamespace(
+        per_host_sum=hs.per_host_sum))
+    rng = np.random.default_rng(cells)
+    t, h = 300, 40
+    tasks = pstate.make_task_table(
+        rng.uniform(0, 10, t), rng.uniform(1, 5, t),
+        rng.choice([4.0, 8.0], t), gpus=rng.integers(0, 3, t),
+        cpu_util=rng.uniform(size=t), device="cpu")
+    tasks = tasks._replace(
+        status=T(rng.integers(0, 3, t).astype(np.int32)),
+        host=T(rng.integers(-1, h, t).astype(np.int32)))
+    hosts = pstate.make_host_table(h, 48, 4, device="cpu")
+    if cells:
+        tasks, hosts = pstate.cell_tables(tasks, hosts, cells)
+        if written:  # a step has written the rows
+            tasks = tasks._replace(status=tasks.status.clone(),
+                                   host=tasks.host.clone())
+    getattr(pscheduler, fn)(tasks, hosts)  # the ticket counters, once
+    recorded_launch.calls.clear()
+    ops.reset_launch_counts()
+    seen = []
+    monkeypatch.setattr(build, "function", lambda *a: lambda *args: (
+        seen.append("launch"), recorded_launch(*args))[1])
+    with Ops():
+        getattr(pscheduler, fn)(tasks, hosts)
+    (args,) = recorded_launch.calls
+    assert ops.launch_counts()["per_host_sum"] == 1
+    cols = [tasks.status, tasks.host, tasks.cores, tasks.gpus]
+    cols += ([tasks.cpu_util, tasks.gpu_util] if fn == "host_utilization"
+             else [None, None])
+    assert args[:6] == tuple(None if x is None else x.data_ptr()
+                             for x in cols)
+    want = [0] * 6
+    if cells > 1 and written:
+        want[:2] = [t, t]
+    assert list(args[6:12]) == want
+    assert args[12:15] == (max(cells, 1), t, h)
+    before = seen[:seen.index("launch")]
+    assert before and set(before) == {"empty"}, before
 
 
 @pytest.mark.parametrize("s", [0, 1, 31, 32, 33, 255, 1023, 1024, 1025, 2880,

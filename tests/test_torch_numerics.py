@@ -16,9 +16,10 @@ such an expression (the power curves' `idle + span * f(u)`, the COP's
 lift, the SoC update), the tests hold the quotients themselves bit for bit
 (inputs on which the expression is exact, or the outputs that carry the
 quotient) and the rest within 4 ulps (3 measured).
-The per-host sums of `scheduler._per_host_sum` are bit-equal on the CPU to
-`jax.ops.segment_sum`, which the reference takes above 256 hosts; at 256
-and fewer it takes a one-hot matmul, held to the reference's own margin
+The per-host sums of `ops.per_host_sum` (the scheduler's call on the task
+table's columns) are bit-equal on the CPU to `jax.ops.segment_sum`, which
+the reference takes above 256 hosts; at 256 and fewer it takes a one-hot
+matmul, held to the reference's own margin
 (tests/test_megakernel.py: rtol 1e-6, atol 1e-5).  The card's kernel for
 these sums (repeatable run to run, the CPU's bits) is held to the plain
 version in tests/test_torch_card.py, which imports no JAX.
@@ -49,9 +50,10 @@ from repro_torch.core import carbon as pcarbon
 from repro_torch.core import engine as pengine
 from repro_torch.core import power as ppower
 from repro_torch.core import scheduler as pscheduler
+from repro_torch.core import state as pstate
 from repro_torch.core import thermal as pthermal
 from repro_torch.core.state import BatteryState as PBatteryState
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(1)
 N = 100_000
@@ -300,54 +302,139 @@ def test_facility_chain_soc_bit_for_bit_with_the_reference_kernel():
 # per-host sums
 # ---------------------------------------------------------------------------
 
-def _tasks(seed, b, t, h, running=0.3):
+def _tasks(seed, b, t, h, running=0.3, shared="own", lo=-1, hi=None):
+    """Task columns: status and host [B, T] ([T] for b = 0; a RUNNING task
+    may carry host -1, and hosts up to `hi` - 1 are clipped into h), cores
+    and utilizations [B, T] ("own", a grid's written rows' width), or one
+    row shared by the rows, [T] ("flat") or [1, T] ("row")."""
     rng = np.random.default_rng(seed)
     shape = (b, t) if b else (t,)
+    vshape = {"own": shape, "flat": (t,), "row": (1, t)}[shared]
     status = np.where(rng.uniform(size=shape) < running, pscheduler.RUNNING,
                       pscheduler.PENDING).astype(np.int32)
-    host = rng.integers(-1, h, shape).astype(np.int32)
-    cores = rng.choice(np.float32([4, 8, 16, 32, 48]), shape)
-    util = rng.uniform(size=shape).astype(np.float32)
-    return status, host, cores, util
+    host = rng.integers(lo, h if hi is None else hi, shape).astype(np.int32)
+    cores = rng.choice(np.float32([4, 8, 16, 32, 48]), vshape)
+    gpus = rng.integers(0, 5, vshape).astype(np.float32)
+    utils = [rng.uniform(size=vshape).astype(np.float32) for _ in range(2)]
+    return status, host, cores, gpus, utils
 
 
-@pytest.mark.parametrize("b", [0, 3])
-def test_per_host_sum_bit_equal_to_segment_sum(b):
-    """Above 256 hosts: the CPU's sums are jax.ops.segment_sum's bits,
-    integer and fractional values, [T] and [B, T] rows."""
-    h, t = 972, 20_000
-    status, host, cores, util = _tasks(50 + b, b, t, h)
-    tasks = SimpleNamespace(status=T(status), host=T(host))
-    running, seg = pscheduler._running_seg(tasks, h)
-    got = pscheduler._per_host_sum(torch.where(running, T(cores), 0.0),
-                                   torch.where(running, T(cores * util), 0.0),
-                                   seg, h)
+def _segment_sums(status, host, v, h):
+    """The reference's sums: jax.ops.segment_sum of the running, placed
+    tasks' values over the clipped hosts, row by row."""
     run = (status == pscheduler.RUNNING) & (host >= 0)
-    jseg = np.clip(host, 0, h - 1)
-    for g, v in zip(got, (cores, cores * util)):
-        v = np.where(run, v, np.float32(0))
-        if b:
-            want = jax.vmap(lambda x, s: jax.ops.segment_sum(x, s, h))(v, jseg)
-        else:
-            want = jax.ops.segment_sum(v, jseg, h)
-        _bits(g, want)
+    v = np.where(run, np.broadcast_to(v, run.shape), np.float32(0))
+    seg = np.clip(host, 0, h - 1)
+    if run.ndim == 2:
+        return jax.vmap(lambda x, s: jax.ops.segment_sum(x, s, h))(v, seg)
+    return jax.ops.segment_sum(v, seg, h)
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("b,shared", [(0, "flat"), (3, "own"), (3, "flat"),
+                                      (3, "row")])
+def test_per_host_sum_bit_equal_to_segment_sum(b, shared, weighted):
+    """Above 256 hosts: the CPU's sums (`ops.per_host_sum` from the task
+    table's columns, the scheduler's call) are jax.ops.segment_sum's bits,
+    integer and fractional values, [T] and [B, T] rows, written [B, T]
+    value columns and shared [T] / [1, T] ones, with and without
+    utilization weights (the product rounded to f32 first)."""
+    h, t = 972, 20_000
+    status, host, cores, gpus, utils = _tasks(50 + b, b, t, h,
+                                              shared=shared)
+    w = [T(u) for u in utils] if weighted else [None, None]
+    got = ops.per_host_sum(T(status), T(host), T(cores), T(gpus), h, *w)
+    for g, v, u in zip(got, (cores, gpus), utils):
+        _bits(g, _segment_sums(status, host, v * u if weighted else v, h))
+
+
+@pytest.mark.parametrize("case", ["host_minus_one", "host_past_h", "empty",
+                                  "all_running_few_hosts"])
+def test_per_host_sum_edges_bit_equal_to_segment_sum(case):
+    """A RUNNING task carrying host -1 adds nothing (it is not billed to
+    host 0); hosts >= h are clipped into the last host, as the reference
+    clips; T = 0 gives zeros; every task running on 3 of 972 hosts."""
+    h, t, b = 972, 5_000, 2
+    kw = {"host_minus_one": dict(running=1.0, lo=-1, hi=2),
+          "host_past_h": dict(lo=h - 3, hi=h + 40),
+          "empty": dict(), "all_running_few_hosts": dict(running=1.0, lo=0,
+                                                         hi=3)}[case]
+    status, host, cores, gpus, utils = _tasks(
+        7, b, 0 if case == "empty" else t, h, shared="row", **kw)
+    got = ops.per_host_sum(T(status), T(host), T(cores), T(gpus), h,
+                           T(utils[0]), T(utils[1]))
+    for g, v, u in zip(got, (cores, gpus), utils):
+        assert g.shape == (b, h)
+        _bits(g, _segment_sums(status, host, v * u, h))
+    if case == "host_minus_one":
+        assert bool((got[0][:, 2:] == 0).all()) and float(got[0].sum()) > 0
+    if case == "empty":
+        assert not bool(got[0].any()) and not bool(got[1].any())
+
+
+@pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("h", [3, 17, 256])
-def test_per_host_sum_within_the_reference_margin_at_few_hosts(h):
-    status, host, cores, util = _tasks(60 + h, 0, 257 * 8, h)
-    tasks = SimpleNamespace(status=T(status), host=T(host))
-    running, seg = pscheduler._running_seg(tasks, h)
+def test_per_host_sum_within_the_reference_margin_at_few_hosts(h, weighted):
+    """At 256 hosts and fewer the reference takes a one-hot matmul; the
+    port's task-order sums hold its own margin (rtol 1e-6, atol 1e-5)."""
+    status, host, cores, gpus, utils = _tasks(60 + h, 0, 257 * 8, h,
+                                              shared="flat")
+    w = [T(u) for u in utils] if weighted else [None, None]
+    got = ops.per_host_sum(T(status), T(host), T(cores), T(gpus), h, *w)
     run = (status == pscheduler.RUNNING) & (host >= 0)
     jseg = jnp.asarray(np.clip(host, 0, h - 1))
-    got = pscheduler._per_host_sum(torch.where(running, T(cores), 0.0),
-                                   torch.where(running, T(cores * util), 0.0),
-                                   seg, h)
-    for g, v in zip(got, (cores, cores * util)):
+    for g, v, u in zip(got, (cores, gpus), utils):
+        v = v * u if weighted else v
         want = jscheduler._per_host_sum(np.where(run, v, np.float32(0)),
                                         jseg, h)
         np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=1e-6,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("b", [0, 4])
+def test_scheduler_sums_bit_equal_to_the_reference_scheduler(b):
+    """`free_capacity` and `host_utilization` of the port against the
+    reference's on the same table (972 hosts, a [B, T] table as rows of
+    the reference's, vmapped): free cores and GPUs bit for bit, the
+    utilizations within 2 ulps (the reference's jitted divide may take a
+    reciprocal)."""
+    from repro.core import state as jstate
+    h, t = 972, 6_000
+    rng = np.random.default_rng(90 + b)
+    jtasks = jstate.make_task_table(
+        rng.uniform(0, 10, t).astype(np.float32),
+        rng.uniform(1, 5, t).astype(np.float32),
+        rng.choice(np.float32([4, 8, 16]), t),
+        gpus=rng.integers(0, 3, t).astype(np.float32),
+        cpu_util=rng.uniform(size=t).astype(np.float32),
+        gpu_util=rng.uniform(size=t).astype(np.float32))
+    jhosts = jstate.make_host_table(h, 48.0, 4.0, n_active=750)
+    shape = (b, t) if b else (t,)
+    status = np.where(rng.uniform(size=shape) < 0.3, pscheduler.RUNNING,
+                      pscheduler.PENDING).astype(np.int32)
+    host = rng.integers(-1, h, shape).astype(np.int32)
+    np_tasks = {k: np.asarray(v) for k, v in jtasks._asdict().items()}
+    ptasks, phosts = pstate.tables_from_numpy(
+        np_tasks, {k: np.asarray(v) for k, v in jhosts._asdict().items()},
+        device="cpu")
+    if b:
+        ptasks, phosts = pstate.cell_tables(ptasks, phosts, b)
+    ptasks = ptasks._replace(status=T(status), host=T(host))
+    for name in ("free_capacity", "host_utilization"):
+        fn = getattr(jscheduler, name)
+        if b:
+            want = jax.vmap(lambda s, hh: fn(jtasks._replace(
+                status=s, host=hh), jhosts))(status, host)
+        else:
+            want = fn(jtasks._replace(status=jnp.asarray(status),
+                                      host=jnp.asarray(host)), jhosts)
+        got = getattr(pscheduler, name)(ptasks, phosts)
+        for g, w in zip(got, want):
+            g = g.numpy().reshape(np.shape(w))
+            if name == "free_capacity":
+                _bits(g, w, name)
+            else:
+                np.testing.assert_array_max_ulp(g, np.asarray(w), 2)
 
 
 # ---------------------------------------------------------------------------

@@ -186,8 +186,9 @@ def test_kernel_entries_refuse_autograd():
     with torch.no_grad():
         ops.ssd_intra_chunk(xdt, da, b, c)
     with pytest.raises(RuntimeError, match="requires grad"):
-        ops.per_host_sum(torch.rand(6, requires_grad=True), torch.rand(6),
-                         torch.tensor([0, 1, 1, 0, 2, 2]), 3)
+        ops.per_host_sum(torch.ones(6, dtype=torch.int32),
+                         torch.tensor([0, 1, 1, 0, 2, 2], dtype=torch.int32),
+                         torch.rand(6, requires_grad=True), torch.rand(6), 3)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-2.7b", "zamba2-7b"])
