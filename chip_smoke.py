@@ -64,7 +64,7 @@ Phases, each printing one JSON line:
                  acted (interrupts, lost work, derated and throttled hours),
                  the executors equal (`compare_resilience`), the grid's cell
                  the single run, its healthy cells free of failures; after
-                 the grid phase, a 32-step profile of each executor; after
+                 the grid phase, a 16-step profile of each executor; after
                  the small phase, the same at a small scale on the card and
                  on the CPU.
   4b. experiments -- the experiment tooling at full scale, each part a
@@ -77,8 +77,9 @@ Phases, each printing one JSON line:
                  no other technique); (c) a task-trace grid of 8 arrival
                  sets (launch counts a single run's, the executors
                  equal); (d) `find_min_scale` at the targets 0.01 and 0.80
-                 over the default configuration, each pair the
-                 reference's (SCALING_KAT); (e) the CLI on 8 regions.
+                 over the default configuration's first 7 days
+                 (SCALING_STEPS), each pair the reference's (SCALING_KAT),
+                 and the SLA curve; (e) the CLI on 8 regions over 7 days.
                  After the grid phase, a small task-trace grid (with and
                  without priority levels) on the card and on the CPU.
   4d. fleet  -- the multi-datacenter fleet at full scale: Marconi placed
@@ -97,20 +98,33 @@ Phases, each printing one JSON line:
                  full width under phase 4a's failures and loop with the
                  cross-region spill (seeds 1-8, stage pipeline) and without
                  it (counts, interrupts and spills the reference's).  After
-                 the grid phase, 32-step profiles of (c) (megakernel) and
+                 the grid phase, 16-step profiles of (c) (megakernel) and
                  (d); after the small phase, a small greedy fleet, spill
                  fleet and fleet grid on the card and on the CPU.
   4c. grid   -- the scenario grid of paper Fig 12 at the main phase's
                  configuration: 8 carbon regions x battery capacities, as
                  B = 1, 16 and 64 cells in one step loop, through both
                  executors: wall time, aggregate simulated years a second,
-                 peak memory, a 32-step profile (host ms a step, device
+                 peak memory, a 16-step profile (host ms a step, device
                  idle share), launch counts equal to one run's; cell 0
                  equal to the main run, every cell of an 8 x 2
-                 megakernel grid over the first 180 steps equal to its own
+                 megakernel grid over the first 120 steps equal to its own
                  run, B = 64's repeated
                  cells equal to B = 16's, the backends equal cell by cell;
                  then a small 16-cell grid on the card and on the CPU.
+  4f. mesh   -- a world-of-one NCCL process group (a `file://` store under
+                 results/, no torchrun; NCCL_SOCKET_IFNAME=lo unless set)
+                 and a (1,) and a (1, 1) DeviceMesh; 4c's 8 x 2 grid
+                 (megakernel) through `sweep_grid(mesh=)` and
+                 `executor="shard_map"`: every field bit-equal to 4c's,
+                 one run's launches, the run records' mesh and chunk plan,
+                 wall and peak memory; qwen2-1.5b placed on the (1, 1) mesh
+                 by its partition specs, one 2 x 4096 prefill under
+                 `use_mesh` bit-equal to the unmeshed one with exactly 28
+                 flash launches; the dry run of qwen2-1.5b train_4k on the
+                 single-pod mesh (`python -m repro_torch.launch.dryrun`, the
+                 `fake` backend's 256 ranks, no card) in a process of its
+                 own, its record printed.
   5. small    -- the same configuration at a small scale on the card and on
                  the CPU (the plain versions, which the CPU tests hold to the
                  reference package): counts exact, the rest within 1e-4.
@@ -120,7 +134,7 @@ Phases, each printing one JSON line:
                  its first 13 layers (CONTRACT_LAYERS says why), a
                  warm-up and two timed prefills of 2 x 4096 tokens with
                  exactly 81 SSD and 13 flash launches, a profile of one
-                 prefill, and 32 greedy decode tokens; then mamba2-2.7b's
+                 prefill, and 16 greedy decode tokens; then mamba2-2.7b's
                  prefill of 2 x 4096 tokens with exactly 64 SSD launches
                  and a profile of it.
   7. small models -- reduced zamba2 and mamba2 on the card and on the CPU:
@@ -132,7 +146,7 @@ Phases, each printing one JSON line:
                  why), a warm-up and two timed prefills
                  of 2 x 4096 tokens with exactly 28 flash launches, a
                  profile of one (flash, GEMM and the rest of the busy
-                 time), 32 greedy decode tokens, peak memory; paligemma-3b
+                 time), 16 greedy decode tokens, peak memory; paligemma-3b
                  as configured: prefills of 2 x (256 patch embeddings of
                  1152 + 3840 tokens) with exactly 18 flash launches (D 256,
                  MQA); then qwen2, stablelm, gemma2, gemma3 and paligemma
@@ -186,7 +200,7 @@ Phases, each printing one JSON line:
                  twice through the sort dispatch (bit for bit), a profile
                  of one prefill split into flash / GEMM outside and inside
                  the `moe` range / the `moe` range's other kernels / the
-                 rest, 32 greedy decode tokens, peak memory; then both
+                 rest, 16 greedy decode tokens, peak memory; then both
                  reduced configs on the card and on the CPU (the same
                  weights): logits and 16 decode steps within 1e-4, flash
                  launches 2 and 3, each through both dispatch modes.
@@ -196,7 +210,7 @@ Phases, each printing one JSON line:
                  layers over 448 tokens (WHISPER_CONTRACT_LAYERS says why),
                  the cross-attention cache built from the encoder output;
                  timed prefills with exactly 18 flash
-                 launches (encoder, decoder, cross-attention), 32 greedy
+                 launches (encoder, decoder, cross-attention), 16 greedy
                  tokens; then the reduced config on the card and on the CPU
                  (6 flash launches).  Each part of 7d / 7e prints its wall
                  time and peak memory.
@@ -316,19 +330,25 @@ MAIN_STEPS = 2880            # 30 days at 15 minutes
 # the window of the phases' profiles (the first steps of the full-scale
 # run); the profiler's own host time grows with it, and the smoke runs
 # within its time limit
-PROFILE_STEPS = 32
+PROFILE_STEPS = 16
 # the horizon of the grid phase's check of each cell against its own run
 # (the full-scale workload): sixteen single runs of the whole 2880 steps
 # took two of the smoke's twenty minutes; 720 steps took 28.4 s of a ~970 s
-# smoke on a slow host once phases 7d / 7e joined, so 360 (3.75 days)
-SINGLES_STEPS = 360
+# smoke on a slow host once phases 7d / 7e joined; 360 (3.75 days) until
+# phase 4f joined, now 120 (30 hours)
+SINGLES_STEPS = 120
 MARCONI_ACTIVE = 750         # the published Marconi optimum (of 972 hosts)
 KWH_PER_HOST = 9.0           # Marconi battery sizing (benchmarks/common.py)
 CURVES = ("linear", "sqrt", "square", "cubic")
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started (`t_s`)."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -342,14 +362,14 @@ def check(cond: bool, what: str) -> None:
 
 def time_ms(fn, budget_s: float = 0.5) -> float:
     """Mean ms per call of `fn` over back-to-back calls, CUDA events around
-    the run, after warm-up: what one call costs the caller's stream."""
-    for _ in range(3):
-        fn()
+    the run, after a warm-up call and a probe call: what one call costs
+    the caller's stream (at least 2 calls, about `budget_s` of them)."""
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    reps = int(min(max(budget_s / max(time.perf_counter() - t0, 1e-6), 3),
+    reps = int(min(max(budget_s / max(time.perf_counter() - t0, 1e-6), 2),
                    500))
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -361,7 +381,7 @@ def time_ms(fn, budget_s: float = 0.5) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, kernel_name: str, reps: int = 50):
+def device_ms(fn, kernel_name: str, reps: int = 20):
     """Mean device time per launch of the kernel whose name contains
     `kernel_name`, from the profiler's CUDA activity (no host gaps).  A
     profile that recorded none of its launches (it happens to very short
@@ -624,9 +644,12 @@ def _totals_close(got, want, rtol, atol, what) -> tuple[float, float]:
 
 
 # kernel 3's [4, S] cases: a horizon inside one tile (1, 255), the main
-# path's (2880: three tiles, the last partial) and a year at 15 minutes
-# (35,040: 35 tiles)
-ROW_STEPS = (1, 255, MAIN_STEPS, 35040)
+# path's (2880: three tiles, the last partial) and a quarter of a year at
+# 15 minutes (8760: 9 tiles; a whole year's 35 tiles took the plain chain's
+# eager loop tens of seconds a row)
+ROW_STEPS = (1, 255, MAIN_STEPS, 8760)
+# the facility kernel's combos of techniques x policies: one tile of steps
+COMBO_STEPS = 1024
 # per scenario row: battery capacity (kWh), rate (kW), initial SoC, dispatch
 # lambda (blended policy: 0 is the price policy, 1 the carbon one) and PV
 # capacity (kW).  Row 0's battery fills or empties in one 15-minute step,
@@ -733,8 +756,8 @@ def facility_routes_case(dev, dt: float, errs: list) -> list:
 
 
 def check_facility_kernel(dev, results: dict) -> None:
-    """Kernel 3 at S = 2880: the 2^3 facility combos x {carbon, price,
-    blended} with f32 traces (rtol 1e-4, atol 1e-3); [4, S] rows of
+    """Kernel 3: the 2^3 facility combos x {carbon, price, blended} with
+    f32 traces over COMBO_STEPS (rtol 1e-4, atol 1e-3); [4, S] rows of
     different batteries, lambdas and PV for S in ROW_STEPS
     (`facility_rows_case`); the SoC chain's edge rows at steps of 0.1 and
     2^-21 h (`facility_routes_case`); and the bf16 / int8 stores: tight
@@ -746,11 +769,15 @@ def check_facility_kernel(dev, results: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(3)
     it_kw = 700.0 + 300.0 * torch.rand(s, generator=gen, device=dev)
     errs = []
+    # the 24 combos over one tile of steps (the tiles' seams: the rows
+    # cases); the plain chain takes ~1 s a 2880-step row on the card
+    sc = COMBO_STEPS
+    traces_c = [t[:sc] for t in traces]
     for cool in (False, True):
         for price in (False, True):
             for renew in (False, True):
                 for policy in ("carbon", "price", "blended"):
-                    cfg = main_config(s, C.EmbodiedConfig(), policy=policy,
+                    cfg = main_config(sc, C.EmbodiedConfig(), policy=policy,
                                       dispatch_lambda=0.5).replace(
                         cooling=C.CoolingConfig(enabled=cool,
                                                 heat_reuse_fraction=0.3),
@@ -758,7 +785,7 @@ def check_facility_kernel(dev, results: dict) -> None:
                                                 billing_window_h=24.0),
                         renewables=C.RenewableConfig(enabled=renew,
                                                      pv_capacity_kw=500.0))
-                    args = facility_args(cfg, it_kw, traces)
+                    args = facility_args(cfg, it_kw[:sc], traces_c)
                     got = fs_k.fused_facility_totals(*args, cfg)
                     want = ref.fused_facility_totals(*args, cfg)
                     errs.append(_totals_close(
@@ -1529,7 +1556,7 @@ def telemetry_phase(dev, main: dict, scale: float, n_steps: int,
     wdyn = {k2: (v[:win] if isinstance(v, torch.Tensor) else v)
             for k2, v in dyn.items()}
     # the session's host cost a step: 192-step probed runs with the session
-    # off and on, in turns (off, on, on, off, off, on, on, off)
+    # off and on, in turns (off, on, on, off)
     probed = {}
     for backend in ("stage-pipeline", "megakernel"):
         c = cfg.replace(n_steps=win, backend=backend)
@@ -1537,7 +1564,7 @@ def telemetry_phase(dev, main: dict, scale: float, n_steps: int,
             tasks, hosts, ci[:win], c, dyn=wdyn, device=dev)[0], c)
         run()
         walls = {False: [], True: []}
-        for on in (False, True, True, False) * 2:
+        for on in (False, True, True, False):
             with (telemetry.session(out_dir=TEL_DIR, export=False) if on
                   else contextlib.nullcontext()):
                 res, info = measured(run, dev)
@@ -1706,7 +1733,8 @@ def grid_phase(dev, main: dict, scale: float, n_steps: int, n_active: int,
     profiles: the main phase's single run (`profile_window`) and each grid
     (`grid_profile`), so no timed run follows a profiled one.  Returns
     (info rows, launch counts summed over the timed grid runs, the single
-    run's profile rows, seconds of each part)."""
+    run's profile rows, seconds of each part, the 8 x 2 megakernel grid's
+    fields and chunk count, which phase 4f holds its mesh runs to)."""
     tasks, hosts, _, meta = make_workload("marconi", scale=scale, seed=0,
                                           dt_h=DT_H,
                                           horizon_days=n_steps * DT_H / 24,
@@ -1718,10 +1746,12 @@ def grid_phase(dev, main: dict, scale: float, n_steps: int, n_active: int,
     kwh = cfg.battery.capacity_kwh
     rows, launches, res = [], dict.fromkeys(build.KERNELS, 0), {}
     t0 = time.perf_counter()
+    chunks = {}
     for r, c in GRID_SHAPES:
         axes = grid_axes(r, c, n_steps, kwh)
         grid = ScenarioGrid(axes, base_dyn=dyn)
         n_chunks = -(-r // grid._auto_chunk_size(tasks, hosts, cfg, None))
+        chunks[(r, c)] = n_chunks
         for backend in ("stage-pipeline", "megakernel"):
             out, info = grid_run(tasks, hosts, cfg, dyn, axes, backend, dev)
             info["n_chunks"] = n_chunks
@@ -1784,7 +1814,8 @@ def grid_phase(dev, main: dict, scale: float, n_steps: int, n_active: int,
                                            info["backend"], profile_steps,
                                            dev)
         seconds["profiles"] = time.perf_counter() - t0
-    return rows, launches, profile, seconds
+    return (rows, launches, profile, seconds,
+            (res[(8, 2, "megakernel")], chunks[(8, 2)]))
 
 
 def grid_profile(tasks, hosts, cfg, dyn, r: int, c: int, backend: str,
@@ -1913,6 +1944,169 @@ def time_kernels_at_rows(dev, main_cfg, b: int) -> dict:
         "fused_facility_series": device_ms(
             lambda: fs_k.launch_series(*prepared), "facility_totals_kernel",
             reps=10)}}
+
+
+# --------------------------------------------------------------------------
+# phase 4f: the mesh (process group, DeviceMesh, the grid's mesh executors,
+# a model placed by its specs, the dry run)
+# --------------------------------------------------------------------------
+
+MESH_DIR = os.path.join(ROOT, "results", "mesh_smoke")
+MESH_BATCH = ("pod", "data")
+
+
+def _mesh_record_checks(rec, mesh_names, mesh_shape, chunk: dict,
+                        executor, what: str) -> None:
+    check(rec.mesh == {"axis_names": list(mesh_names),
+                       "shape": list(mesh_shape)},
+          f"{what}: run record mesh {rec.mesh}")
+    check(all(rec.chunk[k] == v for k, v in chunk.items()),
+          f"{what}: chunk plan {rec.chunk} != {chunk}")
+    check(rec.extra.get("executor") == executor,
+          f"{what}: executor {rec.extra.get('executor')}")
+
+
+def mesh_phase(dev, b16: tuple, scale: float, n_steps: int, n_active: int,
+               full: bool) -> list:
+    """Phase 4f.  (a) a world-of-one process group (NCCL on the card,
+    gloo on the CPU) on a `file://` store under results/, no torchrun, and
+    a (1,) ("data",) and a (1, 1) ("data", "model") mesh on it; (b) phase
+    4c's 8 x 2 Fig 12 grid (megakernel) through `sweep_grid(mesh=)` and
+    `executor="shard_map"`: every field bit-equal to 4c's chunked result
+    `b16` (its fields and chunk count), one run's launches, the run
+    records' mesh and chunk plan, wall and peak memory; (c) qwen2-1.5b
+    placed on the (1, 1) mesh by its `param_specs` (on the CPU the reduced
+    config), one 2 x 4096 prefill under `use_mesh`: logits bit-equal to the
+    unmeshed prefill's, 28 flash launches; (d) the dry run of qwen2-1.5b
+    train_4k on the single-pod mesh as a process of its own (the `fake`
+    backend's 256 ranks, no card), started first and read last, rc 0 (on
+    the CPU `--list`).  The process group is destroyed at the end."""
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import place
+    from repro_torch.launch import mesh as M
+    t_phase = time.perf_counter()
+    lines = []
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    argv = (["--arch", "qwen2-1.5b", "--shape", "train_4k", "--mesh",
+             "single", "--out", os.path.join(MESH_DIR, "dryrun"), "--force"]
+            if full else ["--list"])
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            *argv], stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True, env=env,
+                           cwd=ROOT)
+
+    # (a) the process group and the meshes
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        # NCCL's bootstrap on a machine without a network: the loopback
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    rank, world = M.init_distributed(dev.type,
+                                     store_dir=os.path.join(MESH_DIR, "pg"))
+    mesh1 = M.make_mesh((1,), ("data",), device_type=dev.type)
+    mesh2 = M.make_test_mesh(data=1, model=1, device_type=dev.type)
+    check((rank, world) == (0, 1), f"world {world}, rank {rank}")
+    lines.append({"part": "group", "backend": torch.distributed.get_backend(),
+                  "world": world, "meshes": [str(mesh1), str(mesh2)],
+                  "nccl_socket_ifname": os.environ.get("NCCL_SOCKET_IFNAME"),
+                  "wall_s": time.perf_counter() - t0})
+
+    # (b) the Fig 12 grid through the mesh executors
+    want, n_chunks = b16
+    tasks, hosts, _, meta = make_workload("marconi", scale=scale, seed=0,
+                                          dt_h=DT_H,
+                                          horizon_days=n_steps * DT_H / 24,
+                                          device=dev)
+    cfg = main_config(n_steps, meta["embodied"], meta["n_hosts"]).replace(
+        backend="megakernel")
+    _, wb, price, cf = facility_traces(n_steps, dev)
+    dyn = {"n_active_hosts": n_active, "price_trace": price,
+           "wet_bulb_trace": wb, "pv_cf_trace": cf}
+    axes = grid_axes(8, 2, n_steps, cfg.battery.capacity_kwh)
+    for executor, mesh, chunks in (("chunked", mesh2, n_chunks),
+                                   ("shard_map", mesh1, 1)):
+        with telemetry.session(out_dir=os.path.join(MESH_DIR, executor)) \
+                as tel:
+            out, info = measured(lambda: result_to_numpy(sweep_grid(
+                tasks, hosts, cfg, axes, dyn=dyn, mesh=mesh,
+                executor=executor, device=dev)), dev)
+        recs = [r for r in tel.records if r.kind == "grid"]
+        check(len(recs) == 1, f"{executor}: {len(recs)} grid records")
+        _mesh_record_checks(
+            recs[0], mesh.mesh_dim_names, mesh.shape,
+            {"chunk_size": -(-8 // chunks), "n_chunks": chunks},
+            None if executor == "chunked" else "shard_map", executor)
+        check(set(out) == set(want), f"{executor}: fields {sorted(out)}")
+        same = {k: bool(np.array_equal(out[k], want[k])
+                        and out[k].dtype == want[k].dtype) for k in want}
+        check(all(same.values()), f"{executor} grid vs 4c's chunked grid: "
+              f"{[k for k, v in same.items() if not v]} differ")
+        if dev.type == "cuda":
+            check_grid_launches({"backend": "megakernel", "shape": [8, 2],
+                                 "launches": info["launches"]}, n_steps,
+                                chunks)
+        lines.append({"part": "grid", "executor": executor,
+                      "mesh": recs[0].mesh, "chunk": recs[0].chunk,
+                      "shape": [8, 2], "bit_equal_to_4c": True,
+                      "launches": {k: v for k, v in info["launches"].items()
+                                   if v},
+                      "wall_s": info["wall_s"],
+                      "max_memory_allocated": info["max_memory_allocated"]})
+    del tasks, hosts, want
+
+    # (c) a model placed on the mesh by its partition specs
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-1.5b") if full else reduced("qwen2-1.5b")
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.compute_params(model.init(gen, device=dev))
+    seq = PREFILL_LEN if full else 64
+    batch = _batch(gen, cfg, SERVE_BATCH, seq, dev)
+    timed_prefill(model, params, batch, dev)               # warm-up
+    plain, plain_s, _ = timed_prefill(model, params, batch, dev)
+    placed = place(mesh2, params, model.param_specs())
+    with ctx.use_mesh(mesh2):
+        pbatch = place(mesh2, batch, {"tokens": ctx.P(MESH_BATCH, None)})
+        got, wall, counts = timed_prefill(model, placed, pbatch, dev)
+    got = got.full_tensor()
+    check(torch.equal(got, plain),
+          f"meshed prefill vs unmeshed: max abs diff "
+          f"{(got.float() - plain.float()).abs().max().item()}")
+    if dev.type == "cuda":
+        check(counts == {"flash_attention": cfg.n_layers},
+              f"meshed prefill launches {counts}")
+    lines.append({"part": "prefill", "model": cfg.name,
+                  "n_layers": cfg.n_layers, "batch": SERVE_BATCH,
+                  "seq": seq, "bit_equal": True, "launches": counts,
+                  "prefill_s": wall, "unmeshed_prefill_s": plain_s,
+                  "placed_param_type": type(
+                      placed["embed"]["tok"]).__name__,
+                  "wall_s": time.perf_counter() - t0,
+                  "max_memory_allocated": _peak(dev)})
+    del params, placed, plain, got
+    M.shutdown()
+
+    # (d) the dry run's process
+    out, err = dry.communicate(timeout=900)
+    check(dry.returncode == 0, f"dry run rc {dry.returncode}: "
+          f"{out[-3000:]} {err[-2000:]}")
+    line = {"part": "dryrun", "argv": argv, "rc": dry.returncode}
+    if full:
+        with open(os.path.join(MESH_DIR, "dryrun",
+                               "qwen2-1.5b__train_4k__single.json")) as f:
+            rec = json.load(f)
+        check(rec["status"] == "ok" and rec["chips"] == 256
+              and rec["use_kernels"] is False, f"dry run record {rec}")
+        line["record"] = {k: rec[k] for k in ("chips", "trace_s", "note",
+                                              "per_device", "collectives",
+                                              "roofline")}
+    else:
+        line["lines"] = len(out.splitlines())
+    lines.append(line)
+    lines.append({"part": "summary", "seconds": time.perf_counter() - t_phase})
+    return [{"phase": "mesh", **x} for x in lines]
 
 
 # --------------------------------------------------------------------------
@@ -2310,19 +2504,23 @@ def small_resilience_card_vs_cpu(dev, small: dict) -> dict:
 AGG_COUNTS = {"n_done": 143947.0, "n_started": 145227.0,
               "n_decided": 185230.0, "n_tasks": 192817.0}
 # `find_min_scale` over the default configuration (no techniques, carbon
-# region 0, megakernel), lo 1, hi 972: at the paper's 1 % target no scale
-# is enough (972 hosts violate 66.6 %); at 80 % the search bisects
+# region 0, megakernel) over its first SCALING_STEPS steps (7 days; a
+# search is a dozen serial full-scale runs), lo 1, hi 972
+SCALING_STEPS = 672
 SCALING_LO, SCALING_TARGETS = 1, (0.01, 0.80)
 SCALING_KAT = {
-    0.01: (973, {972: 0.6662365794181824}),
-    0.80: (943, {486: 0.9558602571487427, 729: 0.9061059355735779,
-                 851: 0.8608055114746094, 912: 0.832721471786499,
-                 942: 0.8014576435089111, 957: 0.7222102284431458,
-                 950: 0.755336582660675, 946: 0.7879339456558228,
-                 944: 0.7944339513778687, 943: 0.7992441654205322})}
+    0.01: (960, {486: 0.7842743992805481, 729: 0.541262149810791,
+                851: 0.3208492696285248, 912: 0.1854800432920456,
+                942: 0.04282553866505623, 957: 0.015440365299582481,
+                965: 0.0, 961: 0.007737705018371344, 959: 0.010709504596889019,
+                960: 0.006897456012666225}),
+    0.80: (466, {486: 0.7842743992805481, 243: 0.9262005090713501,
+                365: 0.8766490817070007, 426: 0.8357519507408142,
+                456: 0.8104749321937561, 471: 0.7954617142677307,
+                464: 0.8016095161437988, 468: 0.7992876172065735,
+                466: 0.7988918423652649, 465: 0.8026912808418274})}
 # the SLA-violation fraction of that configuration at three scales
-SLA_CURVE_KAT = {972: 0.6662365794181824, 750: 0.9007720351219177,
-                 600: 0.9365869164466858}
+SLA_CURVE_KAT = {972: 0.0, 750: 0.5152354836463928, 600: 0.6900791525840759}
 TASKTRACE_SETS = 8
 ANALYTICAL_RTOL, ANALYTICAL_ATOL = 1e-5, 1e-4
 
@@ -2405,6 +2603,7 @@ def experiments_phase(dev, main: dict, scale: float, n_steps: int,
            ANALYTICAL_ATOL, "analytical mean savings, card vs cpu")
     plain = C.SimConfig(dt_h=DT_H, n_steps=n_steps, embodied=meta["embodied"],
                         backend="megakernel")
+    scaling = plain.replace(n_steps=min(n_steps, SCALING_STEPS))
     op = {}
     for shift in (False, True):
         c = plain.replace(shifting=C.ShiftingConfig(enabled=shift))
@@ -2469,9 +2668,9 @@ def experiments_phase(dev, main: dict, scale: float, n_steps: int,
 
     def sla(n: int) -> float:
         evals.append(n)
-        final, _ = simulate(tasks, with_scale(hosts, n), ci, plain,
-                            device=dev)
-        return float(summarize(final, plain).sla_violation_frac)
+        final, _ = simulate(tasks, with_scale(hosts, n),
+                            ci[:scaling.n_steps], scaling, device=dev)
+        return float(summarize(final, scaling).sla_violation_frac)
 
     for target in SCALING_TARGETS:
         evals.clear()
@@ -2479,7 +2678,8 @@ def experiments_phase(dev, main: dict, scale: float, n_steps: int,
         (best, evaluated), info = measured(
             lambda: find_min_scale(sla, SCALING_LO, n_hosts, target), dev)
         if on:
-            expect_launches(info, run_launches("megakernel", n_steps,
+            expect_launches(info, run_launches("megakernel",
+                                               scaling.n_steps,
                                                runs=len(evals)),
                             f"scaling search at {target}")
         if full:
@@ -2489,13 +2689,13 @@ def experiments_phase(dev, main: dict, scale: float, n_steps: int,
         check(best == n_hosts + 1 or evaluated[best] <= target,
               f"scaling search at {target}: best {best}")
         add("scaling", info, target=target, lo=SCALING_LO, hi=n_hosts,
-            best=best, runs=len(evals),
+            n_steps=scaling.n_steps, best=best, runs=len(evals),
             evaluated={str(k): v for k, v in evaluated.items()})
     scales = [round(n_hosts * f) for f in (1.0, 750 / 972, 600 / 972)]
     evals.clear()
     curve, info = measured(lambda: {n: sla(n) for n in scales}, dev)
     if on:
-        expect_launches(info, run_launches("megakernel", n_steps,
+        expect_launches(info, run_launches("megakernel", scaling.n_steps,
                                            runs=len(scales)), "SLA curve")
     if full:
         check(curve == SLA_CURVE_KAT, f"SLA curve {curve} != the "
@@ -2503,8 +2703,8 @@ def experiments_phase(dev, main: dict, scale: float, n_steps: int,
     add("sla_curve", info, sla={str(k): v for k, v in curve.items()})
 
     # (e) the CLI: 8 carbon regions with and without battery and shifting,
-    # 750 active hosts, the whole Marconi workload
-    days = n_steps * DT_H / 24
+    # 750 active hosts, the whole Marconi workload, over its first 7 days
+    days = min(n_steps, SCALING_STEPS) * DT_H / 24
     argv = ["--workload", "marconi", "--scale", str(scale), "--days",
             str(days), "--regions", "8", "--techniques", "B,TS",
             "--active-hosts", str(n_active), "--tasks-cap", "200000",
@@ -2513,8 +2713,12 @@ def experiments_phase(dev, main: dict, scale: float, n_steps: int,
     with contextlib.redirect_stdout(buf):
         out, info = measured(lambda: cli.main(argv), dev)
     check(json.loads(buf.getvalue()) == out, "the CLI printed another JSON")
-    check(out["n_tasks"] == meta["n_tasks"] and out["n_hosts"] == n_hosts,
-          f"the CLI ran {out['n_tasks']} tasks on {out['n_hosts']} hosts")
+    # the workload of the CLI's horizon: the tasks arriving in its days
+    cli_tasks = make_workload("marconi", scale=scale, seed=0, dt_h=DT_H,
+                              horizon_days=days, device="cpu")[3]["n_tasks"]
+    check(out["n_tasks"] == cli_tasks and out["n_hosts"] == n_hosts,
+          f"the CLI ran {out['n_tasks']} tasks on {out['n_hosts']} hosts, "
+          f"not {cli_tasks} on {n_hosts}")
     if on:
         expect_launches(info, run_launches("stage-pipeline",
                                            int(days * 24 / DT_H), runs=2),
@@ -2957,7 +3161,7 @@ SERVE_BATCH = 2
 SERVE_DIR = os.path.join(ROOT, "results", "serve_smoke")
 PREFILL_LEN = 4096           # the train_4k length
 CONTRACT_LEN = 512           # two SSD chunks
-GREEDY_TOKENS = 32
+GREEDY_TOKENS = 16
 # The decode-vs-prefill contract runs at full width in f32 with the depth
 # cut to 13 layers (two groups of six mamba layers, two shared-attention
 # sites, one trailing layer: every module and both KV caches' reuse of the
@@ -4161,10 +4365,13 @@ def main() -> int:
         emit({"phase": "small_fleet_card_vs_cpu", "rehearsal": True,
               **small_fleet_card_vs_cpu(cpu)})
         emit({"rehearsal": True, **telemetry_profile(tel_ctx, 48)})
-        for row in grid_phase(cpu, results, 0.02, 192, 15, False)[0]:
+        grid = grid_phase(cpu, results, 0.02, 192, 15, False)
+        for row in grid[0]:
             emit({"phase": "grid", "rehearsal": True, **row})
         emit({"phase": "small_grid_card_vs_cpu", "rehearsal": True,
               **small_grid_card_vs_cpu(cpu)})
+        for line in mesh_phase(cpu, grid[4], 0.02, 192, 15, False):
+            emit({"rehearsal": True, **line})
         for arch, contract in (("zamba2-7b", 64), ("mamba2-2.7b", 0),
                                ("qwen2-1.5b", 64), ("paligemma-3b", 0)):
             cfg = reduced(arch)
@@ -4235,16 +4442,16 @@ def main() -> int:
     kres = {name: {} for name in (*build.KERNELS,
                                   "fused_facility_totals_derate")}
     t0 = time.perf_counter()
-    check_power_kernels(dev, kres)
-    check_first_fit(dev, kres)
-    check_facility_kernel(dev, kres)
-    check_facility_derate(dev, kres)
-    check_facility_series(dev, kres)
-    check_ssd_kernel(dev, kres)
-    check_flash_kernel(dev, kres)
-    check_host_sum(dev, kres)
+    parts = {}
+    for fn in (check_power_kernels, check_first_fit, check_facility_kernel,
+               check_facility_derate, check_facility_series,
+               check_ssd_kernel, check_flash_kernel, check_host_sum):
+        t1 = time.perf_counter()
+        fn(dev, kres)
+        parts[fn.__name__] = time.perf_counter() - t1
     emit({"phase": "kernels_vs_plain", "seconds": time.perf_counter() - t0,
-          "results": kres, "threefry": check_threefry(dev)})
+          "seconds_by_check": parts, "results": kres,
+          "threefry": check_threefry(dev)})
 
     meta, results, infos = main_path(dev, 1.0, MAIN_STEPS, MARCONI_ACTIVE,
                                      True)
@@ -4313,7 +4520,7 @@ def main() -> int:
     # one step loop each, on both backends; then the profiles of the main
     # run and of each grid
     t0 = time.perf_counter()
-    grid_rows, grid_launches, profile, seconds = grid_phase(
+    grid_rows, grid_launches, profile, seconds, b16 = grid_phase(
         dev, results, 1.0, MAIN_STEPS, MARCONI_ACTIVE, True,
         profile_steps=PROFILE_STEPS)
     for row in profile:
@@ -4326,6 +4533,13 @@ def main() -> int:
           "grid_phase_s": time.perf_counter() - t0})
     emit({"phase": "small_tasktrace_card_vs_cpu", "ok": True,
           **small_tasktrace_card_vs_cpu(dev)})
+    # the mesh: a world-of-one NCCL group, the grid's mesh executors
+    # against 4c's B = 16 grid, qwen2-1.5b placed by its specs, the dry run
+    # (its launches are the 4c grid's again and qwen2's flash: not added to
+    # the main path's counts)
+    for line in mesh_phase(dev, b16, 1.0, MAIN_STEPS, MARCONI_ACTIVE, True):
+        emit({"nvidia_smi": smi, **line})
+    del b16
     # telemetry.profile of 192 probed megakernel steps
     t0 = time.perf_counter()
     emit({"workload": "marconi", **telemetry_profile(tel_ctx, 192)})
@@ -4453,14 +4667,18 @@ def main() -> int:
     emit({"phase": "train_summary", "seconds": time.perf_counter() - t0})
 
     main_cfg = main_config(MAIN_STEPS, meta["embodied"])
+    t0 = time.perf_counter()
     time_kernels(dev, kres, main_cfg)
+    parts = {"time_kernels": time.perf_counter() - t0}
     rows64 = time_kernels_at_rows(dev, main_cfg, 64)
     for name, ms in rows64["device_ms"].items():
         kres[name]["device_ms_b64"] = ms
-    time_model_kernels(dev, kres)
-    time_new_flash_shapes(dev, kres)
-    time_host_sum(dev, kres)
-    emit({"phase": "timing", "results": kres})
+    parts["rows64"] = time.perf_counter() - t0 - sum(parts.values())
+    for fn in (time_model_kernels, time_new_flash_shapes, time_host_sum):
+        t1 = time.perf_counter()
+        fn(dev, kres)
+        parts[fn.__name__] = time.perf_counter() - t1
+    emit({"phase": "timing", "seconds_by_part": parts, "results": kres})
     sources = {"fused_power_carbon": ("power_carbon.cu",
                                       "src/repro/kernels/power_carbon.py:198"),
                "fused_facility_power": ("power_carbon.cu",

@@ -12,8 +12,8 @@ Runs the JAX reference (`src/repro/`) on the CPU at full-scale Marconi
     `scheduler.mode="aggregate"`, through both step executors: the outcome
     counts the smoke test holds the port's aggregate runs to exactly;
   * `sla_curve`: the SLA-violation fraction of the default configuration
-    (no techniques, carbon region 0, megakernel) at 972, 750 and 600
-    active hosts;
+    (no techniques, carbon region 0, megakernel) over its first
+    SCALING_STEPS steps (7 days) at 972, 750 and 600 active hosts;
   * `scaling`: `find_min_scale` over that configuration (lo 1, hi 972) at
     the targets 0.01 and 0.80, with every scale it evaluated;
   * `fleet_greedy`: the smoke test's fleet (`chip_smoke.py` phase 4d): the
@@ -33,6 +33,12 @@ Runs the JAX reference (`src/repro/`) on the CPU at full-scale Marconi
 Each full-scale run takes 15-30 s on a few CPU cores (a full-width fleet a
 few minutes); the whole script about half an hour.  The port's phases 4b
 ("experiments") and 4d ("fleet") must reproduce these numbers on the card.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python3 scripts/reference_experiments.py --train
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python3 scripts/reference_experiments.py --scaling
+
+prints only the `sla_curve` and `scaling` lines (a few minutes).
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python3 scripts/reference_experiments.py --train
 
@@ -69,6 +75,9 @@ from repro.workloads.synthetic import make_workload
 
 DT_H = 0.25
 STEPS = 2880
+# the scaling search's and SLA curve's horizon: 7 days (chip_smoke.py's
+# SCALING_STEPS; a search is a dozen serial full-scale runs)
+SCALING_STEPS = 672
 ACTIVE = 750
 COUNTS = ("n_done", "n_started", "n_decided", "n_tasks")
 REGIONS = 8
@@ -281,7 +290,8 @@ def main() -> None:
         scheduler=C.SchedulerConfig(mode="aggregate"))
     dyn = {"n_active_hosts": ACTIVE, "price_trace": price,
            "wet_bulb_trace": wb, "pv_cf_trace": cf}
-    for backend in ("stage-pipeline", "megakernel"):
+    scaling_only = "--scaling" in sys.argv[1:]
+    for backend in () if scaling_only else ("stage-pipeline", "megakernel"):
         c = cfg.replace(backend=backend)
         t0 = time.perf_counter()
         res = summarize(simulate(tasks, hosts, ci, c, dyn=dyn)[0], c)
@@ -290,11 +300,12 @@ def main() -> None:
               "sla_violation_frac": float(res.sla_violation_frac),
               "total_carbon_kg": float(res.total_carbon_kg)})
 
-    plain = SimConfig(dt_h=DT_H, n_steps=STEPS, embodied=meta["embodied"],
-                      backend="megakernel")
+    plain = SimConfig(dt_h=DT_H, n_steps=SCALING_STEPS,
+                      embodied=meta["embodied"], backend="megakernel")
 
     def sla(n: int) -> float:
-        final, _ = simulate(tasks, with_scale(hosts, n), ci, plain)
+        final, _ = simulate(tasks, with_scale(hosts, n), ci[:SCALING_STEPS],
+                            plain)
         return float(summarize(final, plain).sla_violation_frac)
 
     emit({"sla_curve": {n: sla(n) for n in (972, 750, 600)}})
@@ -304,7 +315,8 @@ def main() -> None:
         emit({"scaling": target, "best": best,
               "evaluated": {str(k): v for k, v in evaluated.items()},
               "seconds": time.perf_counter() - t0})
-    fleet_main(tasks, hosts, meta)
+    if not scaling_only:
+        fleet_main(tasks, hosts, meta)
 
 
 if __name__ == "__main__":

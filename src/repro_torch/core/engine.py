@@ -898,8 +898,13 @@ def facility_totals_from_flows(flows: dict, ci, price,
     """Reduce the [..., S] flow series of `ref.fused_facility_chain` to the
     run totals the metrics need, one per row ([S] series give 0-d totals,
     [B, S] give [B]); the fused facility kernel produces this same dict
-    from its accumulator rows."""
+    from its accumulator rows.  Each series is made contiguous along its
+    steps first: a sum along a strided dimension takes another order for
+    some row counts on the CPU, and a row's totals must not depend on how
+    many rows run beside it (a grid's chunks and blocks, as the
+    reference pins its chunked grid to the unchunked one bit for bit)."""
     dt = np.float32(cfg.dt_h)
+    flows = {k: v.contiguous() for k, v in flows.items()}
     grid = flows["grid_import_kw"]
     load = flows["it_kw"] + flows["cooling_kw"]
 

@@ -52,10 +52,20 @@ Axis kinds:
 Refused with the reference's ValueError: more than one `region_axis`, a
 `region_axis` leading other axes, a trace, weather, price, renewable or
 task-trace axis beside it, a `fleet_axis` without it or of another R.
-Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: the mesh-sharded and shard_map executors and lowering (`mesh=`,
-`executor="shard_map"`, `run_shard_map`, `shard_map_callable`, `lower`;
-item 6f).
+
+Multi-GPU executors (the reference's NamedSharding and `shard_map` ones).
+`run(..., mesh=)` splits the leading axis over the mesh's `pod` x `data`
+devices (launch/mesh.py; one process a card, `torchrun`): each rank runs
+its block of every chunk (chunks rounded to a multiple of those devices)
+through the chunk loop on its own card, then every result field is
+gathered (`all_gather_into_tensor`) so that every rank returns the whole
+grid in the reference's cell order.  Ranks along `model` compute the same
+block, as GSPMD replicates it.  The cells are independent: there is no
+collective inside the step loop, and a world of one is the chunked path
+bit for bit.  `run_shard_map` / `shard_map_callable` give each lead
+device one block of the whole leading axis (`lead % devices == 0`).
+`lower` traces the grid's program on fake tensors and returns its
+per-device operation counts (launch/op_analysis.py).
 
 Every trace axis takes `store='bf16'|'int8'` (core/quant.py): the series are
 held quantized and dequantized when a chunk's rows are gathered.
@@ -113,15 +123,6 @@ _REDUCERS = {"min": torch.amin, "max": torch.amax,
 _TRACE_KINDS = ("trace", "weather", "price", "renewable", "tasktrace")
 _VALUE_KINDS = ("dyn", "seed")
 _FLEET_KINDS = ("region", "fleet")
-
-# what the port refuses, and the ROADMAP item that brings it
-_ITEM_6F = ("ROADMAP Queue 1 item 6f, launch/ and distributed/: a multi-GPU "
-            "executor for the grid")
-
-
-def _refuse(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
-
 
 class Axis(NamedTuple):
     """One grid dimension: `names[j]` is swept with `values[j]` (zipped).
@@ -499,13 +500,14 @@ class ScenarioGrid:
           folds every field over that grid axis; it must not be the leading
           axis of a chunked run.
         jit: accepted for the reference's signature; no effect.
-        mesh: refused (ROADMAP Queue 1 item 6f).
+        mesh: a DeviceMesh (launch/mesh.py) over the default process group;
+          the leading axis is split over its `pod` x `data` devices, chunks
+          rounded up to a multiple of them, and every rank returns the
+          whole grid.
         """
-        if mesh is not None:
-            if self.axes[0].kind == "region":
-                raise ValueError("cannot shard a grid whose only axis is the "
-                                 "region_axis: add a swept leading axis")
-            _refuse("a mesh-sharded grid (mesh=)", _ITEM_6F)
+        if mesh is not None and self.axes[0].kind == "region":
+            raise ValueError("cannot shard a grid whose only axis is the "
+                             "region_axis: add a swept leading axis")
         if chunk_size is not None and chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self._check_cfg(cfg)
@@ -524,8 +526,10 @@ class ScenarioGrid:
         with telemetry.run_recorder("grid", cfg, device=device) as rec:
             if telemetry.enabled():
                 self._describe(rec)
+                if mesh is not None:
+                    rec.mesh = _mesh_record(mesh)
             return self._run(tasks, hosts, cfg, ci_trace, chunk_size, red,
-                             memory_budget_bytes, device, rec)
+                             memory_budget_bytes, device, rec, mesh)
 
     def _describe(self, rec) -> None:
         """The grid's shape, axes and trace dtypes in its run record."""
@@ -548,9 +552,11 @@ class ScenarioGrid:
         return sum(nbytes(v) for ax in self.axes for v in ax.values)
 
     def _run(self, tasks, hosts, cfg, ci_trace, chunk_size, red,
-             memory_budget_bytes, device, rec):
+             memory_budget_bytes, device, rec, mesh=None):
         """`run`'s execution body: the chunk loop (`rec` is the draft of
-        the run record, filled in while a session is active)."""
+        the run record, filled in while a session is active).  On a mesh
+        each rank runs its block of every chunk and the blocks are
+        gathered."""
         lead = self._lead
         auto_chunked = chunk_size is None
         if not self.shape:
@@ -558,6 +564,15 @@ class ScenarioGrid:
         elif auto_chunked:
             chunk_size = self._auto_chunk_size(tasks, hosts, cfg,
                                                memory_budget_bytes)
+        ndev, me = 1, 0
+        if mesh is not None:
+            chunk_size = _round_chunk_to_mesh(mesh, chunk_size)
+            ndev, me = _lead_devices(mesh), _lead_index(mesh)
+            if lead % ndev:
+                raise ValueError(
+                    f"a sharded grid splits its leading axis ({lead} cells) "
+                    f"over the mesh's {ndev} pod x data devices: size it as "
+                    "cells = k * devices")
         if red is not None and red[1] == 0 and lead > chunk_size:
             cause = ("chunk size auto-derived from the memory budget"
                      if auto_chunked else "explicit chunk_size")
@@ -583,12 +598,22 @@ class ScenarioGrid:
                 guard:
             for i, start in enumerate(range(0, lead, chunk_size)):
                 stop = min(lead, start + chunk_size)
-                with telemetry.span("grid.chunk", index=i, start=start):
+                blk = (stop - start) // ndev
+                lo = start + me * blk
+                with telemetry.span("grid.chunk", index=i, start=lo):
                     guard.mark()
-                    parts.append(self._chunk(tasks, hosts, cfg, ci_trace,
-                                             start, stop, device))
+                    part = self._chunk(tasks, hosts, cfg, ci_trace, lo,
+                                       lo + blk, device)
+                    parts.append(part if mesh is None
+                                 else _gather_lead(part, mesh))
                 guard.tick()
 
+        return self._finish(parts, red)
+
+    def _finish(self, parts: list, red=None):
+        """The chunks' results joined along the leading axis, reshaped to
+        the grid and reduced (a fleet grid's total and per-region parts
+        alike)."""
         def finish(results: list[SimResult]) -> SimResult:
             res = _result_map(lambda *xs: torch.cat(xs, 0).reshape(
                 (*self.shape, *xs[0].shape[1:])), *results)
@@ -667,18 +692,207 @@ class ScenarioGrid:
         per_lead = self._per_lead_bytes(tasks, hosts, cfg)
         return max(1, min(lead, int(budget_bytes // max(per_lead, 1.0))))
 
-    def run_shard_map(self, *args, **kwargs):
-        """The reference's weak-scaling executor: refused."""
-        _refuse("ScenarioGrid.run_shard_map", _ITEM_6F)
+    def payloads(self) -> tuple:
+        """The axes' values, one tuple an axis (what `shard_map_callable`'s
+        callable takes)."""
+        return tuple(ax.values for ax in self.axes)
 
-    def shard_map_callable(self, *args, **kwargs):
-        """The reference's weak-scaling executor: refused."""
-        _refuse("ScenarioGrid.shard_map_callable", _ITEM_6F)
+    def _with_lead(self, values: tuple, start: int, stop: int,
+                   device) -> "ScenarioGrid":
+        """This grid with the leading axis' values `values` cut to points
+        [start, stop) and held on `device`."""
+        def cut(v):
+            if isinstance(v, QuantizedTrace):
+                return type(v)(*(cut(x) for x in v))
+            if isinstance(v, torch.Tensor):
+                return v[start:stop].to(device)
+            return v[start:stop]
+        first = self.axes[0]._replace(values=tuple(cut(v) for v in values))
+        return ScenarioGrid([first, *self.axes[1:]], base_dyn=self.base_dyn)
 
-    def lower(self, *args, **kwargs):
-        """The reference's whole-grid lowering: refused (nothing here is
-        compiled as one program)."""
-        _refuse("ScenarioGrid.lower", _ITEM_6F)
+    def shard_map_callable(self, tasks: TaskTable, hosts: HostTable,
+                           cfg: SimConfig, ci_trace=None, *, mesh=None,
+                           donate: bool = True, device="cuda"):
+        """The weak-scaling executor: `f(*payloads) -> SimResult`.
+
+        Each device along the mesh's `pod` x `data` axes runs one block of
+        `lead / devices` points of the leading axis as one step loop on its
+        own card, with no collective inside the loop; the blocks are then
+        gathered, so every rank returns the whole grid.  The leading axis
+        must divide evenly.  The rank's block is copied to its card once a
+        call; `donate=True` releases that copy after the block's run,
+        `donate=False` keeps it for the next call with the same payload
+        (repeated timing calls).  `mesh=None` is a one-dimensional `data`
+        mesh over the default process group, or one device without one."""
+        if self.axes[0].kind == "region":
+            raise ValueError("cannot shard a grid whose leading axis is the "
+                             "region_axis: add a swept leading axis")
+        mesh = _default_mesh(mesh, device)
+        ndev = 1 if mesh is None else _lead_devices(mesh)
+        me = 0 if mesh is None else _lead_index(mesh)
+        lead = self._lead
+        if lead % ndev:
+            raise ValueError(
+                f"shard_map executor: leading axis ({lead} cells) must "
+                f"divide evenly over the mesh's {ndev} devices — pad the "
+                f"axis or size the grid as cells = k * device_count")
+        blk = lead // ndev
+        if self.fleet is not None:
+            region = fleet_place(tasks, hosts, self.fleet, cfg.dt_h,
+                                 n_steps=cfg.n_steps)
+            tasks = split_by_region(tasks, region, self.fleet.n_regions,
+                                    device=device)
+        kept: list = []
+
+        def call(*payloads):
+            if kept and kept[0] is payloads[0]:
+                block = kept[1]
+            else:
+                block = self._with_lead(payloads[0], me * blk,
+                                        (me + 1) * blk, device)
+                kept[:] = [] if donate else [payloads[0], block]
+            part = block._chunk(tasks, hosts, cfg, ci_trace, 0, blk, device)
+            del block
+            return self._finish([part if mesh is None
+                                 else _gather_lead(part, mesh)])
+        return call
+
+    def run_shard_map(self, tasks: TaskTable, hosts: HostTable,
+                      cfg: SimConfig, ci_trace=None, *, mesh=None,
+                      donate: bool = True, device="cuda"):
+        """Evaluate the grid with the weak-scaling executor
+        (`shard_map_callable`): the same result as `run`, the leading axis
+        split one block a device instead of looped; at one device it is
+        the unchunked run bit for bit."""
+        self._check_cfg(cfg)
+        self._check_tasks(tasks)
+        self._check_trace(ci_trace)
+        mesh = _default_mesh(mesh, device)
+        with telemetry.span("grid.build", shape=str(self.shape),
+                            executor="shard_map"):
+            call = self.shard_map_callable(tasks, hosts, cfg, ci_trace,
+                                           mesh=mesh, donate=donate,
+                                           device=device)
+        with telemetry.run_recorder("grid", cfg, device=device) as rec:
+            if telemetry.enabled():
+                self._describe(rec)
+                rec.extra["executor"] = "shard_map"
+                ndev = 1 if mesh is None else _lead_devices(mesh)
+                if mesh is not None:
+                    rec.mesh = _mesh_record(mesh)
+                rec.chunk = {
+                    "chunk_size": int(self._lead // ndev),
+                    "n_chunks": int(ndev),
+                    "auto": False,
+                    "predicted_bytes_per_lead": float(
+                        self._per_lead_bytes(tasks, hosts, cfg)),
+                    "actual_payload_bytes": self._payload_bytes()}
+            with telemetry.span("grid.execute", executor="shard_map"):
+                return call(*self.payloads())
+
+    def lower(self, tasks: TaskTable, hosts: HostTable, cfg: SimConfig,
+              ci_trace=None, *, mesh=None,
+              reduce: tuple[str, int] | None = None):
+        """Trace (without running) the whole-grid program and return its
+        per-device counts (`launch.op_analysis.Lowered`: `analyze()` gives
+        matmul FLOPs, op-boundary bytes and collective bytes).  The grid
+        runs on fake tensors at the payloads' shapes, with nothing
+        allocated; on a mesh a device runs `lead / devices` points and
+        gathers the rest."""
+        from ..launch import op_analysis
+        self._check_cfg(cfg)
+        self._check_tasks(tasks)
+        red = _normalize_reduce(reduce, len(self.shape))
+        self._check_trace(ci_trace)
+        return op_analysis.lower_grid(self, tasks, hosts, cfg, ci_trace,
+                                      mesh=mesh, reduce=red)
+
+
+def _mesh_record(mesh) -> dict:
+    return {"axis_names": [str(a) for a in mesh.mesh_dim_names],
+            "shape": [int(s) for s in mesh.shape]}
+
+
+def _default_mesh(mesh, device):
+    """`mesh`, or a one-dimensional `data` mesh over the default process
+    group when there is one (None without)."""
+    import torch.distributed as dist
+    if mesh is not None or not dist.is_initialized():
+        return mesh
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(torch.device(device).type,
+                            (dist.get_world_size(),),
+                            mesh_dim_names=("data",))
+
+
+def _mesh_spec(mesh) -> tuple:
+    """The leading axis' spec entry: the mesh's `pod` and `data` axes (a
+    group of names, kept a tuple even with one name)."""
+    return (tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names),)
+
+
+def _lead_devices(mesh) -> int:
+    """Device count along the mesh axes the leading axis splits over."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    ndev = 1
+    for a in _mesh_spec(mesh)[0]:
+        ndev *= sizes[a]
+    return ndev
+
+
+def _round_chunk_to_mesh(mesh, chunk_size: int) -> int:
+    """Round a chunk up to a multiple of the lead devices: each device runs
+    an equal block of every chunk (the leading length must divide too)."""
+    ndev = _lead_devices(mesh)
+    return max(ndev, -(-chunk_size // ndev) * ndev)
+
+
+def _lead_ranks(mesh) -> list[int]:
+    """The global ranks that hold the leading axis' blocks, in block order:
+    the `pod` x `data` coordinates (pod major) at every other axis' 0."""
+    names = list(mesh.mesh_dim_names)
+    ranks = mesh.mesh
+    for i in reversed(range(len(names))):
+        if names[i] not in ("pod", "data"):
+            ranks = ranks.select(i, 0)
+    return [int(r) for r in ranks.reshape(-1)]
+
+
+def _lead_index(mesh) -> int:
+    """This rank's block of the leading axis."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    sizes = dict(zip(names, mesh.shape))
+    idx = 0
+    for a in _mesh_spec(mesh)[0]:
+        idx = idx * sizes[a] + coord[names.index(a)]
+    return idx
+
+
+def _gather_lead(part, mesh):
+    """Every field of a block's result gathered over the mesh's ranks and
+    laid out in the lead devices' block order (the reference's cell
+    order): every rank returns the whole result."""
+    import torch.distributed as dist
+    if dist.get_world_size() != mesh.size():
+        raise ValueError("a sharded grid's mesh must span the default "
+                         "process group")
+    order = _lead_ranks(mesh)
+    world = mesh.size()
+
+    def gather(x):
+        src = x.contiguous()
+        if src.dtype == torch.bool:
+            src = src.view(torch.uint8)
+        out = src.new_empty((world * src.shape[0], *src.shape[1:]))
+        dist.all_gather_into_tensor(out, src)
+        out = out.reshape(world, *src.shape)[order]
+        out = out.reshape(len(order) * src.shape[0], *src.shape[1:])
+        return out.view(torch.bool) if x.dtype == torch.bool else out
+    if isinstance(part, FleetResult):
+        return FleetResult(total=_result_map(gather, part.total),
+                           per_region=_result_map(gather, part.per_region))
+    return _result_map(gather, part)
 
 
 def _dtype_name(v) -> str:
@@ -711,11 +925,19 @@ def sweep_grid(tasks: TaskTable, hosts: HostTable, cfg: SimConfig,
     `dyn` holds fixed (non-swept) scenario values applied to every grid
     point, e.g. `dyn={"n_active_hosts": 12}`.  `reduce=(op, axis)` folds an
     axis.  A grid with a `region_axis` returns a FleetResult.
-    `executor="shard_map"` (the reference's weak-scaling executor) is
-    refused.  See the module docstring for the axis kinds."""
+    `mesh=` splits the leading axis over the mesh's `pod` x `data` devices
+    (`ScenarioGrid.run`).  `executor="shard_map"` routes through the
+    weak-scaling executor (`ScenarioGrid.run_shard_map`): one leading-axis
+    block a device, `lead % devices == 0` required; `chunk_size`, `reduce`
+    and `memory_budget_bytes` do not apply there.  See the module docstring
+    for the axis kinds."""
     grid = ScenarioGrid(axes, base_dyn=dyn)
     if executor == "shard_map":
-        _refuse("executor='shard_map'", _ITEM_6F)
+        if chunk_size is not None or reduce is not None:
+            raise ValueError("executor='shard_map' places one chunk per "
+                             "device: chunk_size/reduce do not apply")
+        return grid.run_shard_map(tasks, hosts, cfg, ci_trace, mesh=mesh,
+                                  device=device)
     if executor != "chunked":
         raise ValueError(f"unknown executor {executor!r}; "
                          f"pick 'chunked' or 'shard_map'")

@@ -1,16 +1,17 @@
 """The reference's three named sweep shapes, as thin wrappers over
 core/grid.py: regions, battery sizes, and regions x battery sizes (paper
 Figs 7, 8 and 12).  Each is one axis declaration run by `sweep_grid`: every
-scenario of the sweep goes through one step loop.  The reference's
-mesh-sharded sweeps (`sweep_step_fn`, `sharded_sweep`, `lower_sweep`) are
-refused with NotImplementedError (ROADMAP Queue 1 item 6f).
+scenario of the sweep goes through one step loop.  The mesh-sharded
+region sweep (`sharded_sweep`), its step function (`sweep_step_fn`) and its
+lowering (`lower_sweep`) go through the grid's mesh executor and `lower`.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .config import SimConfig
-from .grid import _ITEM_6F, _refuse, dyn_axis, host_values, sweep_grid, \
+from .grid import ScenarioGrid, dyn_axis, host_values, sweep_grid, \
     trace_axis
 from .metrics import SimResult
 from .state import HostTable, TaskTable
@@ -51,17 +52,29 @@ def sweep_regions_x_battery(tasks: TaskTable, hosts: HostTable, ci_traces,
                       jit=jit, device=device)
 
 
-def sweep_step_fn(*args, **kwargs):
-    """The reference's jit-able sweep function for lowering against a mesh:
-    refused."""
-    _refuse("sweep_step_fn", _ITEM_6F)
+def sweep_step_fn(tasks: TaskTable, hosts: HostTable, cfg: SimConfig,
+                  device="cuda"):
+    """The region sweep as a function `fn(ci_traces [R, S]) -> SimResult`
+    (leading axis R): every region a scenario row of one step loop."""
+    def fn(ci_traces):
+        return sweep_grid(tasks, hosts, cfg, [trace_axis(ci_traces)],
+                          device=device)
+    return fn
 
 
-def sharded_sweep(*args, **kwargs):
-    """The reference's mesh-sharded region sweep: refused."""
-    _refuse("sharded_sweep", _ITEM_6F)
+def sharded_sweep(mesh, tasks: TaskTable, hosts: HostTable, ci_traces,
+                  cfg: SimConfig, device="cuda") -> SimResult:
+    """Split the region sweep's scenario axis over the mesh's `pod` x
+    `data` devices (`ScenarioGrid.run(mesh=)`); every rank returns the
+    whole sweep."""
+    return sweep_grid(tasks, hosts, cfg, [trace_axis(ci_traces)], mesh=mesh,
+                      device=device)
 
 
-def lower_sweep(*args, **kwargs):
-    """The reference's lowering of a region sweep: refused."""
-    _refuse("lower_sweep", _ITEM_6F)
+def lower_sweep(mesh, tasks: TaskTable, hosts: HostTable, cfg: SimConfig,
+                n_regions: int, n_steps: int):
+    """Trace (without running) the region sweep for the dry run's counts:
+    `ScenarioGrid.lower` of a trace axis of `n_regions` zero traces of
+    `n_steps`."""
+    grid = ScenarioGrid([trace_axis(torch.zeros((n_regions, n_steps)))])
+    return grid.lower(tasks, hosts, cfg, mesh=mesh)

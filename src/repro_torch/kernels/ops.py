@@ -49,6 +49,13 @@ def _refuse_autograd(name: str, *tensors) -> None:
             "under torch.no_grad()")
 
 
+def _abstract(x) -> bool:
+    """A fake or meta tensor: a program traced for its shapes and counts
+    (launch/op_analysis.py), with no values to compute on."""
+    from torch._subclasses.fake_tensor import is_fake
+    return x.device.type == "meta" or is_fake(x)
+
+
 def host_power(cpu_util, gpu_util, n_gpus, on, cpu_cfg, gpu_cfg):
     """(power_kw[H], it_kw): per-host power and its sum (kernel 1, without
     the carbon tail)."""
@@ -92,6 +99,12 @@ def first_fit_place(cand_cores, cand_gpus, free_cores, free_gpus):
     (assign i32[K], free cores, free GPUs)."""
     _refuse_autograd("first_fit_place", cand_cores, cand_gpus, free_cores,
                      free_gpus)
+    if _abstract(cand_cores):
+        # a traced program's placement: the outputs' shapes and types only
+        # (the placement depends on the values, which fake tensors lack)
+        return (torch.full(cand_cores.shape, -1, dtype=torch.int32,
+                           device=cand_cores.device),
+                free_cores.clone(), free_gpus.clone())
     telemetry.note_plain_kernels(not cand_cores.is_cuda)
     impl = _first_fit if cand_cores.is_cuda else ref
     return impl.first_fit_place(cand_cores, cand_gpus, free_cores, free_gpus)
@@ -151,7 +164,18 @@ def ssd_intra_chunk(xdt, da, b, c):
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True):
     """Online-softmax attention: q [B,Sq,H,D], k / v [B,Sk,KV,D] -> like q
-    (causal mask top-left aligned, f32 accumulation)."""
+    (causal mask top-left aligned, f32 accumulation).  DTensors (a model on
+    a mesh) run the kernel on each rank's shards: the batch and the heads
+    split as the inputs are (a GQA group never split across ranks), the
+    sequence whole (`ctx.attention_layout`)."""
+    if type(q).__name__ == "DTensor":
+        from ..distributed.ctx import attention_layout, from_local, to_layout
+        mesh, qp, kvp = attention_layout(q, k, rows=False)
+        out = flash_attention(
+            to_layout(q, mesh, qp).to_local(),
+            to_layout(k, mesh, kvp).to_local(),
+            to_layout(v, mesh, kvp).to_local(), scale=scale, causal=causal)
+        return from_local(out, mesh, qp, q.shape)
     _refuse_autograd("flash_attention", q, k, v)
     telemetry.note_plain_kernels(not q.is_cuda)
     impl = _flash_attn if q.is_cuda else ref

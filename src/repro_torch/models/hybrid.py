@@ -13,10 +13,13 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.ctx import P, constrain
 from . import layers as L
 from .config import ArchConfig
 from .ssm import (mamba_layer_decode, mamba_stack, ssm_block_defs,
-                  ssm_state_shape)
+                  ssm_state_shape, ssm_state_spec)
+
+BATCH = L.BATCH
 
 
 def _split(cfg: ArchConfig) -> tuple[int, int, int]:
@@ -33,8 +36,8 @@ def hybrid_model_defs(cfg: ArchConfig) -> dict:
         "embed": L.embed_defs(cfg),
         "groups": L.stack_defs(L.stack_defs(mamba_layer, per), n_groups),
         "adapters": L.stack_defs(
-            {"w": L.ParamDef((cfg.d_model, cfg.d_model), scale=0.1)},
-            n_groups),
+            {"w": L.ParamDef((cfg.d_model, cfg.d_model), scale=0.1,
+                             spec=P(None, "model"))}, n_groups),
         "shared": {"ln1": L.norm_defs(cfg), "attn": L.attn_defs(cfg),
                    "ln2": L.norm_defs(cfg),
                    "mlp": L.ffn_defs(cfg, cfg.d_ff)},
@@ -51,7 +54,9 @@ def _shared_block(cfg: ArchConfig, sp: dict, ap: dict, x, positions,
     h = L.apply_norm(cfg, sp["ln1"], h)
     x = x + L.attention(cfg, sp["attn"], h, positions,
                         use_kernels=use_kernels)
-    return x + L.ffn(cfg, sp["mlp"], L.apply_norm(cfg, sp["ln2"], x))
+    return constrain(x + L.ffn(cfg, sp["mlp"], L.apply_norm(cfg, sp["ln2"],
+                                                            x)),
+                     L.residual_spec(cfg))
 
 
 def hybrid_logits(cfg: ArchConfig, params: dict, tokens,
@@ -61,6 +66,7 @@ def hybrid_logits(cfg: ArchConfig, params: dict, tokens,
     kernel (the training path)."""
     n_groups, per, trailing = _split(cfg)
     x = L.embed(cfg, params["embed"], tokens)
+    x = constrain(x, P(BATCH, None, None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for g in range(n_groups):
         x = mamba_stack(cfg, L.layer(params["groups"], g), x, per,
@@ -99,6 +105,13 @@ def hybrid_state_shape(cfg: ArchConfig, batch: int, seq: int) -> dict:
     return st
 
 
+def hybrid_state_spec(cfg: ArchConfig) -> dict:
+    spec = ssm_state_spec(cfg)
+    spec["shared_k"] = P(None, BATCH, "model", None, None)
+    spec["shared_v"] = P(None, BATCH, "model", None, None)
+    return spec
+
+
 def hybrid_decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens,
                        pos: int):
     """One token per row at position `pos` (a host integer): (logits
@@ -106,6 +119,7 @@ def hybrid_decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens,
     n_groups, per, trailing = _split(cfg)
     sp = params["shared"]
     x = L.embed(cfg, params["embed"], tokens)
+    x = constrain(x, P(BATCH, None, None))
     for g in range(n_groups):
         for j in range(per):
             x = mamba_layer_decode(cfg, L.layer(params["groups"], g, j), x,
@@ -113,7 +127,8 @@ def hybrid_decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens,
         h = x @ L._c(params["adapters"]["w"][g], x.dtype)
         h = L.apply_norm(cfg, sp["ln1"], h)
         h, _, _ = L.attention_decode(cfg, sp["attn"], h, cache["shared_k"][g],
-                                     cache["shared_v"][g], pos)
+                                     cache["shared_v"][g], pos,
+                                     cache_spec=P(BATCH, "model", None, None))
         x = x + h
         x = x + L.ffn(cfg, sp["mlp"], L.apply_norm(cfg, sp["ln2"], x))
     for j in range(trailing):

@@ -14,8 +14,10 @@ leaf (`models/convert.py`).
 
 Numerics as in the reference: parameters live in `cfg.param_dtype`, matrix
 products run in `cfg.compute_dtype`, normalisation statistics and softmax
-in f32.  The port runs on one device, so the reference's sharding
-constraints are dropped.  Two liberties, both bit-neutral:
+in f32.  Each `ParamDef` carries the reference's partition spec over
+("pod", "data", "model") (`param_specs`), and the activations are
+constrained where the reference constrains them (distributed/ctx.py: a
+no-op without a mesh or on one device).  Two liberties, both bit-neutral:
 
   * `cast_for_compute` makes the compute-type copy of each weight once;
     the reference casts at every use, which gives the same bits.
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple
 
@@ -55,8 +58,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..core import telemetry
 from ..core.config import inv_f32
+from ..distributed.ctx import (P, attention_layout, constrain, from_local,
+                               local_of, shard_offset, split_dims, to_layout)
 from ..kernels import ops
 from .config import ArchConfig
+
+BATCH = ("pod", "data")
 
 F32 = torch.float32
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -72,6 +79,12 @@ class ParamDef:
     init: str = "normal"          # normal | zeros | ones | embed
     scale: float = 1.0            # fan-in style scale multiplier
     dtype: str | None = None      # override cfg.param_dtype
+    spec: P | None = None         # partition spec; None: replicated
+
+    @property
+    def partition(self) -> P:
+        return self.spec if self.spec is not None else \
+            P(*(None,) * len(self.shape))
 
 
 class TensorSpec(NamedTuple):
@@ -129,6 +142,19 @@ def init_params(defs: dict, generator: torch.Generator, param_dtype: str,
     return unflatten(flat)
 
 
+def abstract_params(defs: dict, param_dtype: str, device="meta") -> dict:
+    """The parameter tree as tensors with no values: meta tensors, or fake
+    ones when called under a `FakeTensorMode` with device "cpu" (the dry
+    run's stand-in for the reference's ShapeDtypeStructs)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=dtype_of(
+        d.dtype or param_dtype), device=device), defs)
+
+
+def param_specs(defs: dict) -> dict:
+    """The partition-spec tree matching the parameter tree."""
+    return tree_map(lambda d: d.partition, defs)
+
+
 def flatten(tree, prefix=()) -> dict:
     out = {}
     for k, v in tree.items():
@@ -157,7 +183,8 @@ def tree_map(fn: Callable, tree):
 
 def stack_defs(defs: dict, n: int) -> dict:
     """Prefix every ParamDef with a stacked layer axis of length n."""
-    return tree_map(lambda d: replace(d, shape=(n,) + d.shape), defs)
+    return tree_map(lambda d: replace(d, shape=(n,) + d.shape,
+                                      spec=P(None, *d.partition)), defs)
 
 
 def layer(tree: dict, *idx) -> dict:
@@ -236,18 +263,35 @@ def remat_policy(cfg: ArchConfig):
     return noop_context_fn
 
 
+_REMAT = threading.local()
+
+
+def _in_checkpointed_layer() -> bool:
+    return getattr(_REMAT, "depth", 0) > 0
+
+
 def checkpointed(cfg: ArchConfig, fn: Callable) -> Callable:
     """`fn` under activation checkpointing when `cfg.remat` is set and grad
     mode is on (backward recomputes it from its inputs); `fn` itself
-    otherwise.  Recomputing gives the same bits."""
+    otherwise.  Recomputing gives the same bits.  Inside such a layer the
+    blockwise attention does not checkpoint its blocks again: the layer's
+    recompute already runs them once more, as XLA merges the reference's
+    nested recomputes into one."""
     if not cfg.remat:
         return fn
     context_fn = remat_policy(cfg)
 
+    def marked(*args):
+        _REMAT.depth = getattr(_REMAT, "depth", 0) + 1
+        try:
+            return fn(*args)
+        finally:
+            _REMAT.depth -= 1
+
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(marked, *args, use_reentrant=False,
                           context_fn=context_fn)
     return run
 
@@ -259,6 +303,13 @@ def norm_defs(cfg: ArchConfig, kind: str | None = None) -> dict:
                 "b": ParamDef((cfg.d_model,), "zeros")}
     init = "zeros" if _gemma_like(cfg) else "ones"   # gemma stores w-1
     return {"w": ParamDef((cfg.d_model,), init)}
+
+
+def residual_spec(cfg: ArchConfig) -> P:
+    """Layer-boundary sharding of the [B,S,D] residual stream."""
+    if cfg.seq_shard_residual:
+        return P(BATCH, "model", None)
+    return P(BATCH, None, None)
 
 
 def apply_norm(cfg: ArchConfig, p: dict, x):
@@ -298,11 +349,24 @@ def _softcap(x, cap: float):
     return torch.tanh(x / cap) * cap if cap else x
 
 
+def _model_divisible(n_heads: int) -> bool:
+    """Heads shard over `model` only when they divide its 16 ways."""
+    return n_heads % 16 == 0
+
+
+def head_spec(n_heads: int) -> P:
+    return P(None, "model", None) if _model_divisible(n_heads) \
+        else P(None, None, None)
+
+
 def attn_defs(cfg: ArchConfig, d_model: int | None = None) -> dict:
     d = d_model or cfg.d_model
     hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    defs = {"wq": ParamDef((d, h, hd)), "wk": ParamDef((d, kv, hd)),
-            "wv": ParamDef((d, kv, hd)), "wo": ParamDef((h, hd, d))}
+    defs = {"wq": ParamDef((d, h, hd), spec=head_spec(h)),
+            "wk": ParamDef((d, kv, hd), spec=head_spec(kv)),
+            "wv": ParamDef((d, kv, hd), spec=head_spec(kv)),
+            "wo": ParamDef((h, hd, d), spec=P("model", None, None)
+                           if _model_divisible(h) else None)}
     if cfg.qkv_bias:
         defs["bq"] = ParamDef((h, hd), "zeros")
         defs["bk"] = ParamDef((kv, hd), "zeros")
@@ -314,16 +378,28 @@ def attn_defs(cfg: ArchConfig, d_model: int | None = None) -> dict:
     return defs
 
 
+def _rows_matmul(x, w):
+    """x [..., D] @ w [D, N].  A DTensor x whose rows are split on two
+    dimensions (batch and sequence) takes a batched product with w
+    broadcast over the batch: merging the two split dimensions into one
+    has no sharding rule."""
+    if _is_dtensor(x) and x.dim() == 3 and any(
+            getattr(p, "dim", None) == 1 for p in x.placements):
+        return torch.bmm(x, w.expand(x.shape[0], *w.shape))
+    return x @ w
+
+
 def _proj_heads(x, w):
     """einsum("bsd,dhk->bshk") as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return _rows_matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
 def _merge_heads(out, wo):
     """einsum("bshk,hkd->bsd") as one matrix product."""
     h, k, d = wo.shape
-    return out.reshape(*out.shape[:-2], h * k) @ wo.reshape(h * k, d)
+    return _rows_matmul(out.reshape(*out.shape[:-2], h * k),
+                        wo.reshape(h * k, d))
 
 
 def _qk_project(cfg: ArchConfig, p: dict, x, positions, theta: float):
@@ -353,8 +429,32 @@ def causal_mask(s_q: int, s_k: int, q_offset: int = 0, window: int = 0,
     return m
 
 
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def _sdpa_on_shards(q, k, v, mask, scale: float, softcap: float):
+    """`sdpa` of DTensors, run on each rank's shards
+    (`ctx.attention_layout`: q's batch, row and head splits kept, k and v
+    whole along the keys); the mask is cut to the rank's rows.  The result
+    is laid out as q."""
+    mesh, qp, kvp = attention_layout(q, k, rows=True)
+    q = to_layout(q, mesh, qp)
+    used = split_dims(qp, kvp)
+    ql = local_of(q, used)
+    if mask.dim() >= 2 and mask.shape[-2] != 1:
+        off = shard_offset(q, 1)
+        mask = mask[..., off:off + ql.shape[1], :]
+    out = sdpa(ql, local_of(to_layout(k, mesh, kvp), used),
+               local_of(to_layout(v, mesh, kvp), used), mask, scale, softcap)
+    return from_local(out, mesh, qp, (*q.shape[:3], v.shape[-1]))
+
+
 def sdpa(q, k, v, mask, scale: float, softcap: float = 0.0):
-    """q:[B,Sq,H,D] k/v:[B,Sk,KV,D]; GQA broadcast; f32 softmax."""
+    """q:[B,Sq,H,D] k/v:[B,Sk,KV,D]; GQA broadcast; f32 softmax.  On
+    DTensors it runs on each rank's shards (`_sdpa_on_shards`)."""
+    if _is_dtensor(q):
+        return _sdpa_on_shards(q, k, v, mask, scale, softcap)
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, d)
@@ -368,27 +468,37 @@ def sdpa(q, k, v, mask, scale: float, softcap: float = 0.0):
 
 def sdpa_blockwise(q, k, v, scale: float, softcap: float = 0.0, *,
                    block: int, window: int = 0, q_offset: int = 0,
-                   causal: bool = True):
+                   causal: bool = True, row_shard: bool = False):
     """`sdpa` over query blocks of `block` rows (causal + optional sliding
     window; `causal=False`: every key, as whisper's encoder and
     cross-attention take), so the scores are [B, H, block, Sk] at a time;
     the reference falls back to one block when `block` does not divide Sq,
     and so does this.  Under grad mode each block is checkpointed, as the
     reference's scan body is: backward recomputes a block's scores rather
-    than keeping every block's [B, H, block, Sk] softmax."""
+    than keeping every block's [B, H, block, Sk] softmax (inside a
+    checkpointed layer, whose recompute runs the blocks once more, they are
+    not checkpointed again: `checkpointed`).  row_shard: a
+    block's query rows (and its output rows) split over `model`, as the
+    reference constrains them for heads that do not divide it."""
     sq, sk = q.shape[1], k.shape[1]
     blk = max(min(block, sq), 1)
     if sq % blk:
         blk = sq
-    grad = torch.is_grad_enabled()
+    grad = torch.is_grad_enabled() and not _in_checkpointed_layer()
     outs = []
     for q0 in range(0, sq, blk):
         m = (causal_mask(blk, sk, q0 + q_offset, window, device=q.device)
              if causal else torch.ones((blk, sk), dtype=torch.bool,
                                        device=q.device))
-        args = (q[:, q0:q0 + blk], k, v, m, scale, softcap)
-        outs.append(checkpoint(sdpa, *args, use_reentrant=False) if grad
-                    else sdpa(*args))
+        qblk = q[:, q0:q0 + blk]
+        if row_shard:
+            qblk = constrain(qblk, P(BATCH, "model", None, None))
+        args = (qblk, k, v, m, scale, softcap)
+        out = (checkpoint(sdpa, *args, use_reentrant=False) if grad
+               else sdpa(*args))
+        if row_shard:
+            out = constrain(out, P(BATCH, "model", None, None))
+        outs.append(out)
     return torch.cat(outs, dim=1)
 
 
@@ -402,13 +512,23 @@ def attention(cfg: ArchConfig, p: dict, x, positions, *, window: int = 0,
     whole-matrix softmax of the reference."""
     theta = cfg.rope_theta if theta is None else theta
     scale = (1.0 / math.sqrt(cfg.hd)) if scale is None else scale
+    flash = use_kernels and not cfg.attn_softcap and not window
+    row_shard = (not flash and bool(cfg.attn_block)
+                 and not _model_divisible(cfg.n_heads))
     with telemetry.stage_scope("attention", x.device):
+        if row_shard:
+            # heads stay whole on every rank, so the rows split over
+            # `model`: the projections of the reference's row-sharded
+            # blocks run on the rank's rows (its layout under GSPMD)
+            x = constrain(x, P(BATCH, "model", None))
         q, k, v = _qk_project(cfg, p, x, positions, theta)
-        if use_kernels and not cfg.attn_softcap and not window:
+        k = constrain(k, P(BATCH, None, None, None))
+        if flash:
             out = ops.flash_attention(q, k, v, scale=scale, causal=True)
         elif cfg.attn_block:
             out = sdpa_blockwise(q, k, v, scale, cfg.attn_softcap,
-                                 block=cfg.attn_block, window=window)
+                                 block=cfg.attn_block, window=window,
+                                 row_shard=row_shard)
         else:
             mask = causal_mask(x.shape[1], x.shape[1], 0, window,
                                device=x.device)
@@ -438,14 +558,29 @@ def attention_traced_window(cfg: ArchConfig, p: dict, x, positions,
 
 def cache_update(cache, new, pos: int):
     """Write `new` [B,T,...] into `cache` [B,S,...] at positions pos.. in
-    place; returns `cache`."""
+    place; returns `cache`.  A DTensor cache (on a mesh, its positions
+    perhaps split over `model`) is written by each rank into the positions
+    its shard holds, from `new` laid out as the cache but whole along the
+    positions: no collective beyond that layout."""
+    if _is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = cache.device_mesh
+        pl = [Replicate() if p == Shard(1) else p for p in cache.placements]
+        new = to_layout(new.to(cache.dtype), mesh, pl).to_local()
+        local = cache.to_local()
+        off = shard_offset(cache, 1)
+        lo, hi = max(pos, off), min(pos + new.shape[1], off + local.shape[1])
+        if lo < hi:
+            local[:, lo - off:hi - off] = new[:, lo - pos:hi - pos]
+        return cache
     cache[:, pos:pos + new.shape[1]] = new.to(cache.dtype)
     return cache
 
 
 def attention_decode(cfg: ArchConfig, p: dict, x, cache_k, cache_v,
                      pos: int, *, window: int = 0,
-                     theta: float | None = None, scale: float | None = None):
+                     theta: float | None = None, scale: float | None = None,
+                     cache_spec: P | None = None):
     """One-token decode against a KV cache.
 
     x: [B,1,D]; cache_k/v: [B,S,KV,hd], written in place at `pos` (a host
@@ -456,8 +591,11 @@ def attention_decode(cfg: ArchConfig, p: dict, x, cache_k, cache_v,
     posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qk_project(cfg, p, x, posv, theta)
     s = cache_k.shape[1]
-    cache_update(cache_k, k, pos)
-    cache_update(cache_v, v, pos)
+    cache_k = cache_update(cache_k, k, pos)
+    cache_v = cache_update(cache_v, v, pos)
+    if cache_spec is not None:
+        cache_k = constrain(cache_k, cache_spec)
+        cache_v = constrain(cache_v, cache_spec)
     ki = torch.arange(s, device=x.device)
     mask = ki <= pos
     if window:
@@ -484,15 +622,17 @@ _ACTS: dict[str, Callable] = {
 }
 
 
-def ffn_defs(cfg: ArchConfig, d_ff: int) -> dict:
+def ffn_defs(cfg: ArchConfig, d_ff: int, fsdp: bool = False) -> dict:
     d = cfg.d_model
+    dspec = "data" if fsdp else None
     if cfg.act == "gelu_mlp":   # plain 2-matrix MLP (whisper)
-        return {"w_in": ParamDef((d, d_ff)),
-                "b_in": ParamDef((d_ff,), "zeros"),
-                "w_out": ParamDef((d_ff, d)),
+        return {"w_in": ParamDef((d, d_ff), spec=P(dspec, "model")),
+                "b_in": ParamDef((d_ff,), "zeros", spec=P("model")),
+                "w_out": ParamDef((d_ff, d), spec=P("model", dspec)),
                 "b_out": ParamDef((d,), "zeros")}
-    return {"w_gate": ParamDef((d, d_ff)), "w_up": ParamDef((d, d_ff)),
-            "w_down": ParamDef((d_ff, d))}
+    return {"w_gate": ParamDef((d, d_ff), spec=P(dspec, "model")),
+            "w_up": ParamDef((d, d_ff), spec=P(dspec, "model")),
+            "w_down": ParamDef((d_ff, d), spec=P("model", dspec))}
 
 
 def ffn(cfg: ArchConfig, p: dict, x):
@@ -502,27 +642,63 @@ def ffn(cfg: ArchConfig, p: dict, x):
         h = F.gelu(h, approximate="tanh")
         return h @ _c(p["w_out"], cdt) + _c(p["b_out"], cdt)
     act = _ACTS[cfg.act]
-    h = act(x @ _c(p["w_gate"], cdt)) * (x @ _c(p["w_up"], cdt))
-    return h @ _c(p["w_down"], cdt)
+    # on a mesh an FSDP split of the weights over `data` is gathered first
+    cols, rows = P(None, "model"), P("model", None)
+    h = (act(x @ constrain(_c(p["w_gate"], cdt), cols))
+         * (x @ constrain(_c(p["w_up"], cdt), cols)))
+    h = constrain(h, P(BATCH, None, "model"))
+    return h @ constrain(_c(p["w_down"], cdt), rows)
 
 
 # --------------------------------------------------------------------------
 # embedding / logits / loss
 # --------------------------------------------------------------------------
 
-def embed_defs(cfg: ArchConfig) -> dict:
+def embed_defs(cfg: ArchConfig, fsdp: bool = False) -> dict:
+    """The token table (vocab over `model`) and, untied, the unembedding
+    (vocab over `model`; under FSDP the model width over `data` too)."""
+    spec = P("model", "data") if fsdp else P("model", None)
+    unembed_spec = P("data", "model") if fsdp else P(None, "model")
     vp = cfg.padded_vocab    # odd vocabs padded to a multiple of 256
-    defs = {"tok": ParamDef((vp, cfg.d_model), "embed", scale=0.02)}
+    defs = {"tok": ParamDef((vp, cfg.d_model), "embed", scale=0.02,
+                            spec=spec)}
     if not cfg.tie_embeddings:
-        defs["unembed"] = ParamDef((cfg.d_model, vp))
+        defs["unembed"] = ParamDef((cfg.d_model, vp), spec=unembed_spec)
     return defs
+
+
+def _gather_rows(table, tokens):
+    """table[tokens].  A DTensor table (its rows split over `model`) is
+    gathered on each rank's shards: a rank looks up the tokens whose rows
+    it holds and writes zeros for the rest, and the result is a partial
+    sum over the rows' mesh axes (one nonzero term a token: the sum is
+    exact), laid out by the tokens' batch split."""
+    if not _is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    rows = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    table = table.redistribute(mesh, [Shard(0) if i in rows else Replicate()
+                                      for i in range(mesh.ndim)])
+    tpl = [Replicate() if i in rows else p for i, p in enumerate(
+        tokens.placements if _is_dtensor(tokens)
+        else [Replicate()] * mesh.ndim)]
+    tpl = [p if p in (Shard(0), Replicate()) else Replicate() for p in tpl]
+    tok = to_layout(tokens, mesh, tpl).to_local()
+    local = local_of(table, split_dims(tpl, table.placements))
+    idx = tok.long() - shard_offset(table, 0)
+    held = (idx >= 0) & (idx < local.shape[0])
+    out = local[idx.clamp(0, local.shape[0] - 1)] * held[..., None].to(
+        local.dtype)
+    pl = [Partial() if i in rows else tpl[i] for i in range(mesh.ndim)]
+    return from_local(out, mesh, pl, (*tokens.shape, table.shape[1]))
 
 
 def embed(cfg: ArchConfig, p: dict, tokens):
     """Rows of the table in the compute type (the cast commutes with the
     gather, so only the gathered rows are cast)."""
     cdt = dtype_of(cfg.compute_dtype)
-    x = _c(p["tok"][tokens], cdt)
+    x = _c(_gather_rows(p["tok"], tokens), cdt)
     if _gemma_like(cfg):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt,
                              device=x.device)
@@ -547,12 +723,20 @@ def cross_entropy(logits, labels, mask=None):
     under a compare with the vocab ids (a gather over a vocab-sharded
     tensor would all-gather it), which adds only zeros to the gold logit:
     the same bits, without a [B, S, V] f32 temporary (5 GB at qwen2-1.5b's
-    2 x 4096 positions and 151,936 ids).  The unmasked mean is the sum
+    2 x 4096 positions and 151,936 ids).  Sharded logits (DTensors) take
+    the reference's form.  The unmasked mean is the sum
     times the f32 reciprocal of the count, as the jitted reference computes
     `jnp.mean`.
     """
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if _is_dtensor(logits):
+        # vocab-sharded logits: the reference's compare-and-reduce keeps
+        # every operand sharded (a gather would collect the logits)
+        ids = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.where(labels.long()[..., None] == ids, logits,
+                           0.0).sum(-1)
+    else:
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is None:
         return nll.sum() * inv_f32(nll.numel())

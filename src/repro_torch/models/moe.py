@@ -23,9 +23,11 @@ the zero columns only add zeros.  The loss takes the reference's blockwise
 softmax (`use_kernels=False`).  Decode takes the absorbed form over the
 [B, S, kv_lora] latent cache and the [B, S, rope] key cache.
 
-The reference's sharding constraints and `moe_cache_spec` are dropped (one
-device); its scans over layers are Python loops, each layer checkpointed
-under `cfg.remat` as the reference's scan body is.
+The parameters carry the reference's partition specs (experts over
+`model`, their width and the embedding over `data`: FSDP), and the
+activations are constrained where the reference constrains them (no-ops
+without a mesh); its scans over layers are Python loops, each layer
+checkpointed under `cfg.remat` as the reference's scan body is.
 """
 from __future__ import annotations
 
@@ -36,11 +38,13 @@ import torch.nn.functional as F
 
 from ..core import telemetry
 from ..core.config import inv_f32
+from ..distributed.ctx import P, constrain, on_shards
 from ..kernels import ops
 from . import layers as L
 from .config import ArchConfig
 
 F32 = torch.float32
+BATCH = L.BATCH
 
 # --------------------------------------------------------------------------
 # MoE FFN
@@ -52,12 +56,15 @@ def moe_defs(cfg: ArchConfig) -> dict:
     d, fe = cfg.d_model, m.d_ff_expert
     defs = {
         "router": L.ParamDef((d, m.n_experts), scale=0.1),
-        "w_gate": L.ParamDef((m.n_experts, d, fe)),
-        "w_up": L.ParamDef((m.n_experts, d, fe)),
-        "w_down": L.ParamDef((m.n_experts, fe, d)),
+        "w_gate": L.ParamDef((m.n_experts, d, fe),
+                             spec=P("model", "data", None)),
+        "w_up": L.ParamDef((m.n_experts, d, fe),
+                           spec=P("model", "data", None)),
+        "w_down": L.ParamDef((m.n_experts, fe, d),
+                             spec=P("model", None, "data")),
     }
     if m.n_shared:
-        defs["shared"] = L.ffn_defs(cfg, m.n_shared * fe)
+        defs["shared"] = L.ffn_defs(cfg, m.n_shared * fe, fsdp=True)
     return defs
 
 
@@ -81,11 +88,14 @@ def _route(cfg: ArchConfig, p: dict, x):
 
 
 def _experts(cfg: ArchConfig, p: dict, xe, cdt):
-    """The expert FFNs of buffers xe [E, rows, D] -> [E, rows, D]."""
-    g = torch.bmm(xe, L._c(p["w_gate"], cdt))
-    u = torch.bmm(xe, L._c(p["w_up"], cdt))
+    """The expert FFNs of buffers xe [E, rows, D] -> [E, rows, D].  On a
+    mesh the experts' FSDP split over `data` is gathered first."""
+    w = {k: constrain(L._c(p[k], cdt), P("model", None, None))
+         for k in ("w_gate", "w_up", "w_down")}
+    g = torch.bmm(xe, w["w_gate"])
+    u = torch.bmm(xe, w["w_up"])
     h = L._ACTS[cfg.act](g) * u
-    return torch.bmm(h, L._c(p["w_down"], cdt))
+    return torch.bmm(h, w["w_down"])
 
 
 def moe_ffn_sort(cfg: ArchConfig, p: dict, x):
@@ -127,7 +137,9 @@ def moe_ffn_sort(cfg: ArchConfig, p: dict, x):
         dispatch_tok, dispatch_w = dispatch_tok[:e * c], dispatch_w[:e * c]
 
         xe = xf.to(cdt)[dispatch_tok].reshape(e, c, d)
-        ye = _experts(cfg, p, xe, cdt).reshape(e * c, d)
+        xe = constrain(xe, P("model", None, None))
+        ye = constrain(_experts(cfg, p, xe, cdt), P("model", None, None))
+        ye = ye.reshape(e * c, d)
         ye = ye * dispatch_w[:, None].to(cdt)
         # the combine: each token's slots (the spare slot, a zero row, for
         # a dropped pair), ascending, added one at a time from zero
@@ -141,7 +153,7 @@ def moe_ffn_sort(cfg: ArchConfig, p: dict, x):
         y = y.reshape(b, s, d)
         if m.n_shared:
             y = y + L.ffn(cfg, p["shared"], x)
-        return y, aux
+        return constrain(y, L.residual_spec(cfg)), aux
 
 
 def moe_ffn(cfg: ArchConfig, p: dict, x):
@@ -181,18 +193,28 @@ def moe_ffn(cfg: ArchConfig, p: dict, x):
         combine = torch.einsum("ngke,ngkc->ngec", onehot_k,
                                pos_oh * gate_vals[..., None])
         dispatch = (combine > 0).to(cdt)
-        combine = combine.to(cdt)
+        combine = constrain(combine.to(cdt), P(BATCH, None, "model", None))
+        dispatch = constrain(dispatch, P(BATCH, None, "model", None))
 
         # --- dispatch -> expert FFN -> combine ---
-        xe = torch.einsum("ngd,ngec->encd", xg.to(cdt), dispatch)
+        # (on a mesh each rank's groups and experts: the einsums' merged
+        # dimensions would be split two ways, which has no sharding rule)
+        buf, slots = P("model", BATCH, None, None), P(BATCH, None, "model",
+                                                       None)
+        xe = on_shards(lambda a, w: torch.einsum("ngd,ngec->encd", a, w),
+                       (xg.to(cdt), dispatch), (P(BATCH, None, None), slots),
+                       buf, (m.n_experts, n, c, d))
+        xe = constrain(xe, buf)
         ye = _experts(cfg, p, xe.reshape(m.n_experts, n * c, d), cdt)
-        y = torch.einsum("encd,ngec->ngd", ye.reshape(m.n_experts, n, c, d),
-                         combine)
+        ye = constrain(ye.reshape(m.n_experts, n, c, d), buf)
+        y = on_shards(lambda a, w: torch.einsum("encd,ngec->ngd", a, w),
+                      (ye, combine), (buf, slots), P(BATCH, None, None),
+                      (n, gs, d), partial=("model",))
         y = y.reshape(b, s, d)
 
         if m.n_shared:
             y = y + L.ffn(cfg, p["shared"], x)
-        return y, aux
+        return constrain(y, P(BATCH, None, None)), aux
 
 
 # --------------------------------------------------------------------------
@@ -204,17 +226,19 @@ def mla_defs(cfg: ArchConfig) -> dict:
     d, h = cfg.d_model, cfg.n_heads
     qk = m.nope_head_dim + m.rope_head_dim
     defs: dict = {}
+    heads = P(None, "model", None)
     if m.q_lora_rank:
         defs["wq_a"] = L.ParamDef((d, m.q_lora_rank))
         defs["q_norm"] = L.ParamDef((m.q_lora_rank,), "ones")
-        defs["wq_b"] = L.ParamDef((m.q_lora_rank, h, qk))
+        defs["wq_b"] = L.ParamDef((m.q_lora_rank, h, qk), spec=heads)
     else:
-        defs["wq"] = L.ParamDef((d, h, qk))
+        defs["wq"] = L.ParamDef((d, h, qk), spec=heads)
     defs["wkv_a"] = L.ParamDef((d, m.kv_lora_rank + m.rope_head_dim))
     defs["kv_norm"] = L.ParamDef((m.kv_lora_rank,), "ones")
     defs["wkv_b"] = L.ParamDef(
-        (m.kv_lora_rank, h, m.nope_head_dim + m.v_head_dim))
-    defs["wo"] = L.ParamDef((h, m.v_head_dim, d))
+        (m.kv_lora_rank, h, m.nope_head_dim + m.v_head_dim), spec=heads)
+    defs["wo"] = L.ParamDef((h, m.v_head_dim, d),
+                            spec=P("model", None, None))
     return defs
 
 
@@ -290,8 +314,10 @@ def mla_decode(cfg: ArchConfig, p: dict, x, cache_ckv, cache_kr, pos: int):
     posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope = _mla_q(cfg, p, x, posv, cdt)             # [B,1,H,*]
     ckv, k_rope = _mla_latent(cfg, p, x, posv, cdt)
-    L.cache_update(cache_ckv, ckv, pos)
-    L.cache_update(cache_kr, k_rope[:, :, 0, :], pos)
+    cache_ckv = L.cache_update(cache_ckv, ckv, pos)
+    cache_kr = L.cache_update(cache_kr, k_rope[:, :, 0, :], pos)
+    cache_ckv = constrain(cache_ckv, P(BATCH, "model", None))
+    cache_kr = constrain(cache_kr, P(BATCH, "model", None))
 
     wkv_b = L._c(p["wkv_b"], cdt)
     wk = wkv_b[..., :m.nope_head_dim]                        # [R,H,Dn]
@@ -321,13 +347,13 @@ def moe_model_defs(cfg: ArchConfig) -> dict:
     attn = mla_defs(cfg) if cfg.mla is not None else L.attn_defs(cfg)
     layer = {"ln1": L.norm_defs(cfg), "attn": attn,
              "ln2": L.norm_defs(cfg), "moe": moe_defs(cfg)}
-    defs = {"embed": L.embed_defs(cfg),
+    defs = {"embed": L.embed_defs(cfg, fsdp=True),
             "layers": L.stack_defs(layer, cfg.n_layers - cfg.moe.first_dense),
             "ln_f": L.norm_defs(cfg)}
     if cfg.moe.first_dense:
         dense_layer = {"ln1": L.norm_defs(cfg), "attn": attn,
                        "ln2": L.norm_defs(cfg),
-                       "mlp": L.ffn_defs(cfg, cfg.d_ff)}
+                       "mlp": L.ffn_defs(cfg, cfg.d_ff, fsdp=True)}
         defs["dense_layers"] = L.stack_defs(dense_layer, cfg.moe.first_dense)
     return defs
 
@@ -347,7 +373,7 @@ def _moe_layer_fn(cfg: ArchConfig, use_kernels: bool = True):
         else:
             h = L.ffn(cfg, lp["mlp"], h)
             aux = torch.zeros((), dtype=F32, device=x.device)
-        return x + h, aux
+        return constrain(x + h, L.residual_spec(cfg)), aux
     return L.checkpointed(cfg, fn)
 
 
@@ -357,6 +383,7 @@ def moe_logits(cfg: ArchConfig, params: dict, tokens, last_only: bool = False,
     layers' summed aux loss).  use_kernels=False: attention without the
     flash kernel (the training path)."""
     x = L.embed(cfg, params["embed"], tokens)
+    x = constrain(x, P(BATCH, None, None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     fn = _moe_layer_fn(cfg, use_kernels)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
@@ -397,18 +424,34 @@ def moe_cache_shape(cfg: ArchConfig, batch: int, seq: int) -> dict:
     return {"k": kv, "v": kv}
 
 
+def moe_cache_spec(cfg: ArchConfig) -> dict:
+    """The caches' sequence axis over `model`."""
+    if cfg.mla is not None:
+        spec3 = P(None, BATCH, "model", None)
+        out = {"ckv": spec3, "kr": spec3}
+        if cfg.moe.first_dense:
+            out["dense_ckv"] = spec3
+            out["dense_kr"] = spec3
+        return out
+    spec = P(None, BATCH, "model", None, None)
+    return {"k": spec, "v": spec}
+
+
 def moe_decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens,
                     pos: int):
     """tokens int[B,1] at position `pos` (a host integer) -> (logits
     f32[B,1,V], cache), the cache written in place."""
     x = L.embed(cfg, params["embed"], tokens)
+    x = constrain(x, P(BATCH, None, None))
 
     def attn_step(lp, x, ck, cv):
         h = L.apply_norm(cfg, lp["ln1"], x)
         if cfg.mla is not None:
             h, _, _ = mla_decode(cfg, lp["attn"], h, ck, cv, pos)
         else:
-            h, _, _ = L.attention_decode(cfg, lp["attn"], h, ck, cv, pos)
+            h, _, _ = L.attention_decode(
+                cfg, lp["attn"], h, ck, cv, pos,
+                cache_spec=P(BATCH, "model", None, None))
         return x + h
 
     keys = ("dense_ckv", "dense_kr") if cfg.mla is not None else ("k", "v")

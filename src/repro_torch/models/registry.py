@@ -8,7 +8,11 @@ reference's `models/registry.py`):
     cache = model.init_cache(batch, seq)
     logits, cache = model.decode_step(params, cache, tokens[:, t:t+1], t)
 
-`decode_step` writes the cache in place and returns it.  `init` and
+`decode_step` writes the cache in place and returns it.  For a mesh:
+`param_specs()`, `batch_specs(shape)` and `decode_specs(shape)` give the
+reference's partition specs with tensors that hold no values (meta, or
+fake under a `FakeTensorMode` with device "cpu"), and `abstract_params()`
+the parameter tree as such tensors (launch/dryrun.py).  `init` and
 `init_cache` take `device=` and default to "cuda"; the tensors' device
 decides whether the kernels or their plain versions run.  Serving
 (`prefill`, `decode_step`) runs under `torch.no_grad()` and takes the
@@ -32,8 +36,12 @@ from typing import Callable
 
 import torch
 
+from ..distributed.ctx import P
 from . import hybrid, layers, moe, ssm, transformer, whisper
-from .config import ArchConfig
+from .config import ArchConfig, ShapeCell
+
+BATCH = layers.BATCH
+
 
 @dataclass(frozen=True)
 class Model:
@@ -43,6 +51,8 @@ class Model:
     prefill: Callable       # (params, batch) -> last-position logits
     decode_step: Callable   # (params, cache, tokens[B,1], pos) -> (logits, cache)
     cache_shape: Callable   # (batch, seq) -> {name: TensorSpec}
+    cache_spec: Callable    # () -> {name: P}
+    forward: Callable       # (params, batch, use_kernels) -> last logits
 
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         """Random parameters in `cfg.param_dtype` from `generator`, which
@@ -59,6 +69,48 @@ class Model:
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
                 for k, s in self.cache_shape(batch, seq).items()}
 
+    def abstract_params(self, device="meta") -> dict:
+        return layers.abstract_params(self.param_defs, self.cfg.param_dtype,
+                                      device)
+
+    def param_specs(self) -> dict:
+        return layers.param_specs(self.param_defs)
+
+    def batch_specs(self, shape: ShapeCell, device="meta"):
+        """(batch of tensors without values, partition specs) for the
+        train / prefill input."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def t(*dims, dtype=torch.int64):
+            return torch.empty(dims, dtype=dtype, device=device)
+        rows = P(BATCH, None)
+        if cfg.family == "encdec":
+            return ({"frames": t(b, cfg.enc_seq, cfg.d_model,
+                                 dtype=torch.float32),
+                     "tokens": t(b, s), "labels": t(b, s)},
+                    {"frames": P(BATCH, None, None), "tokens": rows,
+                     "labels": rows})
+        if cfg.family == "vlm":
+            st = s - cfg.n_frontend_tokens
+            return ({"patch_embeds": t(b, cfg.n_frontend_tokens,
+                                       cfg.frontend_dim, dtype=torch.float32),
+                     "tokens": t(b, st), "labels": t(b, st)},
+                    {"patch_embeds": P(BATCH, None, None), "tokens": rows,
+                     "labels": rows})
+        return ({"tokens": t(b, s), "labels": t(b, s)},
+                {"tokens": rows, "labels": rows})
+
+    def decode_specs(self, shape: ShapeCell, device="meta"):
+        """((cache, tokens, pos), their specs) of a decode step: tensors
+        without values; `pos` is a host integer (the last position)."""
+        b, s = shape.global_batch, shape.seq_len
+        cache = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                 for k, v in self.cache_shape(b, s).items()}
+        tokens = torch.empty((b, 1), dtype=torch.int64, device=device)
+        return ((cache, tokens, s - 1),
+                (self.cache_spec(), P(BATCH, None), None))
+
 
 _serve = torch.no_grad()
 
@@ -74,7 +126,11 @@ def get_model(cfg: ArchConfig) -> Model:
             decode_step=_serve(lambda p, c, t, pos:
                                transformer.dense_decode_step(cfg, p, c, t,
                                                              pos)),
-            cache_shape=lambda b, s: transformer.dense_cache_shape(cfg, b, s))
+            cache_shape=lambda b, s: transformer.dense_cache_shape(cfg, b, s),
+            cache_spec=lambda: transformer.dense_cache_spec(cfg),
+            forward=lambda p, b, k=True: transformer.dense_logits(
+                cfg, p, b["tokens"], b.get("patch_embeds"), last_only=True,
+                use_kernels=k))
     if fam == "ssm":
         return Model(
             cfg=cfg, param_defs=ssm.ssm_model_defs(cfg),
@@ -83,7 +139,10 @@ def get_model(cfg: ArchConfig) -> Model:
                                                        last_only=True)),
             decode_step=_serve(lambda p, c, t, pos: ssm.ssm_decode_step(
                 cfg, p, c, t, pos)),
-            cache_shape=lambda b, s: ssm.ssm_state_shape(cfg, b, s))
+            cache_shape=lambda b, s: ssm.ssm_state_shape(cfg, b, s),
+            cache_spec=lambda: ssm.ssm_state_spec(cfg),
+            forward=lambda p, b, k=True: ssm.ssm_logits(
+                cfg, p, b["tokens"], last_only=True, use_kernels=k))
     if fam == "hybrid":
         return Model(
             cfg=cfg, param_defs=hybrid.hybrid_model_defs(cfg),
@@ -92,7 +151,10 @@ def get_model(cfg: ArchConfig) -> Model:
                 cfg, p, b["tokens"], last_only=True)),
             decode_step=_serve(lambda p, c, t, pos: hybrid.hybrid_decode_step(
                 cfg, p, c, t, pos)),
-            cache_shape=lambda b, s: hybrid.hybrid_state_shape(cfg, b, s))
+            cache_shape=lambda b, s: hybrid.hybrid_state_shape(cfg, b, s),
+            cache_spec=lambda: hybrid.hybrid_state_spec(cfg),
+            forward=lambda p, b, k=True: hybrid.hybrid_logits(
+                cfg, p, b["tokens"], last_only=True, use_kernels=k))
     if fam == "moe":
         return Model(
             cfg=cfg, param_defs=moe.moe_model_defs(cfg),
@@ -101,7 +163,10 @@ def get_model(cfg: ArchConfig) -> Model:
                 cfg, p, b["tokens"], last_only=True)[0]),
             decode_step=_serve(lambda p, c, t, pos: moe.moe_decode_step(
                 cfg, p, c, t, pos)),
-            cache_shape=lambda b, s: moe.moe_cache_shape(cfg, b, s))
+            cache_shape=lambda b, s: moe.moe_cache_shape(cfg, b, s),
+            cache_spec=lambda: moe.moe_cache_spec(cfg),
+            forward=lambda p, b, k=True: moe.moe_logits(
+                cfg, p, b["tokens"], last_only=True, use_kernels=k)[0])
     if fam == "encdec":
         return Model(
             cfg=cfg, param_defs=whisper.whisper_model_defs(cfg),
@@ -112,5 +177,9 @@ def get_model(cfg: ArchConfig) -> Model:
             decode_step=_serve(lambda p, c, t, pos:
                                whisper.whisper_decode_step(cfg, p, c, t,
                                                            pos)),
-            cache_shape=lambda b, s: whisper.whisper_cache_shape(cfg, b, s))
+            cache_shape=lambda b, s: whisper.whisper_cache_shape(cfg, b, s),
+            cache_spec=lambda: whisper.whisper_cache_spec(cfg),
+            forward=lambda p, b, k=True: whisper.decode_train(
+                cfg, p, b["tokens"], whisper.encode(cfg, p, b["frames"], k),
+                last_only=True, use_kernels=k))
     raise ValueError(f"unknown family '{fam}'")

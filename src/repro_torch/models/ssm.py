@@ -18,11 +18,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.ctx import P, constrain, on_shards
 from ..kernels import ops
 from . import layers as L
 from .config import ArchConfig
 
 F32 = torch.float32
+BATCH = L.BATCH
 STATE_KEYS = ("h", "conv_x", "conv_b", "conv_c")
 
 
@@ -37,19 +39,20 @@ def ssm_block_defs(cfg: ArchConfig) -> dict:
     d = cfg.d_model
     d_in, n_heads = _dims(cfg)
     gn = s.n_groups * s.d_state
-    P = L.ParamDef
+    D = L.ParamDef
+    cols, heads = P(None, "model"), P("model")
     return {
-        "in_z": P((d, d_in)), "in_x": P((d, d_in)),
-        "in_b": P((d, gn)), "in_c": P((d, gn)),
-        "in_dt": P((d, n_heads)),
-        "conv_x": P((s.d_conv, d_in), scale=0.5),
-        "conv_b": P((s.d_conv, gn), scale=0.5),
-        "conv_c": P((s.d_conv, gn), scale=0.5),
-        "a_log": P((n_heads,), "zeros"),
-        "dt_bias": P((n_heads,), "zeros"),
-        "d_skip": P((n_heads,), "ones"),
-        "gate_norm": P((d_in,), "ones"),
-        "out": P((d_in, d)),
+        "in_z": D((d, d_in), spec=cols), "in_x": D((d, d_in), spec=cols),
+        "in_b": D((d, gn)), "in_c": D((d, gn)),
+        "in_dt": D((d, n_heads), spec=cols),
+        "conv_x": D((s.d_conv, d_in), scale=0.5, spec=cols),
+        "conv_b": D((s.d_conv, gn), scale=0.5),
+        "conv_c": D((s.d_conv, gn), scale=0.5),
+        "a_log": D((n_heads,), "zeros", spec=heads),
+        "dt_bias": D((n_heads,), "zeros", spec=heads),
+        "d_skip": D((n_heads,), "ones", spec=heads),
+        "gate_norm": D((d_in,), "ones", spec=heads),
+        "out": D((d_in, d), spec=P("model", None)),
     }
 
 
@@ -148,14 +151,19 @@ def ssd_scan(x, dt, a, b, c, chunk: int, use_kernels: bool = True):
 def ssd_step(hstate, xt, dtt, a, bt_, ct):
     """O(1) decode recurrence.  hstate:[B,H,N,P] xt:[B,H,P] dtt:[B,H]
     bt_/ct:[B,G,N] -> (new_state, y [B,H,P])."""
-    h, g = xt.shape[1], bt_.shape[1]
-    bh = bt_.repeat_interleave(h // g, dim=1).to(F32)             # [B,H,N]
-    chh = ct.repeat_interleave(h // g, dim=1).to(F32)
+    b, h, g, n = xt.shape[0], xt.shape[1], bt_.shape[1], bt_.shape[2]
+    # each group's row repeated for its h // g heads (repeat_interleave)
+    bh = bt_[:, :, None].expand(b, g, h // g, n).reshape(b, h, n).to(F32)
+    chh = ct[:, :, None].expand(b, g, h // g, n).reshape(b, h, n).to(F32)
     dtf = dtt.to(F32)
     decay = torch.exp(dtf * a)[..., None, None]                   # [B,H,1,1]
     upd = (dtf[..., None] * bh)[..., None] * xt.to(F32)[:, :, None, :]
     hstate = hstate.to(F32) * decay + upd
-    y = torch.einsum("bhs,bhsp->bhp", chh, hstate)
+    # (on a mesh each rank's batch rows and heads)
+    y = on_shards(lambda c_, s_: torch.einsum("bhs,bhsp->bhp", c_, s_),
+                  (chh, hstate), (P(BATCH, "model", None),
+                                  P(BATCH, "model", None, None)),
+                  P(BATCH, "model", None), (b, h, hstate.shape[-1]))
     return hstate.to(xt.dtype), y.to(xt.dtype)
 
 
@@ -186,6 +194,7 @@ def mamba2_block(cfg: ArchConfig, p: dict, u, use_kernels: bool = True):
 
     bsz, s, _ = u.shape
     xh = x.reshape(bsz, s, n_heads, s_cfg.head_dim)
+    xh = constrain(xh, P(BATCH, None, "model", None))
     bmat = braw.reshape(bsz, s, s_cfg.n_groups, s_cfg.d_state)
     cmat = craw.reshape(bsz, s, s_cfg.n_groups, s_cfg.d_state)
     dt = F.softplus(dtraw.to(F32) + p["dt_bias"].to(F32))
@@ -247,8 +256,9 @@ def mamba_stack(cfg: ArchConfig, lps: dict, x, n: int,
     """n residual mamba layers, stacked on the leading axis of `lps`; each
     layer checkpointed under `cfg.remat` (the reference's scan body)."""
     def fn(x, lp):
-        return x + mamba2_block(cfg, lp["mix"], L.apply_norm(cfg, lp["ln"], x),
-                                use_kernels)
+        return constrain(
+            x + mamba2_block(cfg, lp["mix"], L.apply_norm(cfg, lp["ln"], x),
+                             use_kernels), L.residual_spec(cfg))
     fn = L.checkpointed(cfg, fn)
     for i in range(n):
         x = fn(x, L.layer(lps, i))
@@ -258,6 +268,7 @@ def mamba_stack(cfg: ArchConfig, lps: dict, x, n: int,
 def ssm_logits(cfg: ArchConfig, params: dict, tokens,
                last_only: bool = False, use_kernels: bool = True):
     x = L.embed(cfg, params["embed"], tokens)
+    x = constrain(x, P(BATCH, None, None))
     x = mamba_stack(cfg, params["layers"], x, cfg.n_layers, use_kernels)
     x = L.apply_norm(cfg, params["ln_f"], x)
     if last_only:
@@ -289,12 +300,21 @@ def ssm_state_shape(cfg: ArchConfig, batch: int, seq: int) -> dict:
     }
 
 
+def ssm_state_spec(cfg: ArchConfig) -> dict:
+    """The decode state's heads (and x channels) over `model`."""
+    return {"h": P(None, BATCH, "model", None, None),
+            "conv_x": P(None, BATCH, None, "model"),
+            "conv_b": P(None, BATCH, None, None),
+            "conv_c": P(None, BATCH, None, None)}
+
+
 def ssm_decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens,
                     pos: int):
     """One token per row: (logits [B,1,V], cache), the cache written in
     place.  The recurrent state is position-free, so `pos` is unused."""
     del pos
     x = L.embed(cfg, params["embed"], tokens)
+    x = constrain(x, P(BATCH, None, None))
     for i in range(cfg.n_layers):
         x = mamba_layer_decode(cfg, L.layer(params["layers"], i), x, cache, i)
     x = L.apply_norm(cfg, params["ln_f"], x)

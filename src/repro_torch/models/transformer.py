@@ -24,27 +24,31 @@ import math
 
 import torch
 
+from ..distributed.ctx import P, constrain
 from . import layers as L
 from .config import ArchConfig
 
+BATCH = L.BATCH
 
-def dense_defs(cfg: ArchConfig) -> dict:
+
+def dense_defs(cfg: ArchConfig, fsdp: bool = False) -> dict:
     layer = {
         "ln1": L.norm_defs(cfg),
         "attn": L.attn_defs(cfg),
         "ln2": L.norm_defs(cfg),
-        "mlp": L.ffn_defs(cfg, cfg.d_ff),
+        "mlp": L.ffn_defs(cfg, cfg.d_ff, fsdp),
     }
     if cfg.post_norm:  # gemma2 / gemma3: extra norms after attn and ffn
         layer["post_attn"] = L.norm_defs(cfg)
         layer["post_mlp"] = L.norm_defs(cfg)
     defs = {
-        "embed": L.embed_defs(cfg),
+        "embed": L.embed_defs(cfg, fsdp),
         "layers": L.stack_defs(layer, cfg.n_layers),
         "ln_f": L.norm_defs(cfg),
     }
     if cfg.family == "vlm":
-        defs["vision_proj"] = L.ParamDef((cfg.frontend_dim, cfg.d_model))
+        defs["vision_proj"] = L.ParamDef((cfg.frontend_dim, cfg.d_model),
+                                         spec=P(None, "model"))
     return defs
 
 
@@ -64,7 +68,7 @@ def _layer_fn(cfg: ArchConfig, use_kernels: bool):
         h = L.attention_traced_window(
             cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x), positions,
             window, use_kernels)
-        return _mlp_half(cfg, lp, x, h)
+        return constrain(_mlp_half(cfg, lp, x, h), L.residual_spec(cfg))
     return L.checkpointed(cfg, fn)
 
 
@@ -82,6 +86,7 @@ def dense_logits(cfg: ArchConfig, params: dict, tokens, extra_embeds=None,
             proj = proj * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                                        device=x.device)
         x = torch.cat([proj, x], dim=1)
+    x = constrain(x, P(BATCH, None, None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     fn = _layer_fn(cfg, use_kernels)
     for i in range(cfg.n_layers):
@@ -114,16 +119,26 @@ def dense_cache_shape(cfg: ArchConfig, batch: int, seq: int) -> dict:
     return {"k": kv, "v": kv}
 
 
+def dense_cache_spec(cfg: ArchConfig) -> dict:
+    """The cache's sequence axis over `model` (long contexts at batch 1; a
+    sequence-parallel decode attention)."""
+    spec = P(None, BATCH, "model", None, None)
+    return {"k": spec, "v": spec}
+
+
 def dense_decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens,
                       pos: int):
     """tokens int[B,1] at position `pos` (a host integer) -> (logits
     f32[B,1,V], cache), the cache written in place."""
     x = L.embed(cfg, params["embed"], tokens)
+    x = constrain(x, P(BATCH, None, None))
+    kv_spec = P(BATCH, "model", None, None)
     for i in range(cfg.n_layers):
         lp = L.layer(params["layers"], i)
         h, _, _ = L.attention_decode(
             cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x), cache["k"][i],
-            cache["v"][i], pos, window=L.layer_window(cfg, i))
+            cache["v"][i], pos, window=L.layer_window(cfg, i),
+            cache_spec=kv_spec)
         x = _mlp_half(cfg, lp, x, h)
     x = L.apply_norm(cfg, params["ln_f"], x)
     return L.logits_out(cfg, params["embed"], x), cache

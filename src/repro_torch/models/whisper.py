@@ -28,11 +28,13 @@ import math
 import torch
 
 from ..core import telemetry
+from ..distributed.ctx import P, constrain
 from ..kernels import ops
 from . import layers as L
 from .config import ArchConfig
 
 F32 = torch.float32
+BATCH = L.BATCH
 
 
 def _sinusoid(seq: int, d: int, device=None):
@@ -45,12 +47,14 @@ def _sinusoid(seq: int, d: int, device=None):
 
 def _attn_defs(cfg: ArchConfig) -> dict:
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
-    return {"wq": L.ParamDef((d, h, hd)),
-            "wk": L.ParamDef((d, h, hd)),
-            "wv": L.ParamDef((d, h, hd)),
+    spec = L.head_spec(h)
+    ospec = P("model", None, None) if h % 16 == 0 else None
+    return {"wq": L.ParamDef((d, h, hd), spec=spec),
+            "wk": L.ParamDef((d, h, hd), spec=spec),
+            "wv": L.ParamDef((d, h, hd), spec=spec),
             "bq": L.ParamDef((h, hd), "zeros"),
             "bv": L.ParamDef((h, hd), "zeros"),
-            "wo": L.ParamDef((h, hd, d)),
+            "wo": L.ParamDef((h, hd, d), spec=ospec),
             "bo": L.ParamDef((d,), "zeros")}
 
 
@@ -80,8 +84,9 @@ def _mha(cfg: ArchConfig, p: dict, xq, xkv, causal: bool,
         if use_kernels:
             out = ops.flash_attention(q, k, v, scale=scale, causal=causal)
         elif cfg.attn_block:
-            out = L.sdpa_blockwise(q, k, v, scale, block=cfg.attn_block,
-                                   causal=causal)
+            out = L.sdpa_blockwise(
+                q, k, v, scale, block=cfg.attn_block, causal=causal,
+                row_shard=not L._model_divisible(cfg.n_heads))
         else:
             sq, sk = xq.shape[1], xkv.shape[1]
             mask = (L.causal_mask(sq, sk, device=xq.device) if causal else
@@ -95,8 +100,8 @@ def _mha_decode(cfg: ArchConfig, p: dict, x, ck, cv, pos: int):
     q = _project(p, x, cdt, "q")
     k = _project(p, x, cdt, "k")
     v = _project(p, x, cdt, "v")
-    L.cache_update(ck, k, pos)
-    L.cache_update(cv, v, pos)
+    ck = constrain(L.cache_update(ck, k, pos), P(BATCH, "model", None, None))
+    cv = constrain(L.cache_update(cv, v, pos), P(BATCH, "model", None, None))
     mask = (torch.arange(ck.shape[1], device=x.device) <= pos)[None, :]
     out = L.sdpa(q, ck, cv, mask, 1.0 / math.sqrt(cfg.hd))
     return _out(p, out, cdt), ck, cv
@@ -125,12 +130,13 @@ def encode(cfg: ArchConfig, params: dict, frames, use_kernels: bool = True):
     cdt = L.dtype_of(cfg.compute_dtype)
     x = frames.to(cdt) + _sinusoid(frames.shape[1], cfg.d_model,
                                    frames.device).to(cdt)
+    x = constrain(x, P(BATCH, None, None))
     for i in range(cfg.n_enc_layers):
         lp = L.layer(params["enc_layers"], i)
         h = L.apply_norm(cfg, lp["ln1"], x)
         x = x + _mha(cfg, lp["attn"], h, h, False, use_kernels)
         h = L.apply_norm(cfg, lp["ln2"], x)
-        x = x + L.ffn(cfg, lp["mlp"], h)
+        x = constrain(x + L.ffn(cfg, lp["mlp"], h), P(BATCH, None, None))
     return L.apply_norm(cfg, params["enc_ln"], x)
 
 
@@ -149,6 +155,7 @@ def decode_train(cfg: ArchConfig, params: dict, tokens, enc,
     reps = -(-s // pos_table.shape[0])
     pos = pos_table.repeat(reps, 1)[:s]      # wraps past 4096 rows
     x = x + L._c(pos, cdt)[None]
+    x = constrain(x, P(BATCH, None, None))
     for i in range(cfg.n_layers):
         lp = L.layer(params["dec_layers"], i)
         h = L.apply_norm(cfg, lp["ln1"], x)
@@ -156,7 +163,7 @@ def decode_train(cfg: ArchConfig, params: dict, tokens, enc,
         h = L.apply_norm(cfg, lp["ln_x"], x)
         x = x + _mha(cfg, lp["cross_attn"], h, enc, False, use_kernels)
         h = L.apply_norm(cfg, lp["ln2"], x)
-        x = x + L.ffn(cfg, lp["mlp"], h)
+        x = constrain(x + L.ffn(cfg, lp["mlp"], h), P(BATCH, None, None))
     x = L.apply_norm(cfg, params["dec_ln"], x)
     if last_only:
         x = x[:, -1:]
@@ -185,6 +192,11 @@ def whisper_cache_shape(cfg: ArchConfig, batch: int, seq: int) -> dict:
     }
 
 
+def whisper_cache_spec(cfg: ArchConfig) -> dict:
+    spec = P(None, BATCH, "model", None, None)
+    return {"k": spec, "v": spec, "cross_k": spec, "cross_v": spec}
+
+
 def whisper_decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens,
                         pos: int):
     """tokens int[B,1] at position `pos` (a host integer) -> (logits
@@ -193,6 +205,7 @@ def whisper_decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens,
     x = L.embed(cfg, params["embed"], tokens)
     ptab = params["dec_pos"]
     x = x + L._c(ptab[pos % ptab.shape[0]], cdt)[None, None]
+    x = constrain(x, P(BATCH, None, None))
     enc_mask = torch.ones((1, cfg.enc_seq), dtype=torch.bool,
                           device=x.device)
     scale = 1.0 / math.sqrt(cfg.hd)

@@ -13,9 +13,13 @@ either package restores in the other.
 
 Fault-tolerance contract (used by train/carbon_aware.py): atomic directory
 rename on completion, `latest_step()` discovery on restart, and tolerance
-of a torn (unrenamed) tmp directory from a crashed writer.  Elastic
-restore onto a mesh (the reference's `shardings=`) waits for ROADMAP
-Queue 1 item 6f.
+of a torn (unrenamed) tmp directory from a crashed writer.
+
+On a mesh: `save` gathers each DTensor leaf whole (every rank takes part)
+and rank 0 writes; `restore(..., shardings=)` places every leaf on the
+target mesh (a tree of `distributed.sharding.NamedSharding`s, the
+reference's elastic restore: the same call restores a checkpoint written
+on one mesh onto a mesh of another size).
 """
 from __future__ import annotations
 
@@ -75,6 +79,12 @@ def _rebuild(like, leaves: list):
     return walk(like)
 
 
+def _whole(leaf):
+    """A DTensor leaf gathered whole (a collective); other leaves as they
+    are."""
+    return leaf.full_tensor() if type(leaf).__name__ == "DTensor" else leaf
+
+
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     """(array to write, dtype name for the manifest)."""
     if isinstance(leaf, torch.Tensor):
@@ -87,15 +97,37 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _group():
+    """(rank, world size) of the default process group, (0, 1) without."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def save(ckpt_dir: str, step: int, state) -> str:
-    """Write `state` (a tree of tensors) for `step`.  Atomic via rename."""
+    """Write `state` (a tree of tensors) for `step`.  Atomic via rename.
+    Under a process group every rank calls it (DTensor leaves are gathered
+    whole), rank 0 writes, and all return once the directory is in
+    place."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    rank, world = _group()
+    leaves = [(name, _whole(leaf)) for name, leaf in _leaf_paths(state)]
+    if rank == 0:
+        _write(final, step, leaves)
+    if world > 1:
+        import torch.distributed as dist
+        dist.barrier()
+    return final
+
+
+def _write(final: str, step: int, leaves: list) -> None:
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)          # torn write from a crashed run
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": []}
-    for name, leaf in _leaf_paths(state):
+    for name, leaf in leaves:
         arr, dtype = _to_numpy(leaf)
         fname = f"{name}.npy"
         np.save(os.path.join(tmp, fname), arr, allow_pickle=False)
@@ -107,7 +139,6 @@ def save(ckpt_dir: str, step: int, state) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
-    return final
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -119,16 +150,26 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like, device="cuda"):
+def restore(ckpt_dir: str, step: int, like, device="cuda", shardings=None):
     """Load into the structure of `like` (a tree of tensors): each leaf in
     its `like` leaf's type, on `device`, requiring grad where that leaf
-    does."""
+    does.  `shardings`: a matching tree of NamedShardings
+    (`distributed.sharding.shardings_for_shaped`), which places every leaf
+    on its mesh as a DTensor (on the mesh's device type) instead."""
+    from ..distributed.sharding import put
+    flat_shard = ([s for _, s in _leaf_paths(shardings)]
+                  if shardings is not None else None)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_name = {m["name"]: m for m in manifest["leaves"]}
     out = []
-    for name, leaf in _leaf_paths(like):
+    paths = _leaf_paths(like)
+    if flat_shard is not None:
+        if len(flat_shard) != len(paths):
+            raise ValueError(f"{len(flat_shard)} shardings for "
+                             f"{len(paths)} leaves")
+    for i, (name, leaf) in enumerate(paths):
         meta = by_name[name]
         arr = np.load(os.path.join(d, meta["file"]))
         if meta["dtype"] == "bfloat16":
@@ -138,7 +179,10 @@ def restore(ckpt_dir: str, step: int, like, device="cuda"):
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != "
                              f"expected {tuple(leaf.shape)}")
-        t = t.to(device=device, dtype=leaf.dtype)
+        if flat_shard is not None:
+            t = put(t.to(dtype=leaf.dtype), flat_shard[i])
+        else:
+            t = t.to(device=device, dtype=leaf.dtype)
         out.append(t.requires_grad_(True) if leaf.requires_grad else t)
     return _rebuild(like, out)
 

@@ -16,8 +16,7 @@ d)`.  The bias corrections divide by values that depend on the step and
 stay IEEE divisions.  `adamw_update` writes each new parameter and moment
 into its tensor in place (the reference's new arrays, the same bits), so
 a step keeps no second copy of them.  The
-sharding specs of the moments (`opt_state_specs`) wait for the mesh, ROADMAP
-Queue 1 item 6f.
+moments' partition specs (`opt_state_specs`) are their parameters'.
 """
 from __future__ import annotations
 
@@ -63,10 +62,12 @@ def init_opt_state(params: dict) -> OptState:
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
-def opt_state_specs(param_spec_tree):
-    raise NotImplementedError(
-        "opt_state_specs: sharding specs wait for the mesh, ROADMAP Queue 1 "
-        "item 6f")
+def opt_state_specs(param_spec_tree) -> OptState:
+    """The partition-spec tree of OptState: the moments laid out as the
+    parameters, the step replicated."""
+    from ..distributed.ctx import P
+    return OptState(step=P(), m=param_spec_tree,
+                    v=tree_map(lambda s: s, param_spec_tree))
 
 
 def _f32(x: float) -> np.float32:

@@ -7,8 +7,8 @@ model's loss, which is its plain path: no kernel runs in a step (the
 kernels have no backward, and the reference trains on its jnp paths).
 Parameters are leaves that require grad; the optimizer updates them, and
 its moments, in place under `torch.no_grad()`.  The dry run's abstract
-state and sharding specs (`abstract_train_state`, `train_state_specs`)
-wait for the mesh, ROADMAP Queue 1 item 6f.
+state (`abstract_train_state`: tensors with no values) and its partition
+specs (`train_state_specs`) are the reference's.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ from ..core.config import inv_f32
 from ..models.layers import flatten, tree_map, unflatten
 from ..models.registry import Model
 from . import compression
-from .optimizer import AdamWConfig, OptState, adamw_update, init_opt_state
+from .optimizer import AdamWConfig, OptState, adamw_update, init_opt_state, \
+    opt_state_specs
 
 F32 = torch.float32
 
@@ -63,16 +64,27 @@ def init_train_state(model: Model, generator: torch.Generator,
     return new_train_state(model.init(generator, device=device), tcfg)
 
 
-def abstract_train_state(model: Model, tcfg: TrainConfig):
-    raise NotImplementedError(
-        "abstract_train_state: the dry run waits for the mesh, ROADMAP "
-        "Queue 1 item 6f")
+def abstract_train_state(model: Model, tcfg: TrainConfig,
+                         device="meta") -> TrainState:
+    """The TrainState as tensors with no values (meta, or fake under a
+    `FakeTensorMode` with device "cpu"): parameters in their dtype, f32
+    moments and residuals, an i32 step."""
+    params = model.abstract_params(device)
+    f32 = lambda p: torch.empty(p.shape, dtype=F32, device=device)  # noqa: E731,E501
+    return TrainState(
+        params=params,
+        opt=OptState(step=torch.empty((), dtype=torch.int32, device=device),
+                     m=tree_map(f32, params), v=tree_map(f32, params)),
+        ef=tree_map(f32, params) if tcfg.grad_compression else None)
 
 
-def train_state_specs(model: Model, tcfg: TrainConfig):
-    raise NotImplementedError(
-        "train_state_specs: sharding specs wait for the mesh, ROADMAP "
-        "Queue 1 item 6f")
+def train_state_specs(model: Model, tcfg: TrainConfig) -> TrainState:
+    """The partition-spec tree of the TrainState: moments and residuals
+    laid out as their parameters."""
+    pspecs = model.param_specs()
+    return TrainState(
+        params=pspecs, opt=opt_state_specs(pspecs),
+        ef=tree_map(lambda s: s, pspecs) if tcfg.grad_compression else None)
 
 
 def value_and_grad(model: Model, params: dict, batch: dict):

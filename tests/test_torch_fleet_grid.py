@@ -314,21 +314,50 @@ def test_fleet_grid_checks_cfg_and_trace(workload):
                 axes, ci_trace=TRACES[0], **kw)
 
 
-def test_fleet_grid_mesh_refusals(workload):
-    """`mesh=` on a lone region axis is the reference's ValueError; on a
-    fleet grid with a swept axis the multi-GPU executor is not ported
-    (ROADMAP Queue 1 item 6f)."""
+def test_fleet_grid_mesh_refusals(workload, tmp_path):
+    """`mesh=` on a lone region axis is the reference's ValueError; a fleet
+    grid with a swept axis runs on a mesh (here a gloo world of one, in a
+    process of its own) and equals the unsharded fleet grid bit for bit."""
     (_, _), (pt, ph) = workload
     cfg = pconfig.SimConfig(n_steps=N_STEPS)
     fleet = P.FleetSpec(ci_traces=TRACES)
     with pytest.raises(ValueError, match="only axis is the region_axis"):
         P.sweep_grid(pt, ph, cfg, [P.region_axis(fleet)], mesh=object(),
                      device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 6f"):
-        P.sweep_grid(pt, ph, cfg, [P.dyn_axis(batt_capacity_kwh=CAPS),
-                                   P.region_axis(fleet)], mesh=object(),
-                     device="cpu")
+    want = P.sweep_grid(pt, ph, cfg, [P.dyn_axis(batt_capacity_kwh=CAPS),
+                                      P.region_axis(fleet)], device="cpu")
+    torch.save({"tables": (pt, ph), "want": want}, tmp_path / "in.pt")
+    script = f"""
+import torch, numpy as np
+import repro_torch.core as P, repro_torch.core.config as C
+from repro_torch.launch import mesh as M
+torch.set_num_threads(1)
+d = torch.load({str(tmp_path / "in.pt")!r}, weights_only=False)
+M.init_distributed("cpu", store_dir={str(tmp_path / "pg")!r})
+mesh = M.make_test_mesh(data=1, model=1, device_type="cpu")
+traces = np.asarray({TRACES.tolist()!r}, np.float32)
+got = P.sweep_grid(*d["tables"], C.SimConfig(n_steps={N_STEPS}),
+                   [P.dyn_axis(batt_capacity_kwh=np.asarray({CAPS.tolist()!r},
+                                                            np.float32)),
+                    P.region_axis(P.FleetSpec(ci_traces=traces))],
+                   mesh=mesh, device="cpu")
+for part in ("total", "per_region"):
+    g, w = getattr(got, part), getattr(d["want"], part)
+    for k, v in w._asdict().items():
+        if v is not None:
+            assert torch.equal(getattr(g, k), v), (part, k)
+M.shutdown()
+print("ok")
+"""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=240,
+                         env=dict(os.environ, PYTHONPATH=src))
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), \
+        out.stderr[-3000:]
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ contract (tests/test_grid.py): counts exact, every other field within rtol
 1e-5, atol 1e-6.  The reference is held through its plain and chunked
 executors only (its sharded ones fail on this tree).  Within the port,
 every cell of a grid equals the port's own `simulate` of that scenario, and
-what the port does not have yet is refused naming its ROADMAP item.  The
-same grid on the card is in tests/test_torch_card.py.
+the mesh executors on a world of one equal the unsharded run bit for bit
+(worlds of 2 and 4 are in tests/test_torch_mesh.py).  The same grid on the
+card is in tests/test_torch_card.py.
 """
 from __future__ import annotations
 
@@ -481,7 +482,7 @@ def test_trace_axes_want_rows_of_series(traces):
 
 
 # ---------------------------------------------------------------------------
-# what the port refuses, naming the ROADMAP item that brings it
+# the mesh parts, once refused naming ROADMAP item 6f, on a world of one
 # ---------------------------------------------------------------------------
 
 def _fleet_grid(a):
@@ -490,26 +491,61 @@ def _fleet_grid(a):
                            P.region_axis(P.FleetSpec(ci_traces=a[3]))])
 
 
+@pytest.fixture(scope="module")
+def mesh1(tmp_path_factory):
+    """A (1, 1) ("data", "model") mesh on a gloo world of one, destroyed
+    with the module."""
+    from repro_torch.launch import mesh as M
+    M.init_distributed("cpu", store_dir=str(tmp_path_factory.mktemp("pg")))
+    yield M.make_test_mesh(data=1, model=1, device_type="cpu")
+    M.shutdown()
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda g, a: _fleet_grid(a).run(*a[:3], mesh=object(), device="cpu"),
+    (lambda g, a, m: _fleet_grid(a).run(*a[:3], mesh=m, device="cpu"),
      "item 6f"),
-    (lambda g, a: _fleet_grid(a).run_shard_map(*a[:3]), "item 6f"),
-    (lambda g, a: g.run(*a, mesh=object(), device="cpu"), "item 6f"),
-    (lambda g, a: P.sweep_grid(*a[:3], g.axes, executor="shard_map",
-                               device="cpu"), "item 6f"),
-    (lambda g, a: g.run_shard_map(*a), "item 6f"),
-    (lambda g, a: g.shard_map_callable(*a), "item 6f"),
-    (lambda g, a: g.lower(*a), "item 6f"),
-    (lambda g, a: P.sharded_sweep(None, *a[:2], a[3], a[2]), "item 6f"),
-    (lambda g, a: P.lower_sweep(None, *a[:3], 4, N_STEPS), "item 6f"),
-    (lambda g, a: P.sweep_step_fn(*a[:3]), "item 6f"),
+    (lambda g, a, m: _fleet_grid(a).run_shard_map(*a[:3], mesh=m,
+                                                  device="cpu"), "item 6f"),
+    (lambda g, a, m: g.run(*a[:3], mesh=m, device="cpu"), "item 6f"),
+    (lambda g, a, m: P.sweep_grid(*a[:3], g.axes, executor="shard_map",
+                                  mesh=m, device="cpu"), "item 6f"),
+    (lambda g, a, m: g.run_shard_map(*a[:3], mesh=m, device="cpu"),
+     "item 6f"),
+    (lambda g, a, m: g.shard_map_callable(*a[:3], mesh=m, device="cpu")(
+        *g.payloads()), "item 6f"),
+    (lambda g, a, m: g.lower(*a[:3], mesh=m), "item 6f"),
+    (lambda g, a, m: P.sharded_sweep(m, *a[:2], a[3], a[2], device="cpu"),
+     "item 6f"),
+    (lambda g, a, m: P.lower_sweep(m, *a[:3], 2, N_STEPS), "item 6f"),
+    (lambda g, a, m: P.sweep_step_fn(*a[:3], device="cpu")(a[3]),
+     "item 6f"),
 ])
-def test_unported_grid_parts_raise(workload, traces, call, item):
+def test_unported_grid_parts_raise(workload, traces, mesh1, call, item):
+    """The grid's mesh parts (refused until ROADMAP `item` came) run on a
+    world of one: each result equals the unsharded run's bit for bit (a
+    fleet grid's, the fleet grid's), and a lowering gives the counts of
+    the grid's program."""
     tasks, hosts = workload[1]
     grid = P.ScenarioGrid([P.trace_axis(traces)])
     args = (tasks, hosts, pconfig.SimConfig(n_steps=N_STEPS), traces)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        call(grid, args)
+    got = call(grid, args, mesh1)
+    if hasattr(got, "analyze"):
+        res = got.analyze()
+        assert set(res) >= {"flops", "bytes", "collective_bytes",
+                            "collectives"}
+        assert res["bytes"] > 0 and res["collective_bytes"] == 0
+        return
+    want = (_fleet_grid(args) if hasattr(got, "per_region") else grid).run(
+        *args[:3], device="cpu")
+    if hasattr(got, "per_region"):
+        got, want = ({**as_numpy(r.total), **{"r." + k: v for k, v in
+                                             as_numpy(r.per_region).items()}}
+                     for r in (got, want))
+    else:
+        got, want = as_numpy(got), as_numpy(want)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 def test_engine_refusals_hold_per_grid(workload, traces):

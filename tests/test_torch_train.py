@@ -141,8 +141,19 @@ def test_adamw_minimizes_quadratic():
 
 
 def test_opt_state_specs_wait_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="6f"):
-        popt.opt_state_specs({})
+    """The moments' specs (once refused until ROADMAP item 6f) are the
+    parameters', the step replicated, as the reference's."""
+    from jax.sharding import PartitionSpec as JP
+
+    from repro_torch.distributed.ctx import P
+    specs = {"w": P("data", "model"), "b": {"x": P(None)}}
+    got = popt.opt_state_specs(specs)
+    want = jopt.opt_state_specs({"w": JP("data", "model"),
+                                 "b": {"x": JP(None)}})
+    assert got.step == P() and tuple(want.step) == ()
+    for tree in (got.m, got.v):
+        assert tree == specs
+    assert tuple(want.m["w"]) == ("data", "model")
 
 
 # -------------------------------------------------------------- compression
@@ -191,8 +202,13 @@ def test_error_feedback_ten_steps_bit_equal():
 
 
 def test_cross_pod_allreduce_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="6f"):
-        pcomp.cross_pod_allreduce_compressed({}, None)
+    """Once refused until ROADMAP item 6f: without a `pod` axis the
+    compressed all-reduce is the identity, as the reference's (two pods on
+    gloo ranks: tests/test_torch_elastic.py)."""
+    import types
+    grads = {"w": T([1.0, 2.0])}
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"))
+    assert pcomp.cross_pod_allreduce_compressed(grads, mesh) is grads
 
 
 # ------------------------------------------------------------- checkpoints
@@ -352,6 +368,20 @@ def test_new_train_state_and_the_mesh_parts():
                                 device="cpu")
     assert int(st.opt.step) == 0 and st.ef is not None
     assert all(p.requires_grad for p in flatten(st.params).values())
-    for fn in (pstep.abstract_train_state, pstep.train_state_specs):
-        with pytest.raises(NotImplementedError, match="6f"):
-            fn(model, pstep.TrainConfig())
+    # the dry run's abstract state and specs (once refused until ROADMAP
+    # item 6f): no values, the reference's shapes, a spec a leaf
+    tcfg = pstep.TrainConfig(grad_compression=True)
+    ab = pstep.abstract_train_state(model, tcfg)
+    sp = pstep.train_state_specs(model, tcfg)
+    jm = j_get_model(jconfigs.reduced("mamba2-2.7b"))
+    jab = jstep.abstract_train_state(jm, jstep.TrainConfig(
+        grad_compression=True))
+    for part in ("m", "v"):
+        for path, t in flatten(getattr(ab.opt, part)).items():
+            assert t.device.type == "meta" and t.dtype == torch.float32
+            want = jab.opt._asdict()[part]
+            for k in path:
+                want = want[k]
+            assert tuple(t.shape) == tuple(want.shape), path
+    assert set(flatten(sp.params)) == set(flatten(ab.params)) \
+        == set(flatten(sp.ef))
