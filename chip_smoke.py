@@ -121,10 +121,21 @@ Phases, each printing one JSON line:
                  wall and peak memory; qwen2-1.5b placed on the (1, 1) mesh
                  by its partition specs, one 2 x 4096 prefill under
                  `use_mesh` bit-equal to the unmeshed one with exactly 28
-                 flash launches; the dry run of qwen2-1.5b train_4k on the
-                 single-pod mesh (`python -m repro_torch.launch.dryrun`, the
-                 `fake` backend's 256 ranks, no card) in a process of its
-                 own, its record printed.
+                 flash launches; qwen3-moe at its published widths and 2
+                 layers made on the (1, 1) mesh (`Model.init(mesh=)`), one
+                 2 x 4096 prefill bit-equal to the unmeshed one with
+                 exactly 2 flash launches (on one card every mesh axis
+                 has size 1, so both run every leaf `Replicate()`: DTensor's
+                 dispatch on whole tensors); the dry run of qwen2-1.5b
+                 train_4k on the single-pod mesh (`python -m
+                 repro_torch.launch.dryrun`, the `fake` backend's 256
+                 ranks, no card) in a process of its own, its record
+                 printed; and beside it, in another process, the dry run's
+                 four small cells (`--small`) on this machine's PyTorch,
+                 held to the reference's committed records
+                 (tests/data/torch_dryrun_reference.json: model FLOPs and
+                 parameter bytes exact, per-device matrix FLOPs within
+                 10 %).
   5. small    -- the same configuration at a small scale on the card and on
                  the CPU (the plain versions, which the CPU tests hold to the
                  reference package): counts exact, the rest within 1e-4.
@@ -283,6 +294,7 @@ from repro_torch.kernels import host_sum as hs_k  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import power_carbon as pc_k  # noqa: E402
 from repro_torch.kernels import ssd_chunk as ssd_k  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import simulate as cli  # noqa: E402
 from repro_torch.models import get_model, whisper  # noqa: E402
 from repro_torch.models.layers import (dtype_of, flatten,  # noqa: E402
@@ -1349,10 +1361,12 @@ def profiled(fn, top_n: int = 8, watch: tuple = (),
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # the kernels themselves (device-side events); the host ops that
-    # launched them carry the same time again
+    # launched them carry the same time again, and so do the device-side
+    # annotations of collectives ("nccl:all_reduce") around NCCL's kernels
     events = [(e.key, e.self_device_time_total, e.count)
               for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("nccl:")]
     busy_us = sum(t for _, t, _ in events)
     top = sorted(events, key=lambda e: -e[1])
     by_class: dict = {}
@@ -1953,6 +1967,10 @@ def time_kernels_at_rows(dev, main_cfg, b: int) -> dict:
 
 MESH_DIR = os.path.join(ROOT, "results", "mesh_smoke")
 MESH_BATCH = ("pod", "data")
+# the reference's records of the dry run's four small cells
+DRYRUN_FIXTURE = os.path.join(ROOT, "tests", "data",
+                              "torch_dryrun_reference.json")
+MESH_MOE_LAYERS = 2
 
 
 def _mesh_record_checks(rec, mesh_names, mesh_shape, chunk: dict,
@@ -1977,10 +1995,20 @@ def mesh_phase(dev, b16: tuple, scale: float, n_steps: int, n_active: int,
     records' mesh and chunk plan, wall and peak memory; (c) qwen2-1.5b
     placed on the (1, 1) mesh by its `param_specs` (on the CPU the reduced
     config), one 2 x 4096 prefill under `use_mesh`: logits bit-equal to the
-    unmeshed prefill's, 28 flash launches; (d) the dry run of qwen2-1.5b
-    train_4k on the single-pod mesh as a process of its own (the `fake`
-    backend's 256 ranks, no card), started first and read last, rc 0 (on
-    the CPU `--list`).  The process group is destroyed at the end."""
+    unmeshed prefill's, 28 flash launches; (c') qwen3-moe at published
+    widths (on the CPU reduced) and MESH_MOE_LAYERS layers made on the
+    (1, 1) mesh, one 2 x 4096 prefill bit-equal to the unmeshed one's with
+    one flash launch a layer (on a mesh of one card every axis has size 1,
+    so `ctx.placements` makes every leaf `Replicate()`: (c) and (c') run
+    DTensor's dispatch and the meshed code paths on whole tensors, not a
+    split layout, its per-rank init or its partial sums, which
+    scripts/mesh_models_cards.py runs on 4 cards and
+    tests/test_torch_mesh_moe.py on 4 gloo ranks); (d) the dry run of
+    qwen2-1.5b train_4k on the single-pod mesh as a process of its own (the `fake` backend's 256
+    ranks, no card), started first and read last, rc 0 (on the CPU
+    `--list`); (e) beside it, the dry run's four small cells on this
+    machine's PyTorch, each held to the reference's committed record
+    (`dryrun.check_small`).  The process group is destroyed at the end."""
     from repro_torch.distributed import ctx
     from repro_torch.distributed.sharding import place
     from repro_torch.launch import mesh as M
@@ -1997,6 +2025,10 @@ def mesh_phase(dev, b16: tuple, scale: float, n_steps: int, n_active: int,
                             *argv], stdout=subprocess.PIPE,
                            stderr=subprocess.PIPE, text=True, env=env,
                            cwd=ROOT)
+    small = subprocess.Popen([sys.executable, "-m",
+                              "repro_torch.launch.dryrun", "--small"],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, env=env, cwd=ROOT)
 
     # (a) the process group and the meshes
     t0 = time.perf_counter()
@@ -2086,6 +2118,7 @@ def mesh_phase(dev, b16: tuple, scale: float, n_steps: int, n_active: int,
                   "wall_s": time.perf_counter() - t0,
                   "max_memory_allocated": _peak(dev)})
     del params, placed, plain, got
+    lines.append(mesh_moe_prefill(dev, mesh2, full))
     M.shutdown()
 
     # (d) the dry run's process
@@ -2105,8 +2138,66 @@ def mesh_phase(dev, b16: tuple, scale: float, n_steps: int, n_active: int,
     else:
         line["lines"] = len(out.splitlines())
     lines.append(line)
+
+    # (e) the small cells against the reference's records
+    out, err = small.communicate(timeout=900)
+    check(small.returncode == 0, f"small dry-run cells rc "
+          f"{small.returncode}: {err[-2000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    with open(DRYRUN_FIXTURE) as f:
+        fix = json.load(f)
+    cells = {a: dryrun.check_small(got["records"][a], fix["records"][a])
+             for a, _ in dryrun.SMALL_CELLS}
+    check(all(c["ok"] for c in cells.values()),
+          f"small dry-run cells against the reference: {cells}")
+    lines.append({"part": "dryrun_small", "torch": got["torch"],
+                  "reference_jax": fix["jax"], "cells": cells})
     lines.append({"part": "summary", "seconds": time.perf_counter() - t_phase})
     return [{"phase": "mesh", **x} for x in lines]
+
+
+def mesh_moe_prefill(dev, mesh, full: bool) -> dict:
+    """Phase 4f (c'): qwen3-moe (published widths on the card, reduced on
+    the CPU) at MESH_MOE_LAYERS layers, one prefill of SERVE_BATCH x
+    PREFILL_LEN (64 on the CPU) unmeshed and one with the parameters made
+    on `mesh` (a world of one: every leaf `Replicate()`, so the bits
+    agree by construction and what runs is DTensor's dispatch on whole
+    tensors) under `use_mesh`: the logits bit-equal, one flash launch a
+    layer."""
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import place
+    t0 = time.perf_counter()
+    arch = "qwen3-moe-235b-a22b"
+    cfg = (get_config(arch) if full else reduced(arch)).replace(
+        n_layers=MESH_MOE_LAYERS)
+    model = get_model(cfg)
+    seq = PREFILL_LEN if full else 64
+    batch = {"tokens": _tokens(torch.Generator(device=dev).manual_seed(1),
+                               cfg, SERVE_BATCH, seq, dev)}
+    params = model.compute_params(model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    timed_prefill(model, params, batch, dev)               # warm-up
+    plain, plain_s, _ = timed_prefill(model, params, batch, dev)
+    del params
+    placed = model.compute_params(model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev, mesh=mesh))
+    with ctx.use_mesh(mesh):
+        pbatch = place(mesh, batch, {"tokens": ctx.P(MESH_BATCH, None)})
+        got, wall, counts = timed_prefill(model, placed, pbatch, dev)
+    got = got.full_tensor()
+    check(torch.equal(got, plain),
+          f"meshed MoE prefill vs unmeshed: max abs diff "
+          f"{(got.float() - plain.float()).abs().max().item()}")
+    check_launches(counts, cfg, dev, "meshed MoE prefill")
+    line = {"part": "moe_prefill", "model": cfg.name,
+            "n_layers": cfg.n_layers, "batch": SERVE_BATCH, "seq": seq,
+            "bit_equal": True, "launches": counts, "prefill_s": wall,
+            "unmeshed_prefill_s": plain_s,
+            "placed_param_type": type(placed["layers"]["moe"]["w_up"])
+            .__name__, "wall_s": time.perf_counter() - t0,
+            "max_memory_allocated": _peak(dev)}
+    del placed, plain, got
+    return line
 
 
 # --------------------------------------------------------------------------
@@ -3710,19 +3801,20 @@ def time_model_kernels(dev, results: dict) -> None:
     torch.cuda.synchronize()
 
 
-def time_new_flash_shapes(dev, results: dict) -> None:
-    """Kernel 6 at the MoE and encoder-decoder shapes (FLASH_NEW_SHAPES):
-    ms, plain ms (the plain version 32 query heads at a time,
-    `_flash_plain`), device ms, one call of scaled_dot_product_attention on
-    the function's own inputs (MLA: v of 128, not padded), and the bound
-    of the function: bytes of q, k, v and the output once, operations 2 d_qk
-    + 2 d_v a (row, column) pair and head that the mask keeps.  MLA's
-    kernel runs on v padded to 192, 1.2x the function's operations."""
-    gen = torch.Generator(device=dev).manual_seed(8)
+def time_flash_shapes(dev, shapes: dict, seed: int = 8) -> dict:
+    """Kernel 6 at each of `shapes` (name: (b, sq, sk, h, kv, d, causal,
+    dtype, rtol, atol)): ms, plain ms (the plain version 32 query heads at
+    a time, `_flash_plain`), device ms, one call of
+    scaled_dot_product_attention on the function's own inputs (MLA: v of
+    128, not padded), and the bound of the function: bytes of q, k, v and
+    the output once, operations 2 d_qk + 2 d_v a (row, column) pair and
+    head that the mask keeps.  MLA's kernel runs on v padded to 192, 1.2x
+    the function's operations."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
     for name, (b, sq, sk, h, kv, d, causal, dt, _, _) in \
-            FLASH_NEW_SHAPES.items():
+            shapes.items():
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dt)
         k = torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dt)
         dv = MLA_V if d == MLA_QK else d
@@ -3750,8 +3842,15 @@ def time_new_flash_shapes(dev, results: dict) -> None:
             "bound_ms": b_ms, "bound_by": b_by}
         del q, k, v, vp, qt, kt, vt
         torch.cuda.empty_cache()
-    results["flash_attention"]["moe_encdec_shapes"] = out
     torch.cuda.synchronize()
+    return out
+
+
+def time_new_flash_shapes(dev, results: dict) -> None:
+    """Kernel 6 at the MoE and encoder-decoder shapes (FLASH_NEW_SHAPES),
+    `time_flash_shapes`."""
+    results["flash_attention"]["moe_encdec_shapes"] = time_flash_shapes(
+        dev, FLASH_NEW_SHAPES)
 
 
 # --------------------------------------------------------------------------

@@ -19,6 +19,7 @@ A mesh is a `torch.distributed.device_mesh.DeviceMesh` with
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 
 import torch
@@ -46,11 +47,13 @@ def current_mesh():
 def use_mesh(mesh):
     """Install `mesh` for `constrain`.  With a mesh, a plain tensor that
     meets a DTensor (an `arange`, a mask, positions) is taken as replicated
-    on it (DTensor's implicit replication)."""
+    on it (DTensor's implicit replication; turned on by the outermost
+    block only, since leaving that context turns it off whatever it
+    found)."""
     prev = current_mesh()
     _state.mesh = mesh
     try:
-        if mesh is None:
+        if mesh is None or prev is not None:
             yield mesh
         else:
             from torch.distributed.tensor.experimental import \
@@ -94,7 +97,9 @@ def placements(spec: P, mesh) -> tuple:
     """The DTensor placements of `spec` on `mesh`: `Shard(i)` on every mesh
     dimension that splits tensor dimension i, `Replicate()` on the rest.
     A dimension split over several mesh axes takes them in mesh order (the
-    major axis first), as JAX lays out `P(("pod", "data"))`."""
+    major axis first), as JAX lays out `P(("pod", "data"))`.  A mesh
+    dimension of size 1 splits nothing: `Replicate()` (DTensor would keep
+    a tensor dimension "split" one way that no reshape may then merge)."""
     from torch.distributed.tensor import Replicate, Shard
     names = axis_names(mesh)
     out = [Replicate()] * len(names)
@@ -102,7 +107,8 @@ def placements(spec: P, mesh) -> tuple:
         if part is None:
             continue
         for a in (part if isinstance(part, tuple) else (part,)):
-            out[names.index(a)] = Shard(i)
+            if mesh.shape[names.index(a)] > 1:
+                out[names.index(a)] = Shard(i)
     return tuple(out)
 
 
@@ -195,6 +201,87 @@ def attention_layout(q, k, rows: bool):
     return mesh, qp, kvp
 
 
+def on_attention_shards(fn, q, k, v):
+    """`fn(q, k, v)` on each rank's shards of DTensors q [B, Sq, H, D] and
+    k / v [B, Sk, KV, *] (`attention_layout`: q's batch and head
+    splits kept, a GQA group never split, the keys whole on every rank),
+    as a DTensor laid out as q of width fn's.  The attention of one rank's
+    heads needs no other rank's, so DTensor's rules for the products and
+    the softmax over a split key axis, which differ between PyTorch
+    releases, are not needed.  Without DTensors it is `fn(q, k, v)`."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    mesh, qp, kvp = attention_layout(q, k, rows=False)
+    out = fn(to_layout(q, mesh, qp).to_local(),
+             to_layout(k, mesh, kvp).to_local(),
+             to_layout(v, mesh, kvp).to_local())
+    return from_local(out, mesh, qp, (*q.shape[:3], out.shape[-1]))
+
+
+def on_key_shards(fn, qs, kvs):
+    """Attention of queries `qs` (tensors [B, Sq, H, *]) over a decode
+    cache `kvs` (tensors [B, Sk, *] laid out alike, the key positions on
+    dimension 1) on each rank's shards, the cache left as it is laid out:
+    `fn(qs, kvs, start)` gives (out [B, Sq, H, Dv], its masked f32 logits
+    [B, Sq, H, s]) over local keys whose first is at position `start`.
+    The queries (gathered as one tensor) take the cache's batch split and,
+    where the cache has a head axis ([B, Sk, KV, *]) and every rank keeps
+    whole GQA groups, its head split; on the mesh dimensions that split
+    the key positions the queries are whole, and one all-gather of every
+    rank's output and logsumexp gives each rank their combination, so no
+    rank gathers the cache.  DTensor's rules for the products and the
+    softmax over a split key axis, which differ between PyTorch releases,
+    are not needed.  Without DTensors it is fn's out."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    q, k = qs[0], kvs[0]
+    if not isinstance(q, DTensor):
+        return fn(qs, kvs, 0)[0]
+    mesh = q.device_mesh
+    kpl = k.placements if isinstance(k, DTensor) else \
+        [Replicate()] * mesh.ndim
+    heads = all(t.dim() == 4 for t in kvs)
+    qp, kvp, seq = [], [], []
+    for i, (a, b) in enumerate(zip(kpl, q.placements)):
+        if a == Shard(1):
+            seq.append(i)
+            qp.append(Replicate())
+            kvp.append(a)
+        elif Shard(0) in (a, b):
+            qp.append(Shard(0))
+            kvp.append(Shard(0))
+        elif heads and Shard(2) in (a, b) and k.shape[2] % mesh.size(i) == 0:
+            qp.append(Shard(2))
+            kvp.append(Shard(2))
+        else:
+            qp.append(Replicate())
+            kvp.append(Replicate())
+    start = shard_box(k.shape, kvp, mesh)[1][0]
+    widths = [t.shape[-1] for t in qs]
+    ql = to_layout(torch.cat(qs, dim=-1) if len(qs) > 1 else q, mesh,
+                   qp).to_local()
+    out, logits = fn(tuple(torch.split(ql, widths, dim=-1)),
+                     tuple(to_layout(t, mesh, kvp).to_local() for t in kvs),
+                     start)
+    shape = (*q.shape[:3], out.shape[-1])
+    if not seq:
+        return from_local(out, mesh, qp, shape)
+    # every rank's (output, logsumexp) [n, B, Sq, H, Dv + 1], n the ranks
+    # over the position split, combined alike on each
+    lse = torch.logsumexp(logits, dim=-1)[..., None]
+    part = torch.cat([out.float(), lse], dim=-1)[None]
+    pl = [Shard(p.dim + 1) if p.is_shard() else p for p in qp]
+    n = math.prod(mesh.size(i) for i in seq)
+    every = from_local(part, mesh, [Shard(0) if i in seq else p
+                                    for i, p in enumerate(pl)],
+                       (n, *shape[:3], shape[3] + 1))
+    every = every.redistribute(mesh, pl).to_local()
+    lse = every[..., -1]
+    w = torch.exp(lse - lse.amax(dim=0))
+    comb = (every[..., :-1] * w[..., None]).sum(0) / w.sum(0)[..., None]
+    return from_local(comb.to(out.dtype), mesh, qp, shape)
+
+
 def to_layout(x, mesh, pl):
     """`x` (a DTensor, or a plain tensor taken as replicated) laid out as
     `pl`."""
@@ -232,6 +319,32 @@ def split_dims(*layouts) -> set:
     """The mesh dimensions that split any of `layouts` (placement lists)."""
     return {i for pl in layouts for i, p in enumerate(pl)
             if p.is_shard() or p.is_partial()}
+
+
+def shard_box(shape, pl, mesh) -> list[tuple[int, int]]:
+    """(start, length) along each dimension of this rank's shard of a
+    tensor of global `shape` laid out as `pl` on `mesh`: DTensor's chunks
+    (`torch.chunk`'s sizes, the last ones short or empty where a dimension
+    does not divide), a dimension split over several mesh dimensions in
+    mesh order."""
+    box = [[0, n] for n in shape]
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            off, n = box[p.dim]
+            size = -(-n // mesh.size(i))
+            start = min(coord[i] * size, n)
+            box[p.dim] = [off + start, min(size, n - start)]
+    return [tuple(b) for b in box]
+
+
+def made_on_mesh(make, shape, spec: P, mesh):
+    """A DTensor of global `shape` laid out by `spec` on `mesh` (axes it
+    lacks dropped), of which this rank makes only its shard:
+    `make(box)`, `box` the shard's (start, length) a dimension
+    (`shard_box`)."""
+    pl = placements(spec, mesh)
+    return from_local(make(shard_box(shape, pl, mesh)), mesh, pl, shape)
 
 
 def shard_offset(x, dim: int, placements=None) -> int:

@@ -21,6 +21,8 @@ reaches a kernel).  Training takes the models' plain path
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core import telemetry
@@ -169,13 +171,9 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True):
     split as the inputs are (a GQA group never split across ranks), the
     sequence whole (`ctx.attention_layout`)."""
     if type(q).__name__ == "DTensor":
-        from ..distributed.ctx import attention_layout, from_local, to_layout
-        mesh, qp, kvp = attention_layout(q, k, rows=False)
-        out = flash_attention(
-            to_layout(q, mesh, qp).to_local(),
-            to_layout(k, mesh, kvp).to_local(),
-            to_layout(v, mesh, kvp).to_local(), scale=scale, causal=causal)
-        return from_local(out, mesh, qp, q.shape)
+        from ..distributed.ctx import on_attention_shards
+        return on_attention_shards(functools.partial(
+            flash_attention, scale=scale, causal=causal), q, k, v)
     _refuse_autograd("flash_attention", q, k, v)
     telemetry.note_plain_kernels(not q.is_cuda)
     impl = _flash_attn if q.is_cuda else ref

@@ -21,14 +21,25 @@ give a kernel nothing to run on, so the dry run counts the plain paths
 reference's dry run on XLA:CPU either.  The reference's lower and compile
 times are one trace time here (`trace_s`).
 
+The four small cells (`SMALL_CELLS`: the reference's
+tests/test_dryrun_small.py, its overrides and shrunken shapes, on a
+(2, 2, 2) ("pod", "data", "model") mesh of 8 fake ranks) are held to the
+reference's records, committed as tests/data/torch_dryrun_reference.json,
+by `check_small` (model FLOPs and parameter bytes exact, per-device matrix
+FLOPs within 10 %); `--small` prints their records as one JSON line, which
+tests/test_torch_dryrun.py and chip_smoke.py's phase 4f read on the
+release of PyTorch they run.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all --mesh both
   python -m repro_torch.launch.dryrun --list
+  python -m repro_torch.launch.dryrun --small
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import traceback
@@ -40,6 +51,7 @@ from ..configs import SHAPES, cell_applicable, get_config
 from ..distributed import ctx
 from ..distributed.sharding import (put, shardings_for_shaped, tree_leaves,
                                     tree_map)
+from ..models.config import MLAConfig, ShapeCell
 from ..models.registry import get_model
 from ..train.optimizer import AdamWConfig
 from ..train.step import (TrainConfig, abstract_train_state, make_train_step,
@@ -54,17 +66,18 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 
 def build_cell_fn(arch_id: str, shape_name: str, mesh,
                   grad_compression: bool = False, overrides=None,
-                  microbatches: int = 1, device="cpu"):
+                  microbatches: int = 1, device="cpu", shape=None):
     """(fn, args, shardings, cfg, shape) of the cell's step.
 
     `args` are tensors without values on `device` (fake under an active
     `FakeTensorMode`), not yet placed; `shardings` their NamedShardings
     (`shardings_for_shaped`: a dimension the mesh does not divide
-    replicated); `fn(*args)` the step."""
+    replicated); `fn(*args)` the step.  `shape` (a ShapeCell) in place of
+    `SHAPES[shape_name]`."""
     cfg = get_config(arch_id)
     if overrides:
         cfg = cfg.replace(**overrides)
-    shape = SHAPES[shape_name]
+    shape = shape or SHAPES[shape_name]
     model = get_model(cfg)
     tcfg = TrainConfig(opt=AdamWConfig(), grad_compression=grad_compression,
                        microbatches=microbatches)
@@ -106,12 +119,13 @@ def _fake_world(n: int):
 
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
              grad_compression: bool = False, overrides=None, tag: str = "",
-             microbatches: int = 1, mesh=None) -> dict:
+             microbatches: int = 1, mesh=None, shape=None) -> dict:
     """The cell's record.  Without `mesh`, the production mesh on a fake
-    world of 256 (512 multi-pod) ranks."""
+    world of 256 (512 multi-pod) ranks.  `shape` in place of
+    `SHAPES[shape_name]`."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     cfg0 = get_config(arch_id)
-    shape = SHAPES[shape_name]
+    shape = shape or SHAPES[shape_name]
     ok, why = cell_applicable(cfg0, shape)
     mesh_name = "multi" if multi_pod else "single"
     rec = {"arch": arch_id, "shape": shape_name, "mesh": mesh_name,
@@ -125,7 +139,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
     with mode, ctx.use_mesh(mesh):
         fn, args, shardings, cfg, shape = build_cell_fn(
             arch_id, shape_name, mesh, grad_compression, overrides,
-            microbatches)
+            microbatches, shape=shape)
         args = tree_map(put, args, shardings)
         if shape.kind == "train":
             from ..train.step import trainable
@@ -187,6 +201,75 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
     return rec
 
 
+# --------------------------------------------------------------------------
+# the four small cells held to the reference's records
+# --------------------------------------------------------------------------
+
+# tests/test_dryrun_small.py's cells: one dense and one MoE train cell, an
+# MLA decode and an SSM decode
+SMALL_CELLS = (("qwen2-1.5b", "train"), ("qwen3-moe-235b-a22b", "train"),
+               ("deepseek-v2-236b", "decode"), ("mamba2-2.7b", "decode"))
+# its shrunken shapes, under the names of the shapes they stand for
+SMALL_SHAPES = {"train": ShapeCell("train_4k", 128, 8, "train"),
+                "decode": ShapeCell("decode_32k", 128, 8, "decode")}
+# per-device matrix FLOPs may miss the reference's by this share
+SMALL_FLOPS_RTOL = 0.10
+
+
+def small_overrides(arch_id: str) -> dict:
+    """tests/test_dryrun_small.py's overrides of `arch_id`'s config."""
+    cfg = get_config(arch_id)
+    if cfg.family == "ssm":
+        return dict(n_layers=2, d_model=64, vocab=512,
+                    ssm=dataclasses.replace(cfg.ssm, d_state=16,
+                                            head_dim=16))
+    if cfg.family != "moe":
+        return dict(n_layers=2, d_model=64, d_ff=128, vocab=512,
+                    head_dim=16, n_heads=4, n_kv_heads=2)
+    o = dict(n_layers=2, d_model=64, d_ff=64, vocab=512, head_dim=16,
+             n_heads=4, n_kv_heads=2,
+             moe=dataclasses.replace(cfg.moe, n_experts=8, top_k=2,
+                                     d_ff_expert=32, router_group=64))
+    if cfg.mla is not None:
+        o["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=32,
+                             rope_head_dim=8, nope_head_dim=16,
+                             v_head_dim=16)
+        o.update(head_dim=24, n_heads=4, n_kv_heads=4)
+    return o
+
+
+def run_small_cells(cells=SMALL_CELLS) -> dict:
+    """{arch: record} of the small cells on a (2, 2, 2) mesh of the fake
+    backend's world of 8 (made here; destroyed at the end)."""
+    from .mesh import make_test_mesh, shutdown
+    _fake_world(8)
+    mesh = make_test_mesh(2, 2, 2, device_type="cpu")
+    out = {}
+    for arch, kind in cells:
+        out[arch] = run_cell(arch, SMALL_SHAPES[kind].name, False,
+                             overrides=small_overrides(arch), mesh=mesh,
+                             shape=SMALL_SHAPES[kind])
+    shutdown()
+    return out
+
+
+def check_small(rec: dict, ref: dict) -> dict:
+    """A small cell's record against the reference's (`ref`: its model
+    FLOPs, per-device parameter bytes and matrix FLOPs): the fields
+    compared, the relative miss of the FLOPs, and `ok`."""
+    per = rec["per_device"]
+    rel = per["flops"] / ref["flops"] - 1.0
+    checks = {"status": rec["status"] == "ok",
+              "model_flops": rec["roofline"]["model_flops"]
+              == ref["model_flops"],
+              "param_bytes": per["param_bytes"] == ref["param_bytes"],
+              "flops": abs(rel) <= SMALL_FLOPS_RTOL}
+    return {"flops": per["flops"], "ref_flops": ref["flops"],
+            "flops_rel": rel, "param_bytes": per["param_bytes"],
+            "ref_param_bytes": ref["param_bytes"], "checks": checks,
+            "ok": all(checks.values())}
+
+
 def _leaves(x) -> list:
     if isinstance(x, torch.Tensor):
         return [x]
@@ -220,7 +303,13 @@ def main(argv=None):
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=RESULTS_DIR)
+    ap.add_argument("--small", action="store_true")
     args = ap.parse_args(argv)
+
+    if args.small:
+        print(json.dumps({"torch": torch.__version__,
+                          "records": run_small_cells()}))
+        return
 
     if args.list:
         for a in ARCHS:

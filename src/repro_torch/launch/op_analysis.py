@@ -31,6 +31,7 @@ arguments' bytes plus the largest rise above them.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import weakref
 from dataclasses import dataclass, field
@@ -215,11 +216,15 @@ class OpCounter(TorchDispatchMode):
 
 def count(fn, *args, **kwargs):
     """(fn's result, Totals, seconds) of `fn(*args, **kwargs)` run under an
-    OpCounter (and DTensor's implicit replication of plain tensors)."""
+    OpCounter (and DTensor's implicit replication of plain tensors, which
+    an installed mesh has on already: `ctx.use_mesh`)."""
     from torch.distributed.tensor.experimental import implicit_replication
+    from ..distributed.ctx import current_mesh
     counter = OpCounter()
     t0 = time.perf_counter()
-    with implicit_replication(), counter:
+    rep = (contextlib.nullcontext() if current_mesh() is not None
+           else implicit_replication())
+    with rep, counter:
         out = fn(*args, **kwargs)
     counter.totals.peak_rise = counter.peak_rise
     return out, counter.totals, time.perf_counter() - t0

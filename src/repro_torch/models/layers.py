@@ -59,7 +59,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..core import telemetry
 from ..core.config import inv_f32
 from ..distributed.ctx import (P, attention_layout, constrain, from_local,
-                               local_of, shard_offset, split_dims, to_layout)
+                               local_of, made_on_mesh, on_key_shards,
+                               shard_offset, split_dims, to_layout)
 from ..kernels import ops
 from .config import ArchConfig
 
@@ -105,12 +106,19 @@ def _c(w, dt: torch.dtype):
 _INIT_CHUNK = 1 << 26
 
 
-def _init_leaf(gen, d: ParamDef, dtype: str, device) -> torch.Tensor:
+def _init_leaf(gen, d: ParamDef, dtype: str, device,
+               box=None) -> torch.Tensor:
+    """The leaf `d` drawn from `gen`; with `box` ((start, length) a
+    dimension) only that block of it, from the same draws."""
     dt = dtype_of(d.dtype or dtype)
+    part = box is not None and any(n != m for (_, n), m in zip(box, d.shape))
+    box = box or [(0, n) for n in d.shape]
+    shape = tuple(n for _, n in box)
+    cut = tuple(slice(a, a + n) for a, n in box)
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=dt, device=device)
+        return torch.zeros(shape, dtype=dt, device=device)
     if d.init == "ones":
-        return torch.ones(d.shape, dtype=dt, device=device)
+        return torch.ones(shape, dtype=dt, device=device)
     if d.init == "embed":
         std = d.scale
     else:  # fan-in scaled normal: last-but-one axis is fan-in for matrices
@@ -118,28 +126,46 @@ def _init_leaf(gen, d: ParamDef, dtype: str, device) -> torch.Tensor:
         std = d.scale / math.sqrt(max(fan_in, 1))
     if dt == F32 or len(d.shape) < 2:
         x = torch.randn(d.shape, generator=gen, dtype=F32, device=device)
+        x = x[cut].clone() if part else x
         return x.mul_(std).to(dt)
     # a narrower type: drawn in f32 a few leading-axis slabs at a time (at
     # most _INIT_CHUNK elements, or one slab) into the final tensor, so no
     # f32 copy of the whole leaf is held (a bf16 stack of experts is tens
-    # of GB)
-    out = torch.empty(d.shape, dtype=dt, device=device)
+    # of GB); of each slab only the box's part is kept
+    out = torch.empty(shape, dtype=dt, device=device)
+    (a0, n0), rest = box[0], cut[1:]
     rows = max(_INIT_CHUNK // math.prod(d.shape[1:]), 1)
     for i in range(0, d.shape[0], rows):
         n = min(rows, d.shape[0] - i)
-        out[i:i + n] = torch.randn((n,) + d.shape[1:], generator=gen,
-                                   dtype=F32, device=device).mul_(std)
+        x = torch.randn((n,) + d.shape[1:], generator=gen, dtype=F32,
+                        device=device)
+        lo, hi = max(i, a0), min(i + n, a0 + n0)
+        if lo < hi:
+            out[lo - a0:hi - a0] = x[(slice(lo - i, hi - i),) + rest].mul_(
+                std)
     return out
 
 
 def init_params(defs: dict, generator: torch.Generator, param_dtype: str,
-                device) -> dict:
+                device, mesh=None) -> dict:
     """Materialise a ParamDef tree, leaves in sorted path order, each drawn
     from `generator` (which lives on `device`).  The draws are PyTorch's:
-    the same seed gives other weights than the reference's `jax.random`."""
-    flat = {path: _init_leaf(generator, d, param_dtype, device)
-            for path, d in sorted(flatten(defs).items())}
-    return unflatten(flat)
+    the same seed gives other weights than the reference's `jax.random`.
+
+    With `mesh`, every leaf is a DTensor laid out by its partition spec
+    (axes the mesh lacks dropped, as `sharding.place` lays it out) whose
+    shard this rank builds alone: every rank makes the same draws as
+    without a mesh and keeps its shard of each, so the shards are the
+    slices of the unmeshed init and no rank holds a whole leaf (a bf16
+    leaf is drawn one chunk of at most _INIT_CHUNK elements, or one slab,
+    at a time)."""
+    flat = sorted(flatten(defs).items())
+    if mesh is None:
+        return unflatten({path: _init_leaf(generator, d, param_dtype, device)
+                          for path, d in flat})
+    return unflatten({path: made_on_mesh(
+        lambda box, d=d: _init_leaf(generator, d, param_dtype, device, box),
+        d.shape, d.partition, mesh) for path, d in flat})
 
 
 def abstract_params(defs: dict, param_dtype: str, device="meta") -> dict:
@@ -590,25 +616,32 @@ def attention_decode(cfg: ArchConfig, p: dict, x, cache_k, cache_v,
     b = x.shape[0]
     posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qk_project(cfg, p, x, posv, theta)
-    s = cache_k.shape[1]
     cache_k = cache_update(cache_k, k, pos)
     cache_v = cache_update(cache_v, v, pos)
     if cache_spec is not None:
         cache_k = constrain(cache_k, cache_spec)
         cache_v = constrain(cache_v, cache_spec)
-    ki = torch.arange(s, device=x.device)
-    mask = ki <= pos
-    if window:
-        mask &= ki > pos - window
-    h, d = q.shape[2], q.shape[3]
-    kvh = cache_k.shape[2]
-    qg = q.reshape(b, kvh, h // kvh, d)
     scale = (1.0 / math.sqrt(cfg.hd)) if scale is None else scale
-    logits = torch.einsum("bhgd,bkhd->bhgk", qg, cache_k).to(F32) * scale
-    logits = _softcap(logits, cfg.attn_softcap)
-    logits = torch.where(mask, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgk,bkhd->bhgd", probs, cache_v).reshape(b, 1, h, d)
+
+    def attend(qs, kvs, start):
+        # over the keys at positions start .. start + k.shape[1]
+        (q,), (k, v) = qs, kvs
+        b, _, h, d = q.shape
+        kvh = k.shape[2]
+        ki = torch.arange(start, start + k.shape[1], device=q.device)
+        mask = ki <= pos
+        if window:
+            mask &= ki > pos - window
+        qg = q.reshape(b, kvh, h // kvh, d)
+        logits = torch.einsum("bhgd,bkhd->bhgk", qg, k).to(F32) * scale
+        logits = _softcap(logits, cfg.attn_softcap)
+        logits = torch.where(mask, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.einsum("bhgk,bkhd->bhgd", probs, v)
+        return (out.reshape(b, 1, h, v.shape[-1]),
+                logits.reshape(b, 1, h, k.shape[1]))
+    # on a mesh the cache stays split over its positions (`on_key_shards`)
+    out = on_key_shards(attend, (q,), (cache_k, cache_v))
     return _merge_heads(out, _c(p["wo"], out.dtype)), cache_k, cache_v
 
 

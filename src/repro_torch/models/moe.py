@@ -31,14 +31,17 @@ checkpointed under `cfg.remat` as the reference's scan body is.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 
 from ..core import telemetry
 from ..core.config import inv_f32
-from ..distributed.ctx import P, constrain, on_shards
+from ..distributed.ctx import (P, constrain, on_attention_shards,
+                               on_key_shards, on_shards, to_layout)
 from ..kernels import ops
 from . import layers as L
 from .config import ArchConfig
@@ -75,6 +78,39 @@ def _capacity(cfg: ArchConfig, gs: int | None = None) -> int:
     return max(c, 1)
 
 
+_ROUTES = threading.local()
+
+
+@contextlib.contextmanager
+def record_routes():
+    """A list of every routing decision made inside the block, one entry a
+    router call (a layer of a prefill or of a decode step), in order: (the
+    top k + 1 router probabilities [..., k + 1], the chosen experts
+    [..., k]), as computed (on a mesh, DTensors).  For comparing expert
+    choices between runs where the k-th and (k+1)-th probabilities are
+    apart."""
+    prev = getattr(_ROUTES, "log", None)
+    _ROUTES.log = []
+    try:
+        yield _ROUTES.log
+    finally:
+        _ROUTES.log = prev
+
+
+def routes_agree(got: list, want: list, k: int, margin: float) -> dict:
+    """The expert choices of two runs' `record_routes` lists (whole
+    tensors), compared for the tokens whose k-th and (k+1)-th router
+    probabilities in `want` are more than `margin` apart: the tokens
+    compared, those left out, and those whose choices differ."""
+    n = left = bad = 0
+    for (_, gi), (top, wi) in zip(got, want, strict=True):
+        decided = (top[..., k - 1] - top[..., k]) > margin
+        n += int(decided.sum())
+        left += int((~decided).sum())
+        bad += int(((gi != wi).any(-1) & decided).sum())
+    return {"compared": n, "left_out": left, "differ": bad}
+
+
 def _route(cfg: ArchConfig, p: dict, x):
     """(probs, gate values, gate indices) of tokens `x` [..., D]: the f32
     router softmax, its top-k (descending) and the gate values renormalised
@@ -82,6 +118,10 @@ def _route(cfg: ArchConfig, p: dict, x):
     logits = x.to(F32) @ p["router"].to(F32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    log = getattr(_ROUTES, "log", None)
+    if log is not None:
+        log.append((torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values,
+                    gate_idx))
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     return probs, gate_vals, gate_idx
@@ -111,6 +151,14 @@ def moe_ffn_sort(cfg: ArchConfig, p: dict, x):
         dev = x.device
         xf = x.reshape(t, d)
         probs, gate_vals, gate_idx = _route(cfg, p, xf)        # [T,E] [T,K]
+        if L._is_dtensor(gate_idx):
+            # on a mesh the global capacity's bookkeeping (a stable
+            # argsort, a searchsorted, scatters: no sharding rule covers
+            # them) runs on whole index tensors, and the buffers gather
+            # from every token
+            gate_idx, gate_vals = gate_idx.full_tensor(), \
+                gate_vals.full_tensor()
+            xf = constrain(xf, P(None, None))
         onehot_k = F.one_hot(gate_idx, e).to(F32)
         frac_tokens = onehot_k.sum(1).mean(0) / k
         aux = e * torch.sum(frac_tokens * probs.mean(0))
@@ -139,7 +187,8 @@ def moe_ffn_sort(cfg: ArchConfig, p: dict, x):
         xe = xf.to(cdt)[dispatch_tok].reshape(e, c, d)
         xe = constrain(xe, P("model", None, None))
         ye = constrain(_experts(cfg, p, xe, cdt), P("model", None, None))
-        ye = ye.reshape(e * c, d)
+        # every token's slots, on any rank's experts: the buffers whole
+        ye = constrain(ye.reshape(e * c, d), P(None, None))
         ye = ye * dispatch_w[:, None].to(cdt)
         # the combine: each token's slots (the spare slot, a zero row, for
         # a dropped pair), ascending, added one at a time from zero
@@ -284,15 +333,21 @@ def mla_attention(cfg: ArchConfig, p: dict, x, positions,
         # the shared rope key folded into per-head keys: a standard MHA
         # with head dim nope + rope
         q_eff = torch.cat([q_nope, q_rope], dim=-1)
-        k_eff = torch.cat(
-            [k_nope, k_rope.expand(b, s, h, m.rope_head_dim)], dim=-1)
+        k_rope = k_rope.expand(b, s, h, m.rope_head_dim)
+        if L._is_dtensor(k_nope):
+            # laid out as the per-head keys (their head split), so the
+            # concatenation's operands agree
+            k_rope = to_layout(k_rope, k_nope.device_mesh, k_nope.placements)
+        k_eff = torch.cat([k_nope, k_rope], dim=-1)
         if use_kernels:
-            dq, dv = q_eff.shape[-1], v.shape[-1]
-            dp = max(dq, dv)
-            q_eff, k_eff, vp = (F.pad(t, (0, dp - t.shape[-1]))
-                                for t in (q_eff, k_eff, v))
-            out = ops.flash_attention(q_eff, k_eff, vp, scale=scale,
-                                      causal=True)[..., :dv]
+            dv = v.shape[-1]
+            dp = max(q_eff.shape[-1], dv)
+
+            def flash(q, k, v):
+                q, k, v = (F.pad(t, (0, dp - t.shape[-1])) for t in (q, k, v))
+                return ops.flash_attention(q, k, v, scale=scale,
+                                           causal=True)[..., :dv]
+            out = on_attention_shards(flash, q_eff, k_eff, v)
         elif cfg.attn_block:
             out = L.sdpa_blockwise(q_eff, k_eff, v, scale,
                                    block=cfg.attn_block)
@@ -323,17 +378,26 @@ def mla_decode(cfg: ArchConfig, p: dict, x, cache_ckv, cache_kr, pos: int):
     wk = wkv_b[..., :m.nope_head_dim]                        # [R,H,Dn]
     wv = wkv_b[..., m.nope_head_dim:]                        # [R,H,Dv]
     # absorb the k projection into q: q_lat[b,h,r] = sum_d q_nope wk
-    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wk)[:, 0]  # [B,H,R]
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wk)      # [B,1,H,R]
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
-    s_len = cache_ckv.shape[1]
-    # the two score products added in the compute type, then f32 and scale
-    logits = (torch.einsum("bhr,bsr->bhs", q_lat, cache_ckv)
-              + torch.einsum("bhk,bsk->bhs", q_rope[:, 0], cache_kr))
-    logits = logits.to(F32) * scale
-    mask = torch.arange(s_len, device=x.device) <= pos
-    logits = torch.where(mask[None, None], logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(cdt)
-    o_lat = torch.einsum("bhs,bsr->bhr", probs, cache_ckv)   # [B,H,R]
+
+    def attend(qs, kvs, start):
+        # over the latents at positions start .. start + ckv.shape[1]
+        (q_lat, q_rope), (ckv, kr) = (qs[0][:, 0], qs[1][:, 0]), kvs
+        # the two score products added in the compute type, then f32 and
+        # scale
+        logits = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+                  + torch.einsum("bhk,bsk->bhs", q_rope, kr))
+        logits = logits.to(F32) * scale
+        mask = torch.arange(start, start + ckv.shape[1],
+                            device=ckv.device) <= pos
+        logits = torch.where(mask[None, None], logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(cdt)
+        o_lat = torch.einsum("bhs,bsr->bhr", probs, ckv)      # [B,H,R]
+        return o_lat[:, None], logits[:, None]
+    # on a mesh the caches stay split over their positions (`on_key_shards`)
+    o_lat = on_key_shards(attend, (q_lat, q_rope),
+                          (cache_ckv, cache_kr))[:, 0]
     out = torch.einsum("bhr,rhd->bhd", o_lat, wv)[:, None]   # [B,1,H,Dv]
     out = L._merge_heads(out, L._c(p["wo"], cdt))
     return out, cache_ckv, cache_kr

@@ -8,8 +8,11 @@ reference's `models/registry.py`):
     cache = model.init_cache(batch, seq)
     logits, cache = model.decode_step(params, cache, tokens[:, t:t+1], t)
 
-`decode_step` writes the cache in place and returns it.  For a mesh:
-`param_specs()`, `batch_specs(shape)` and `decode_specs(shape)` give the
+`decode_step` writes the cache in place and returns it.  On a mesh
+(`launch/mesh.py`), `init(..., mesh=mesh)` and `init_cache(..., mesh=mesh)`
+give DTensors laid out by the specs, each rank building only its shards,
+and `prefill` / `decode_step` run on them under `ctx.use_mesh(mesh)`.
+For a mesh: `param_specs()`, `batch_specs(shape)` and `decode_specs(shape)` give the
 reference's partition specs with tensors that hold no values (meta, or
 fake under a `FakeTensorMode` with device "cpu"), and `abstract_params()`
 the parameter tree as such tensors (launch/dryrun.py).  `init` and
@@ -54,20 +57,34 @@ class Model:
     cache_spec: Callable    # () -> {name: P}
     forward: Callable       # (params, batch, use_kernels) -> last logits
 
-    def init(self, generator: torch.Generator, device="cuda") -> dict:
+    def init(self, generator: torch.Generator, device="cuda",
+             mesh=None) -> dict:
         """Random parameters in `cfg.param_dtype` from `generator`, which
-        must live on `device`."""
+        must live on `device`.  With `mesh`, DTensors laid out by
+        `param_specs()`, each rank building only its shards: the slices of
+        the same draws without a mesh (`layers.init_params`)."""
         return layers.init_params(self.param_defs, generator,
-                                  self.cfg.param_dtype, device)
+                                  self.cfg.param_dtype, device, mesh)
 
     def compute_params(self, params: dict) -> dict:
         """`params` with each weight the forward casts to the compute type
         cast once (same results, no cast per call)."""
         return layers.cast_for_compute(self.cfg, params)
 
-    def init_cache(self, batch: int, seq: int, device="cuda") -> dict:
-        return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-                for k, s in self.cache_shape(batch, seq).items()}
+    def init_cache(self, batch: int, seq: int, device="cuda",
+                   mesh=None) -> dict:
+        """An empty decode cache; with `mesh`, DTensors laid out by
+        `cache_spec()`, each rank allocating only its shards."""
+        shapes = self.cache_shape(batch, seq)
+        if mesh is None:
+            return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                    for k, s in shapes.items()}
+        from ..distributed.ctx import made_on_mesh
+        return {k: made_on_mesh(
+            lambda box, s=shapes[k]: torch.zeros(
+                [n for _, n in box], dtype=s.dtype, device=device),
+            shapes[k].shape, spec, mesh)
+            for k, spec in self.cache_spec().items()}
 
     def abstract_params(self, device="meta") -> dict:
         return layers.abstract_params(self.param_defs, self.cfg.param_dtype,

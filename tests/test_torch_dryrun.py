@@ -4,18 +4,26 @@ The four cells of tests/test_dryrun_small.py (one dense, one MoE train
 cell, an MLA decode and an SSM decode), with its overrides and shrunken
 shapes, on a (2, 2, 2) ("pod", "data", "model") mesh: the port traces each
 on the `fake` backend's world of 8 under `FakeTensorMode`
-(`launch.dryrun.run_cell`), the reference compiles each in a process with
-8 host devices.  Under JAX 0.9 `jax.make_mesh` makes `Explicit` axes,
-which the reference's `with_sharding_constraint` refuses, so the
-reference's process builds the mesh with `Auto` axes (the JAX package is
-not edited).  Each side runs in a process of its own: one default process
-group, one JAX device count, a process.
+(`launch.dryrun.run_small_cells`), the reference compiles each in a
+process with 8 host devices.  Under JAX 0.9 `jax.make_mesh` makes
+`Explicit` axes, which the reference's `with_sharding_constraint` refuses,
+so the reference's process builds the mesh with `Auto` axes (the JAX
+package is not edited).  Each side runs in a process of its own: one
+default process group, one JAX device count, a process.
 
-Held: the model FLOPs and the per-device parameter bytes exactly; the
-per-device matrix-product FLOPs within 10 % (a larger miss would mean the
-port shards differently from the reference); a train cell's gradient
-reduction among the collectives.  Also `op_analysis` on a known product
-and a known all-gather (exact), and `--list` against the reference's.
+The reference's records are committed (FIXTURE), so the port is held to
+them without a JAX process, here and on a machine without JAX
+(chip_smoke.py's phase 4f, on that machine's PyTorch).  One test holds the
+live reference to the fixture.  Remake it with
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_dryrun.py --write-fixture
+
+Held (`launch.dryrun.check_small`): the model FLOPs and the per-device
+parameter bytes exactly; the per-device matrix-product FLOPs within 10 %
+(a larger miss would mean the port shards differently from the
+reference); a train cell's gradient reduction among the collectives.
+Also `op_analysis` on a known product and a known all-gather (exact), and
+`--list` against the reference's.
 """
 from __future__ import annotations
 
@@ -31,8 +39,11 @@ torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
+FIXTURE = os.path.join(HERE, "data", "torch_dryrun_reference.json")
 CELLS = [("qwen2-1.5b", "train"), ("qwen3-moe-235b-a22b", "train"),
          ("deepseek-v2-236b", "decode"), ("mamba2-2.7b", "decode")]
+WRITE_FIXTURE = ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
+                 "tests/test_torch_dryrun.py --write-fixture")
 
 _COUNTS = r"""
 import json, torch
@@ -118,18 +129,13 @@ for arch, kind in CELLS:
 print(json.dumps(out))
 """
 
-_PORT = _SETUP + r"""
+_PORT = r"""
+import json, sys
 import torch
 torch.set_num_threads(1)
-from repro_torch.launch import dryrun, mesh as M
-M.init_distributed(fake=True, world_size=8)
-mesh = M.make_test_mesh(2, 2, 2, device_type="cpu")
-out = {}
-for arch, kind in CELLS:
-    out[arch] = dryrun.run_cell(arch, SHAPE[kind], False,
-                                overrides=overrides(arch), mesh=mesh)
-M.shutdown()
-print(json.dumps(out))
+from repro_torch.launch import dryrun
+cells = [tuple(c.split(":")) for c in sys.argv[2:]]
+print(json.dumps(dryrun.run_small_cells(cells)))
 """
 
 
@@ -145,6 +151,11 @@ def _result(p: subprocess.Popen) -> dict:
     out, err = p.communicate(timeout=600)
     assert p.returncode == 0, err[-3000:]
     return json.loads(out.strip().splitlines()[-1])
+
+
+def _fixture() -> dict:
+    with open(FIXTURE) as f:
+        return json.load(f)
 
 
 @pytest.fixture(scope="module")
@@ -164,18 +175,21 @@ def procs():
 
 @pytest.fixture(scope="module")
 def records(procs):
-    """(reference's, port's) per-cell results."""
+    """(the committed reference records, port's) per-cell results."""
     got = {}
     for p in procs["port"]:
         got.update(_result(p))
-    return _result(procs["ref"]), got
+    return _fixture()["records"], got
 
 
 @pytest.mark.parametrize("arch,kind", CELLS)
 def test_dryrun_cells_match_reference(records, arch, kind):
+    from repro_torch.launch.dryrun import check_small
     ref, port = records[0][arch], records[1][arch]
     assert port["status"] == "ok" and port["use_kernels"] is False
     assert port["chips"] == 8
+    got = check_small(port, ref)
+    assert got["ok"], got
     assert port["roofline"]["model_flops"] == ref["model_flops"]
     assert port["per_device"]["param_bytes"] == ref["param_bytes"]
     rel = port["per_device"]["flops"] / ref["flops"] - 1.0
@@ -190,6 +204,23 @@ def test_dryrun_cells_match_reference(records, arch, kind):
     assert r["dominant"] in ("compute", "memory", "collective")
     assert port["per_device"]["peak_bytes"] >= \
         port["per_device"]["argument_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch,kind", CELLS)
+def test_live_reference_gives_the_fixture(procs, arch, kind):
+    """The reference's process, run now, gives the committed records (XLA
+    compiles the same program to the same counts), so the fixture stands
+    for the reference."""
+    live = _result(procs["ref"])[arch]
+    fixed = _fixture()["records"][arch]
+    assert live == fixed, (live, fixed)
+
+
+def test_fixture_names_its_origin():
+    fix = _fixture()
+    assert fix["command"] == WRITE_FIXTURE
+    assert fix["jax"] and fix["cells"] == [list(c) for c in CELLS]
+    assert set(fix["records"]) == {a for a, _ in CELLS}
 
 
 def test_op_analysis_counts_a_product_and_a_gather(procs):
@@ -215,3 +246,25 @@ def test_list_matches_reference(procs):
         assert rc == 0, err[-2000:]
     assert outs[1][0] == outs[0][0]
     assert len(outs[1][0].splitlines()) == 10 * len(SHAPES)
+
+
+def write_fixture() -> None:
+    """Run the reference's process over the four cells and write its
+    records, the JAX version and this command to FIXTURE."""
+    import jax
+    rec = _result(_start(_REFERENCE, "repro", CELLS))
+    os.makedirs(os.path.dirname(FIXTURE), exist_ok=True)
+    with open(FIXTURE, "w") as f:
+        json.dump({"command": WRITE_FIXTURE, "jax": jax.__version__,
+                   "mesh": "(2, 2, 2) ('pod', 'data', 'model'), Auto axes, "
+                           "8 host devices",
+                   "cells": [list(c) for c in CELLS], "records": rec},
+                  f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["--write-fixture"]:
+        write_fixture()
+    else:
+        raise SystemExit(f"usage: {WRITE_FIXTURE}")
