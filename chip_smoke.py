@@ -126,7 +126,11 @@ Phases, each printing one JSON line:
                  2 x 4096 prefill bit-equal to the unmeshed one with
                  exactly 2 flash launches (on one card every mesh axis
                  has size 1, so both run every leaf `Replicate()`: DTensor's
-                 dispatch on whole tensors); the dry run of qwen2-1.5b
+                 dispatch on whole tensors); qwen2-1.5b at its published
+                 widths and 2 layers, one train step (2 x 4096) with the
+                 state drawn on the (1, 1) mesh bit-equal to the unmeshed
+                 step (loss, every gradient leaf, the updated state), no
+                 kernel launched; the dry run of qwen2-1.5b
                  train_4k on the single-pod mesh (`python -m
                  repro_torch.launch.dryrun`, the `fake` backend's 256
                  ranks, no card) in a process of its own, its record
@@ -1971,6 +1975,7 @@ MESH_BATCH = ("pod", "data")
 DRYRUN_FIXTURE = os.path.join(ROOT, "tests", "data",
                               "torch_dryrun_reference.json")
 MESH_MOE_LAYERS = 2
+MESH_TRAIN_LAYERS = 2
 
 
 def _mesh_record_checks(rec, mesh_names, mesh_shape, chunk: dict,
@@ -2003,7 +2008,13 @@ def mesh_phase(dev, b16: tuple, scale: float, n_steps: int, n_active: int,
     DTensor's dispatch and the meshed code paths on whole tensors, not a
     split layout, its per-rank init or its partial sums, which
     scripts/mesh_models_cards.py runs on 4 cards and
-    tests/test_torch_mesh_moe.py on 4 gloo ranks); (d) the dry run of
+    tests/test_torch_mesh_moe.py on 4 gloo ranks); (c'') qwen2-1.5b at
+    published widths (on the CPU reduced) and MESH_TRAIN_LAYERS layers, one
+    train step on TRAIN_BATCH x TRAIN_SEQ tokens with the state drawn on
+    the (1, 1) mesh against the unmeshed step: the loss, every gradient
+    leaf and the updated state bit-equal, no kernel launched (the state
+    split over 4 cards runs in scripts/mesh_train_cards.py, on 4 gloo
+    ranks in tests/test_torch_mesh_train.py); (d) the dry run of
     qwen2-1.5b train_4k on the single-pod mesh as a process of its own (the `fake` backend's 256
     ranks, no card), started first and read last, rc 0 (on the CPU
     `--list`); (e) beside it, the dry run's four small cells on this
@@ -2119,6 +2130,7 @@ def mesh_phase(dev, b16: tuple, scale: float, n_steps: int, n_active: int,
                   "max_memory_allocated": _peak(dev)})
     del params, placed, plain, got
     lines.append(mesh_moe_prefill(dev, mesh2, full))
+    lines.append(mesh_train_step(dev, mesh2, full))
     M.shutdown()
 
     # (d) the dry run's process
@@ -2197,6 +2209,74 @@ def mesh_moe_prefill(dev, mesh, full: bool) -> dict:
             .__name__, "wall_s": time.perf_counter() - t0,
             "max_memory_allocated": _peak(dev)}
     del placed, plain, got
+    return line
+
+
+def mesh_train_step(dev, mesh, full: bool) -> dict:
+    """Phase 4f (c''): qwen2-1.5b at published widths and MESH_TRAIN_LAYERS
+    layers (on the CPU reduced, checkpointed), one train step on
+    TRAIN_BATCH x TRAIN_SEQ tokens (64 on the CPU) of the port's pipeline,
+    unmeshed and with the state drawn on `mesh` (`init_train_state(...,
+    mesh=)`; a world of one: every leaf `Replicate()`) under `use_mesh`,
+    each the train step's own parts (`value_and_grad`, then
+    `adamw_update`) from weights with the attention projections at their
+    input's fan-in (`input_fan_in`): the loss, every gradient leaf, the
+    gradient norm and every updated parameter and moment bit-equal, no
+    kernel launched."""
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import place
+    from repro_torch.train.optimizer import adamw_update
+    t0 = time.perf_counter()
+    cfg = (get_config("qwen2-1.5b").replace(n_layers=MESH_TRAIN_LAYERS)
+           if full else reduced("qwen2-1.5b").replace(remat=True))
+    model = get_model(cfg)
+    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_OPT))
+    seq = TRAIN_SEQ if full else 64
+    batch = to_device(TokenPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=TRAIN_BATCH)).batch_at(0),
+        dev)
+
+    def one_step(m):
+        state = init_train_state(model, torch.Generator(device=dev)
+                                 .manual_seed(0), tcfg, device=dev, mesh=m)
+        input_fan_in(state.params)
+        b = batch if m is None else place(m, batch, {
+            k: ctx.P(MESH_BATCH, None) for k in batch})
+        with ctx.use_mesh(m):
+            _sync(dev)
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            loss, grads = value_and_grad(model, state.params, b)
+            params, opt, metrics = adamw_update(tcfg.opt, state.params,
+                                                grads, state.opt)
+            _sync(dev)
+            wall = time.perf_counter() - t
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        whole = lambda x: x.full_tensor() if type(x).__name__ == \
+            "DTensor" else x  # noqa: E731
+        out = {"loss": loss, "grad_norm": metrics["grad_norm"],
+               **{("grad",) + k: v for k, v in flatten(grads).items()},
+               **{("param",) + k: v for k, v in flatten(params).items()},
+               **{("m",) + k: v for k, v in flatten(opt.m).items()},
+               **{("v",) + k: v for k, v in flatten(opt.v).items()}}
+        return {k: whole(v).detach() for k, v in out.items()}, wall, launches
+
+    plain, plain_s, plain_launches = one_step(None)
+    got, wall, launches = one_step(mesh)
+    differ = sorted("/".join(k) if isinstance(k, tuple) else k
+                    for k in plain if not torch.equal(got[k], plain[k]))
+    check(not differ, f"meshed train step vs unmeshed: {differ} differ")
+    check(launches == {} and plain_launches == {},
+          f"train steps launched kernels: {launches} {plain_launches}")
+    line = {"part": "train_step", "model": cfg.name,
+            "n_layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": seq,
+            "bit_equal": True, "compared": len(plain),
+            "loss": float(plain["loss"]),
+            "grad_norm": float(plain["grad_norm"]), "launches": launches,
+            "step_s": wall, "unmeshed_step_s": plain_s,
+            "wall_s": time.perf_counter() - t0,
+            "max_memory_allocated": _peak(dev)}
+    del plain, got
     return line
 
 

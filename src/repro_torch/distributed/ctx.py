@@ -45,23 +45,25 @@ def current_mesh():
 
 @contextlib.contextmanager
 def use_mesh(mesh):
-    """Install `mesh` for `constrain`.  With a mesh, a plain tensor that
-    meets a DTensor (an `arange`, a mask, positions) is taken as replicated
-    on it (DTensor's implicit replication; turned on by the outermost
-    block only, since leaving that context turns it off whatever it
-    found)."""
+    """Install `mesh` for `constrain` in this thread.  With a mesh, a plain
+    tensor that meets a DTensor (an `arange`, a mask, positions) is taken
+    as replicated on it: DTensor's implicit replication is turned on, and
+    on leaving set back to what the block found (`implicit_replication()`
+    turns it off, under an enclosing block too)."""
     prev = current_mesh()
     _state.mesh = mesh
+    disp = None
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor
+        disp = DTensor._op_dispatcher
+        found = disp._allow_implicit_replication
+        disp._allow_implicit_replication = True
     try:
-        if mesh is None or prev is not None:
-            yield mesh
-        else:
-            from torch.distributed.tensor.experimental import \
-                implicit_replication
-            with implicit_replication():
-                yield mesh
+        yield mesh
     finally:
         _state.mesh = prev
+        if disp is not None:
+            disp._allow_implicit_replication = found
 
 
 def axis_names(mesh) -> tuple[str, ...]:

@@ -58,9 +58,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..core import telemetry
 from ..core.config import inv_f32
-from ..distributed.ctx import (P, attention_layout, constrain, from_local,
-                               local_of, made_on_mesh, on_key_shards,
-                               shard_offset, split_dims, to_layout)
+from ..distributed.ctx import (P, attention_layout, constrain,
+                               current_mesh, from_local, local_of,
+                               made_on_mesh, on_key_shards, shard_offset,
+                               split_dims, to_layout, use_mesh)
 from ..kernels import ops
 from .config import ArchConfig
 
@@ -302,22 +303,27 @@ def checkpointed(cfg: ArchConfig, fn: Callable) -> Callable:
     otherwise.  Recomputing gives the same bits.  Inside such a layer the
     blockwise attention does not checkpoint its blocks again: the layer's
     recompute already runs them once more, as XLA merges the reference's
-    nested recomputes into one."""
+    nested recomputes into one.  The recompute runs under the mesh the
+    forward ran under (`ctx.use_mesh`): on the card autograd runs the
+    backward in a thread of its own, where no mesh is installed, and a
+    recompute without the forward's `constrain`s would save other
+    tensors."""
     if not cfg.remat:
         return fn
     context_fn = remat_policy(cfg)
 
-    def marked(*args):
+    def marked(mesh, *args):
         _REMAT.depth = getattr(_REMAT, "depth", 0) + 1
         try:
-            return fn(*args)
+            with use_mesh(mesh):
+                return fn(*args)
         finally:
             _REMAT.depth -= 1
 
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(marked, *args, use_reentrant=False,
+        return checkpoint(marked, current_mesh(), *args, use_reentrant=False,
                           context_fn=context_fn)
     return run
 

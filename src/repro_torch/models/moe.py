@@ -120,8 +120,12 @@ def _route(cfg: ArchConfig, p: dict, x):
     gate_vals, gate_idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
     log = getattr(_ROUTES, "log", None)
     if log is not None:
-        log.append((torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values,
-                    gate_idx))
+        # outside autograd: a checkpointed layer's recompute (on the card,
+        # in autograd's own thread, where no log is open) must save what
+        # its forward saved
+        with torch.no_grad():
+            log.append((torch.topk(probs, cfg.moe.top_k + 1,
+                                   dim=-1).values, gate_idx))
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     return probs, gate_vals, gate_idx

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..core.config import inv_f32
 from ..models.layers import flatten, tree_map, unflatten
+from .optimizer import zeros_f32
 
 BLOCK = 128
 F32 = torch.float32
@@ -77,8 +78,8 @@ def apply_error_feedback(grads: dict, ef_state: dict):
 
 
 def init_ef_state(params: dict) -> dict:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                          device=p.device), params)
+    """Zero f32 residuals laid out as `params` (`optimizer.zeros_f32`)."""
+    return zeros_f32(params)
 
 
 def cross_pod_allreduce_compressed(grads, mesh):

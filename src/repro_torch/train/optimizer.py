@@ -4,6 +4,10 @@
 Moments are f32 whatever the parameter type; for bf16 parameter trees the
 update is computed in f32 and cast back (the f32 moments act as the
 high-precision accumulator, so there is no separate master copy).
+On a mesh the parameters, gradients and moments are DTensors laid out
+alike (`zeros_f32` makes the moments with their parameter's layout), so
+each rank updates its own shards: the update is elementwise, and only the
+gradient's global norm crosses the ranks.
 
 Numerics as the jitted reference, whose arithmetic XLA rewrites: a
 division by a compile-time constant (the schedule's warm-up and decay
@@ -15,7 +19,9 @@ plus the addend, rounded once to f32; and `(m / b1c) / d` is `m / (b1c *
 d)`.  The bias corrections divide by values that depend on the step and
 stay IEEE divisions.  `adamw_update` writes each new parameter and moment
 into its tensor in place (the reference's new arrays, the same bits), so
-a step keeps no second copy of them.  The
+a step keeps no second copy of them; a large leaf is updated a block of
+at most _UPDATE_CHUNK elements at a time along its first axis, which
+bounds the f64 temporaries of `_fma` and gives the same bits.  The
 moments' partition specs (`opt_state_specs`) are their parameters'.
 """
 from __future__ import annotations
@@ -31,6 +37,9 @@ from ..core.config import inv_f32
 from ..models.layers import flatten, tree_map
 
 F32 = torch.float32
+# elements of a leaf updated at once: the f64 temporaries of a block are
+# 1 GiB each (an expert stack is 10^9 elements a card)
+_UPDATE_CHUNK = 1 << 27
 
 
 @dataclass(frozen=True)
@@ -52,14 +61,21 @@ class OptState(NamedTuple):
     v: dict
 
 
+def zeros_f32(params: dict) -> dict:
+    """Zero f32 tensors laid out as `params`: on the parameter's device,
+    and for a DTensor parameter a DTensor with its placements (each rank
+    allocating only its shard), as the reference's zeros come out under
+    jit with the state's shardings."""
+    return tree_map(lambda p: torch.zeros_like(
+        p, dtype=F32, memory_format=torch.contiguous_format), params)
+
+
 def init_opt_state(params: dict) -> OptState:
-    """Step 0 and zero f32 moments on the parameters' device."""
+    """Step 0 and zero f32 moments laid out as the parameters."""
     leaf = next(iter(flatten(params).values()))
-    zeros = lambda p: torch.zeros(p.shape, dtype=F32,  # noqa: E731
-                                  device=p.device)
     return OptState(step=torch.zeros((), dtype=torch.int32,
                                      device=leaf.device),
-                    m=tree_map(zeros, params), v=tree_map(zeros, params))
+                    m=zeros_f32(params), v=zeros_f32(params))
 
 
 def opt_state_specs(param_spec_tree) -> OptState:
@@ -122,12 +138,29 @@ def clip_by_global_norm(grads: dict, max_norm: float):
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
+def _local(x) -> torch.Tensor:
+    """This rank's shard of a DTensor (a replicated one: the whole value),
+    the tensor itself otherwise; under no_grad, the shard's own storage."""
+    return x.to_local() if type(x).__name__ == "DTensor" else x
+
+
+def _blocks(t: torch.Tensor) -> list:
+    """Slices of `t`'s first axis of at most _UPDATE_CHUNK elements (one
+    row at least); the whole tensor when it is small."""
+    if t.dim() == 0 or t.numel() <= _UPDATE_CHUNK:
+        return [slice(None)]
+    rows = max(_UPDATE_CHUNK // (t.numel() // t.shape[0]), 1)
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict,
                  state: OptState):
     """Returns (params, new state, metrics {grad_norm, lr}); the parameter
     and moment tensors are updated in place.  Each gradient leaf is clipped
     as it is used (`clip_by_global_norm`'s bits, without a clipped copy of
-    the whole tree)."""
+    the whole tree).  A DTensor leaf's gradient and moments must be laid
+    out as the parameter (`step.value_and_grad` gives such gradients): the
+    update runs on each rank's shards."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
@@ -138,19 +171,29 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict,
     b1, c1 = _f32(cfg.b1), _f32(1 - cfg.b1)
     b2, c2 = _f32(cfg.b2), _f32(1 - cfg.b2)
     wd, eps = _f32(cfg.weight_decay), _f32(cfg.eps)
+    # the scalars every rank holds whole
+    scale_l, lr_l, b1c_l, b2c_l = (_local(x) for x in (scale, lr, b1c, b2c))
     flat_g, flat_m, flat_v = flatten(grads), flatten(state.m), flatten(
         state.v)
     with torch.no_grad():
         for path, p in flatten(params).items():
-            g = flat_g[path]
-            g = (g * scale.to(g.dtype)).to(F32)
-            m, v = flat_m[path], flat_v[path]
-            m.copy_(_fma(m, b1, c1 * g))
-            v.copy_(_fma(v, b2, c2 * g * g))
-            pf = p.to(F32)
-            x = m / (b1c * (torch.sqrt(v / b2c) + eps))
-            if p.ndim >= 2:                 # decay on matrices only
-                x = _fma(pf, wd, x)
-            p.copy_(_fma(x, -lr, pf).to(p.dtype))
+            ts = (p, flat_g[path], flat_m[path], flat_v[path])
+            if type(p).__name__ == "DTensor" and any(
+                    t.placements != p.placements for t in ts[1:]):
+                raise ValueError(f"adamw_update {path}: gradient or moments "
+                                 f"not laid out as the parameter "
+                                 f"({[t.placements for t in ts]})")
+            pl, gl, ml, vl = (_local(t) for t in ts)
+            for sl in _blocks(pl):
+                g = gl[sl]
+                g = (g * scale_l.to(g.dtype)).to(F32)
+                m, v = ml[sl], vl[sl]
+                m.copy_(_fma(m, b1, c1 * g))
+                v.copy_(_fma(v, b2, c2 * g * g))
+                pf = pl[sl].to(F32)
+                x = m / (b1c_l * (torch.sqrt(v / b2c_l) + eps))
+                if p.ndim >= 2:             # decay on matrices only
+                    x = _fma(pf, wd, x)
+                pl[sl].copy_(_fma(x, -lr_l, pf).to(p.dtype))
     return params, OptState(step, state.m, state.v), {"grad_norm": gnorm,
                                                       "lr": lr}

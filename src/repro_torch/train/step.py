@@ -9,6 +9,17 @@ Parameters are leaves that require grad; the optimizer updates them, and
 its moments, in place under `torch.no_grad()`.  The dry run's abstract
 state (`abstract_train_state`: tensors with no values) and its partition
 specs (`train_state_specs`) are the reference's.
+
+On a mesh (`launch/mesh.py`) the state is DTensors laid out by
+`train_state_specs` (`init_train_state(..., mesh=)` draws each rank's
+shards; moments, residuals and the accumulator are made with their
+parameter's layout) and the batch is split over ("pod", "data"); the step
+runs under `ctx.use_mesh(mesh)`.  Autograd runs through the losses' plain
+paths on DTensors (attention and the MoE's dispatch on each rank's
+shards), and every gradient is then laid out as its parameter
+(`laid_out_as`): a partial sum over `data` (a parameter replicated there)
+is all-reduced, one over an FSDP split reduce-scattered.  AdamW then
+updates each rank's shards.
 """
 from __future__ import annotations
 
@@ -23,7 +34,7 @@ from ..models.layers import flatten, tree_map, unflatten
 from ..models.registry import Model
 from . import compression
 from .optimizer import AdamWConfig, OptState, adamw_update, init_opt_state, \
-    opt_state_specs
+    opt_state_specs, zeros_f32
 
 F32 = torch.float32
 
@@ -58,10 +69,15 @@ def new_train_state(params: dict, tcfg: TrainConfig) -> TrainState:
 
 
 def init_train_state(model: Model, generator: torch.Generator,
-                     tcfg: TrainConfig, device="cuda") -> TrainState:
+                     tcfg: TrainConfig, device="cuda",
+                     mesh=None) -> TrainState:
     """Random parameters from `generator` (which lives on `device`) and a
-    step-0 optimizer state."""
-    return new_train_state(model.init(generator, device=device), tcfg)
+    step-0 optimizer state.  With `mesh`, DTensors laid out by
+    `train_state_specs`, each rank drawing only its shards of the
+    parameters (`Model.init(..., mesh=)`: the slices of the same draws
+    without a mesh) and allocating only its shards of the moments."""
+    return new_train_state(model.init(generator, device=device, mesh=mesh),
+                           tcfg)
 
 
 def abstract_train_state(model: Model, tcfg: TrainConfig,
@@ -87,8 +103,19 @@ def train_state_specs(model: Model, tcfg: TrainConfig) -> TrainState:
         ef=tree_map(lambda s: s, pspecs) if tcfg.grad_compression else None)
 
 
+def laid_out_as(g, p):
+    """Gradient `g` in its parameter `p`'s layout: for DTensors, `g`
+    redistributed to `p`'s placements (a partial sum reduced: all-reduced
+    where `p` is replicated, reduce-scattered where it is split); plain
+    tensors as they are."""
+    if type(p).__name__ != "DTensor" or g.placements == p.placements:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def value_and_grad(model: Model, params: dict, batch: dict):
-    """(loss, gradient tree) of `model.loss` at `params`."""
+    """(loss, gradient tree) of `model.loss` at `params`; on a mesh each
+    gradient laid out as its parameter (`laid_out_as`)."""
     paths, leaves = zip(*sorted(flatten(params).items()))
     if not all(p.requires_grad for p in leaves):
         raise ValueError("train step: every parameter must require grad "
@@ -96,7 +123,21 @@ def value_and_grad(model: Model, params: dict, batch: dict):
     with torch.enable_grad():
         loss = model.loss(params, batch)
         grads = torch.autograd.grad(loss, leaves)
+    grads = [laid_out_as(g, p) for g, p in zip(grads, leaves)]
     return loss.detach(), unflatten(dict(zip(paths, grads)))
+
+
+def microbatch(x, i: int, mb: int):
+    """Rows [i B / mb, (i + 1) B / mb) of batch leaf `x` [B, ...] (the
+    reference's split).  A DTensor leaf (its rows split over ("pod",
+    "data")) is gathered whole, a batch of token ids being small, and the
+    slice laid out as `x` again, each rank keeping its rows of it."""
+    n = x.shape[0] // mb
+    if type(x).__name__ != "DTensor":
+        return x[i * n:(i + 1) * n]
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x.full_tensor()[i * n:(i + 1) * n],
+                             x.device_mesh, x.placements, src_data_rank=None)
 
 
 def make_train_step(model: Model, tcfg: TrainConfig):
@@ -109,20 +150,19 @@ def make_train_step(model: Model, tcfg: TrainConfig):
             # gradient accumulation over microbatch slices (the reference's
             # scan): each microbatch's activations are released before the
             # next; the f32 accumulator adds one params-sized buffer
-            split = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
-                     for k, v in batch.items()}
-            dev = state.opt.step.device
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                                 device=dev), state.params)
-            loss_sum = torch.zeros((), dtype=F32, device=dev)
+            acc = zeros_f32(state.params)
+            loss_sum = torch.zeros((), dtype=F32,
+                                   device=state.opt.step.device)
             flat_acc = flatten(acc)
             for i in range(mb):
                 loss, grads = value_and_grad(
-                    model, state.params, {k: v[i] for k, v in split.items()})
+                    model, state.params,
+                    {k: microbatch(v, i, mb) for k, v in batch.items()})
                 for path, g in flatten(grads).items():
                     flat_acc[path].add_(g.to(F32))
+                del grads
                 loss_sum = loss_sum + loss
-            grads = tree_map(lambda a: a * inv_f32(mb), acc)
+            grads = tree_map(lambda a: a.mul_(inv_f32(mb)), acc)
             loss = loss_sum * inv_f32(mb)
         ef = state.ef
         if tcfg.grad_compression:

@@ -26,6 +26,7 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
@@ -169,7 +170,11 @@ def _spawn(phase: str, root: str) -> list:
 
 
 def _wait(procs) -> dict:
-    outs = [p.communicate(timeout=300) + (p.returncode,) for p in procs]
+    # every rank's pipes drained at once: a rank that fills a pipe no one
+    # reads blocks, and the others then wait for it in a collective
+    with ThreadPoolExecutor(len(procs)) as pool:
+        outs = list(pool.map(
+            lambda p: p.communicate(timeout=300) + (p.returncode,), procs))
     for out, err, rc in outs:
         assert rc == 0, err[-3000:]
     return json.loads(outs[0][0].strip().splitlines()[-1])

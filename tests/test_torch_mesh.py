@@ -15,6 +15,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -159,10 +160,11 @@ def _spawn(world: int, tmp_path) -> list[dict]:
          f"{str(store)!r}, {str(out)!r})"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
-    errs = []
-    for p in procs:
-        _, err = p.communicate(timeout=240)
-        errs.append((p.returncode, err[-3000:]))
+    # every rank's pipes drained at once: a rank that fills a pipe no one
+    # reads blocks, and the others then wait for it in a collective
+    with ThreadPoolExecutor(len(procs)) as pool:
+        outs = list(pool.map(lambda p: p.communicate(timeout=240), procs))
+    errs = [(p.returncode, err[-3000:]) for p, (_, err) in zip(procs, outs)]
     assert all(rc == 0 for rc, _ in errs), errs
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
