@@ -130,7 +130,10 @@ Phases, each printing one JSON line:
                  widths and 2 layers, one train step (2 x 4096) with the
                  state drawn on the (1, 1) mesh bit-equal to the unmeshed
                  step (loss, every gradient leaf, the updated state), no
-                 kernel launched; the dry run of qwen2-1.5b
+                 kernel launched, then the same with int8 compression
+                 (`"part": "train_step_compressed"`: the compressed
+                 gradients and residuals bit-equal too); the dry run of
+                 qwen2-1.5b
                  train_4k on the single-pod mesh (`python -m
                  repro_torch.launch.dryrun`, the `fake` backend's 256
                  ranks, no card) in a process of its own, its record
@@ -2014,7 +2017,9 @@ def mesh_phase(dev, b16: tuple, scale: float, n_steps: int, n_active: int,
     the (1, 1) mesh against the unmeshed step: the loss, every gradient
     leaf and the updated state bit-equal, no kernel launched (the state
     split over 4 cards runs in scripts/mesh_train_cards.py, on 4 gloo
-    ranks in tests/test_torch_mesh_train.py); (d) the dry run of
+    ranks in tests/test_torch_mesh_train.py); then the same step with
+    `grad_compression`, the compressed gradients and the new
+    error-feedback residuals bit-equal as well; (d) the dry run of
     qwen2-1.5b train_4k on the single-pod mesh as a process of its own (the `fake` backend's 256
     ranks, no card), started first and read last, rc 0 (on the CPU
     `--list`); (e) beside it, the dry run's four small cells on this
@@ -2131,6 +2136,7 @@ def mesh_phase(dev, b16: tuple, scale: float, n_steps: int, n_active: int,
     del params, placed, plain, got
     lines.append(mesh_moe_prefill(dev, mesh2, full))
     lines.append(mesh_train_step(dev, mesh2, full))
+    lines.append(mesh_train_step(dev, mesh2, full, compress=True))
     M.shutdown()
 
     # (d) the dry run's process
@@ -2212,25 +2218,29 @@ def mesh_moe_prefill(dev, mesh, full: bool) -> dict:
     return line
 
 
-def mesh_train_step(dev, mesh, full: bool) -> dict:
+def mesh_train_step(dev, mesh, full: bool, compress: bool = False) -> dict:
     """Phase 4f (c''): qwen2-1.5b at published widths and MESH_TRAIN_LAYERS
     layers (on the CPU reduced, checkpointed), one train step on
     TRAIN_BATCH x TRAIN_SEQ tokens (64 on the CPU) of the port's pipeline,
     unmeshed and with the state drawn on `mesh` (`init_train_state(...,
     mesh=)`; a world of one: every leaf `Replicate()`) under `use_mesh`,
-    each the train step's own parts (`value_and_grad`, then
-    `adamw_update`) from weights with the attention projections at their
-    input's fan-in (`input_fan_in`): the loss, every gradient leaf, the
-    gradient norm and every updated parameter and moment bit-equal, no
-    kernel launched."""
+    each the train step's own parts (`value_and_grad`, with `compress`
+    `compression.apply_error_feedback` on the gradients and the zero
+    residuals, then `adamw_update`) from weights with the attention
+    projections at their input's fan-in (`input_fan_in`): the loss, every
+    gradient leaf (with `compress` also every compressed leaf and new
+    residual), the gradient norm and every updated parameter and moment
+    bit-equal, no kernel launched."""
     from repro_torch.distributed import ctx
     from repro_torch.distributed.sharding import place
+    from repro_torch.train.compression import apply_error_feedback
     from repro_torch.train.optimizer import adamw_update
     t0 = time.perf_counter()
     cfg = (get_config("qwen2-1.5b").replace(n_layers=MESH_TRAIN_LAYERS)
            if full else reduced("qwen2-1.5b").replace(remat=True))
     model = get_model(cfg)
-    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_OPT))
+    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_OPT),
+                       grad_compression=compress)
     seq = TRAIN_SEQ if full else 64
     batch = to_device(TokenPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=seq, global_batch=TRAIN_BATCH)).batch_at(0),
@@ -2247,8 +2257,10 @@ def mesh_train_step(dev, mesh, full: bool) -> dict:
             ops.reset_launch_counts()
             t = time.perf_counter()
             loss, grads = value_and_grad(model, state.params, b)
+            sent, ef = (apply_error_feedback(grads, state.ef) if compress
+                        else (grads, {}))
             params, opt, metrics = adamw_update(tcfg.opt, state.params,
-                                                grads, state.opt)
+                                                sent, state.opt)
             _sync(dev)
             wall = time.perf_counter() - t
         launches = {k: v for k, v in ops.launch_counts().items() if v}
@@ -2256,6 +2268,9 @@ def mesh_train_step(dev, mesh, full: bool) -> dict:
             "DTensor" else x  # noqa: E731
         out = {"loss": loss, "grad_norm": metrics["grad_norm"],
                **{("grad",) + k: v for k, v in flatten(grads).items()},
+               **({("sent",) + k: v for k, v in flatten(sent).items()}
+                  if compress else {}),
+               **{("ef",) + k: v for k, v in flatten(ef).items()},
                **{("param",) + k: v for k, v in flatten(params).items()},
                **{("m",) + k: v for k, v in flatten(opt.m).items()},
                **{("v",) + k: v for k, v in flatten(opt.v).items()}}
@@ -2268,7 +2283,8 @@ def mesh_train_step(dev, mesh, full: bool) -> dict:
     check(not differ, f"meshed train step vs unmeshed: {differ} differ")
     check(launches == {} and plain_launches == {},
           f"train steps launched kernels: {launches} {plain_launches}")
-    line = {"part": "train_step", "model": cfg.name,
+    line = {"part": "train_step_compressed" if compress else "train_step",
+            "model": cfg.name,
             "n_layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": seq,
             "bit_equal": True, "compared": len(plain),
             "loss": float(plain["loss"]),

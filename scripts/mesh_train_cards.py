@@ -6,7 +6,8 @@
 
 (the second a rehearsal on gloo ranks at reduced widths; without
 `--device cpu` the script refuses to start unless it has 4 CUDA devices
-and NCCL).
+and NCCL).  `--parts compression,elastic` runs only those of PARTS
+(every one by default).
 
 One process a card, NCCL (`launch.mesh.init_distributed`; the loopback
 for NCCL's bootstrap unless NCCL_SOCKET_IFNAME is set), the train step of
@@ -19,16 +20,19 @@ gathered), every gradient laid out as its parameter (all-reduced where
 the parameter is replicated over `data`, reduce-scattered where it is
 split) and AdamW on each rank's shards.  No kernel launches in a train
 step: the reference trains on its jnp paths.  The attention projections
-are drawn at their input's fan-in (chip_smoke.py's `input_fan_in`), as
-the one-card training of chip_smoke.py's phase 7c is.
+are drawn at their input's fan-in (`fan_in`: chip_smoke.py's
+`input_fan_in`, and MLA's up-projections), as the one-card training of
+chip_smoke.py's phase 7c is.
 
-(a) The f32 gradient contract against one card: qwen3-moe-235b-a22b and
-    qwen2-1.5b at their published widths, f32 parameters and compute,
+(a) The f32 gradient contract against one card: qwen3-moe-235b-a22b,
+    qwen2-1.5b and deepseek-v2-236b (MLA, 2 shared experts, the dense
+    first layer) at their published widths, f32 parameters and compute,
     CONTRACT_LAYERS layers, SERVE_BATCH x CONTRACT_LEN tokens, the MoE at
     the capacity factor that drops nothing (chip_smoke.py's
     `contract_config`), on (1, 4) and (2, 2).  Every rank takes the
     unmeshed `value_and_grad` on its own card (parameters and gradients
-    only, ~50 GB for qwen3-moe), then the meshed one.  Gates: the loss
+    only, ~48 GB for qwen3-moe, ~43 GB for deepseek-v2), then the meshed
+    one.  Gates: the loss
     within LOSS_RTOL of one card's; each gradient leaf's shard within
     GRAD_RTOL of the leaf's largest magnitude on one card (a leaf that is
     0 there is 0 on the mesh); no expert choice differing where the
@@ -36,16 +40,19 @@ the one-card training of chip_smoke.py's phase 7c is.
     TIE_MARGIN apart (the tokens inside the margin counted); every
     gradient in its parameter's placements; 0 kernel launches.  On
     (2, 2) the collectives of one train step by kind and bytes
-    (`launch.op_analysis`).
-(b) The deep run on (2, 2): qwen3-moe at published widths in bf16, depth
-    cut to the most layers whose state a card (parameters, gradients,
-    moments, the microbatch accumulator and one stacked leaf's gradient
-    temporary, `held_bytes`) plus the working memory measured at
-    CALIBRATION_LAYERS and HEADROOM stays under PEAK_CAP; global batch
+    (`launch.op_analysis`).  deepseek-v2 also takes one compressed train
+    step on (2, 2) at this depth, held as in (d).
+(b) The deep runs on (2, 2): qwen3-moe and deepseek-v2 at published
+    widths in bf16, depth cut to the most layers (deepseek-v2's dense
+    first layer always kept) whose state a card (parameters, gradients,
+    moments, the microbatch accumulator, the residuals where compressing,
+    and one stacked leaf's gradient temporary, `held_bytes`) plus the
+    working memory measured at CALIBRATION_LAYERS and HEADROOM stays
+    under PEAK_CAP; global batch
     DEEP_BATCH x DEEP_SEQ in DEEP_MICRO microbatches (a data rank's
     microbatch is the one-card training's 2 x 4096).  One warm-up step on
     the first batch and DEEP_TIMED timed ones on the same batch: step ms,
-    training tokens/s, MFU (6 x n_active_params() of the cut config x
+    training tokens/s, MFU (6 x `active_params` of the cut config x
     tokens over the step time, over 4 x 989 TFLOP/s), peak memory a card,
     the loss on the first batch after the steps below its first value,
     0 launches, AdamW at the reference's defaults; then one step under the
@@ -60,6 +67,26 @@ the one-card training of chip_smoke.py's phase 7c is.
     one.  Save and restore seconds, the bytes written, and the peak
     memory a card during `save`, gated at the card's shards of the state
     plus the largest whole leaf plus SAVE_SLACK.
+(d) Gradient compression on NCCL: qwen2-1.5b at published widths and
+    full depth, f32 parameters and compute, one `grad_compression=True`
+    train step of SERVE_BATCH x CONTRACT_LEN tokens on (2, 2) and on a
+    (2, 1, 2) ("pod", "data", "model") mesh, composed of the train step's
+    parts.  Gates: every compressed gradient and residual in its
+    parameter's placements; both bit-equal, shard by shard, to the
+    unmeshed compression of the step's own gradients and residuals
+    gathered whole on the card; against the same weights' and batch's
+    one-card gradient compressed on the card, each compressed element
+    within its block's scale (max|x| / 127, one card's) plus GRAD_RTOL of
+    the leaf's largest one-card magnitude; the residual identity
+    `corrected = sent + residual` within the rounding of the two f32
+    values; the loss within LOSS_RTOL; 0 launches.  On (2, 1, 2)
+    `cross_pod_allreduce_compressed` over the `pod` group, pod 0 sending
+    the step's gradients and pod 1 the one-card gradients: every leaf
+    bit-equal to the mean of the two whole-leaf round trips computed on
+    the card.  Then the walls: qwen2-1.5b as configured (part (c)'s
+    model and batch, ELASTIC_BATCH x DEEP_SEQ) on (2, 2), the plain and
+    the compressed train step COMPRESSION_TURNS times each in turns after
+    a warm-up turn, each step's wall and peak a card.
 
 Rank 0 prints the card's name and power limit, one JSON line a part, and
 last `{"ok": ..., "device": ...}`; the exit code is 0 only if every gate
@@ -100,13 +127,24 @@ from repro_torch.launch import op_analysis  # noqa: E402
 from repro_torch.models import get_model, moe  # noqa: E402
 from repro_torch.models.layers import flatten  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import compression as C  # noqa: E402
 from repro_torch.train import step as T  # noqa: E402
-from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.train.optimizer import (AdamWConfig,  # noqa: E402
+                                         adamw_update)
 
-MESHES = {"(1, 4)": (1, 4), "(2, 2)": (2, 2)}
+# (pod, data, model)
+MESHES = {"(1, 4)": (1, 1, 4), "(2, 2)": (1, 2, 2), "(2, 1, 2)": (2, 1, 2)}
+CONTRACT_MESHES = ("(1, 4)", "(2, 2)")
 DEEP_MESH, ELASTIC_FROM, ELASTIC_TO = "(2, 2)", "(2, 2)", "(1, 4)"
-CONTRACT_ARCHS = ("qwen3-moe-235b-a22b", "qwen2-1.5b")
-DEEP_ARCH, ELASTIC_ARCH = "qwen3-moe-235b-a22b", "qwen2-1.5b"
+CONTRACT_ARCHS = ("qwen3-moe-235b-a22b", "qwen2-1.5b", "deepseek-v2-236b")
+DEEP_ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v2-236b")
+ELASTIC_ARCH, COMPRESSION_ARCH = "qwen2-1.5b", "qwen2-1.5b"
+COMPRESSION_MESHES = ("(2, 2)", "(2, 1, 2)")
+# a compressed step at the contract's depth, on this mesh
+COMPRESSED_CONTRACT = {"deepseek-v2-236b": "(2, 2)"}
+COMPRESSION_TURNS = 8          # the plain and compressed steps timed in turns
+FEEDBACK_CALLS = 5             # `apply_error_feedback` alone, timed
+PARTS = ("contract", "deep", "elastic", "compression")
 CONTRACT_LAYERS = 2            # chip_smoke.py's MOE / DENSE_CONTRACT_LAYERS
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
@@ -126,12 +164,14 @@ ROWS = ctx.P(("pod", "data"), None)
 
 def cpu_config(arch: str):
     """The rehearsal's config: reduced, checkpointed, attention in blocks
-    of 8 rows; the MoE with 16 query and 4 KV heads (so the specs split
-    them) and routing groups of 8 (tests/test_torch_mesh_train.py's)."""
+    of 8 rows; the MoE with routing groups of 8 and, without MLA, 16 query
+    and 4 KV heads, so the specs split them (tests/test_torch_mesh_train.py's
+    and tests/test_torch_mesh_train_mla.py's)."""
     cfg = reduced(arch).replace(remat=True, attn_block=8)
     if cfg.family == "moe":
-        cfg = cfg.replace(n_heads=16, n_kv_heads=4, moe=dataclasses.replace(
-            cfg.moe, router_group=8))
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, router_group=8))
+        if cfg.mla is None:
+            cfg = cfg.replace(n_heads=16, n_kv_heads=4)
     return cfg
 
 
@@ -149,11 +189,23 @@ def placed(mesh, batch: dict) -> dict:
     return place(mesh, batch, {k: ROWS for k in batch})
 
 
+def fan_in(params: dict) -> dict:
+    """`params` (in place) with the attention projections at their input's
+    fan-in: chip_smoke.py's `input_fan_in`, and MLA's up-projections
+    `wq_b` / `wkv_b` [..., r, H, k], which `Model.init` draws at a fan-in
+    of H where their input is the latent of width r."""
+    S.input_fan_in(params)
+    with torch.no_grad():
+        for path, t in flatten(params).items():
+            if path[-1] in ("wq_b", "wkv_b"):
+                t.mul_(math.sqrt(t.shape[-2] / t.shape[-3]))
+    return params
+
+
 def drawn(model, dev, mesh=None) -> dict:
     """Trainable parameters from seed 0 (on `mesh`: each rank's shards),
-    the attention projections at their input's fan-in."""
-    return T.trainable(S.input_fan_in(model.init(gen(dev), device=dev,
-                                                 mesh=mesh)))
+    the attention projections at their input's fan-in (`fan_in`)."""
+    return T.trainable(fan_in(model.init(gen(dev), device=dev, mesh=mesh)))
 
 
 def launches() -> int:
@@ -199,7 +251,8 @@ def leaf_errors(grads: dict, want: dict, mesh) -> dict:
 
 def contract(arch: str, meshes: dict, dev, cpu: bool):
     """Part (a) for one model: a line a mesh, each yielded when its run
-    ends."""
+    ends; then, for COMPRESSED_CONTRACT's models, the compressed step's
+    line (`compressed_step`)."""
     cfg = contract_config(arch, cpu)
     model = get_model(cfg)
     n_tok = 32 if cpu else S.CONTRACT_LEN
@@ -214,7 +267,8 @@ def contract(arch: str, meshes: dict, dev, cpu: bool):
     loss0, g0 = float(loss0), flatten(g0)
     one_peak = peak(dev)
     del params
-    for name, mesh in meshes.items():
+    for name in CONTRACT_MESHES:
+        mesh = meshes[name]
         reset_peak(dev)
         params = drawn(model, dev, mesh)
         pb = placed(mesh, batch)
@@ -264,6 +318,10 @@ def contract(arch: str, meshes: dict, dev, cpu: bool):
             line["collectives"] = step_collectives(model, params, pb, mesh)
         del params, pb
         yield line
+    if arch in COMPRESSED_CONTRACT:
+        name = COMPRESSED_CONTRACT[arch]
+        yield compressed_step(model, meshes[name], name, batch, g0, loss0,
+                              dev)
     del g0
 
 
@@ -279,12 +337,302 @@ def step_collectives(model, params, batch, mesh) -> dict:
             "counted_s": seconds}
 
 
+def _box(box) -> tuple:
+    return tuple(slice(a, a + n) for a, n in box)
+
+
+def _chunked_max(fn, *ts, chunk: int = 1 << 25) -> float:
+    """The largest element of `fn` over the flattened tensors `ts` (one
+    shape), taken a chunk at a time so that its f64 temporaries stay
+    small; -inf for empty tensors."""
+    flat = [t.reshape(-1) for t in ts]
+    best = float("-inf")
+    for i in range(0, flat[0].numel(), chunk):
+        best = max(best, float(fn(*(f[i:i + chunk] for f in flat)).max()))
+    return best
+
+
+def feedback_errors(trees: dict, placements: dict, g0: dict, mesh) -> dict:
+    """For each leaf of a meshed step's compression (`trees`: its
+    gradients `grads` and residuals `ef_in` in, the compressed gradients
+    `sent` and new residuals `ef` out) on this rank's shard: the one-card
+    gradient `g0` compressed on the card over the blocks the shard's rank
+    quantised (`block_placements`: whole blocks), the largest excess of
+    |sent - one card's sent| over the one-card block's scale, relative to
+    the leaf's largest one-card magnitude; the uncompressed gradient's
+    error alike; the residual identity's largest miss beyond the rounding
+    of the two f32 values (2^-24 of each magnitude, the least normal f32
+    besides); and whether the compressed gradient and the residual are in
+    the parameter's `placements`."""
+    fg, fs, fr, fe = (flatten(trees[k]) for k in ("grads", "sent", "ef",
+                                                   "ef_in"))
+    d = torch.float64
+    out = {}
+    for k, pl in placements.items():
+        g, sent, resid, e = fg[k], fs[k], fr[k], fe[k]
+        shape = tuple(g.shape)
+        bbox = ctx.shard_box(shape, C.block_placements(
+            shape, pl, tuple(mesh.shape)), mesh)
+        pbox = ctx.shard_box(shape, sent.placements, mesh)
+        part = g0[k][_box(bbox)]
+        one, _ = C.apply_error_feedback({"x": part}, {
+            "x": torch.zeros(part.shape, dtype=torch.float32,
+                             device=part.device)})
+        _, scale, _ = C.quantize_int8(part)
+        scale = scale.expand(-1, C.BLOCK).reshape(-1)[:part.numel()] \
+            .reshape(part.shape)
+        inner = tuple(slice(a - b, a - b + n)
+                      for (a, n), (b, _) in zip(pbox, bbox))
+        top = max(float(g0[k].abs().max()), 1e-30)
+        sl, rl, gl, el = (x.to_local() for x in (sent, resid, g, e))
+        out["/".join(k)] = {
+            "excess": _chunked_max(
+                lambda s, o, c: (s.to(d) - o.to(d)).abs() - c.to(d),
+                sl, one["x"][inner], scale[inner]) / top,
+            "raw": _chunked_max(lambda a, b: (a.to(d) - b.to(d)).abs(),
+                                gl, g0[k][_box(pbox)]) / top,
+            "identity_miss": _chunked_max(
+                lambda g, e, s, r: (g.to(d) + e.to(d) - s.to(d) - r.to(d))
+                .abs() - 2.0 ** -24 * (s.to(d).abs() + r.to(d).abs())
+                - 2.0 ** -126, gl, el, sl, rl),
+            "laid_out": sent.placements == pl and resid.placements == pl}
+        del part, one, scale
+    return out
+
+
+def feedback_exact(trees: dict, mesh) -> dict:
+    """For each leaf of a meshed step's compression (`trees` as in
+    `feedback_errors`): whether this rank's shards of `sent` and `ef` are
+    bit-equal to the unmeshed `apply_error_feedback` of the whole leaf,
+    its gradient and incoming residual gathered, on the card.  The whole
+    leaf is taken in contiguous runs of C._CHUNK elements of its row-major
+    flattening (a multiple of BLOCK, so the runs hold the whole leaf's
+    blocks), which bounds the temporaries to the gathered leaves and two
+    outputs.  A rank that quantised other blocks than the whole leaf's
+    differs here."""
+    fg, fe, fs, fr = (flatten(trees[k]) for k in ("grads", "ef_in", "sent",
+                                                   "ef"))
+    out = {}
+    for k, g in fg.items():
+        gw, ew = g.full_tensor().reshape(-1), fe[k].full_tensor().reshape(-1)
+        sw, rw = torch.empty_like(gw), torch.empty_like(ew)
+        for i in range(0, gw.numel(), C._CHUNK):
+            run = slice(i, i + C._CHUNK)
+            a, b = C.apply_error_feedback({"x": gw[run]}, {"x": ew[run]})
+            sw[run], rw[run] = a["x"], b["x"]
+        del gw, ew
+        out["/".join(k)] = all(
+            torch.equal(x.to_local(), w.view(g.shape)[_box(
+                ctx.shard_box(g.shape, x.placements, mesh))])
+            for x, w in ((fs[k], sw), (fr[k], rw)))
+        del sw, rw
+    return out
+
+
+def cross_pod(grads: dict, g0: dict, mesh) -> dict:
+    """`cross_pod_allreduce_compressed` over the `pod` group of `mesh`, a
+    leaf at a time: pod 0 sends the meshed step's gradient `grads`, pod 1
+    the one-card gradient `g0` (this rank's shard of it), each a DTensor
+    in the gradient's placements; against the mean of the two whole
+    leaves' round trips computed on the card."""
+    pod = mesh.get_coordinate()[ctx.axis_names(mesh).index("pod")]
+    equal, laid_out, split = [], [], 0
+    for k, g in flatten(grads).items():
+        full = g.full_tensor()
+        mine = g.to_local() if pod == 0 else \
+            g0[k][_box(ctx.shard_box(g.shape, g.placements, mesh))]
+        leaf = ctx.from_local(mine, mesh, g.placements, g.shape)
+        got = C.cross_pod_allreduce_compressed({"x": leaf}, mesh)["x"]
+        want = (C.compress_roundtrip(full)
+                + C.compress_roundtrip(g0[k])) * 0.5
+        del full
+        equal.append(torch.equal(got.to_local(), want[_box(
+            ctx.shard_box(g.shape, got.placements, mesh))]))
+        laid_out.append(got.placements == g.placements)
+        split += any(p.is_shard() and n == "model" for p, n in zip(
+            g.placements, ctx.axis_names(mesh)))
+    return {"leaves": len(equal), "bit_equal": all(equal),
+            "laid_out": all(laid_out), "split_over_model": split}
+
+
+def compressed_step(model, mesh, name: str, batch: dict, g0: dict,
+                    loss0: float, dev) -> dict:
+    """One `grad_compression=True` train step on `mesh` from the one-card
+    draws (the parameters' shards) on `batch`, composed of the train
+    step's parts (`value_and_grad`, `apply_error_feedback` on the
+    gradients and the zero residuals, `adamw_update`): its compression
+    bit-equal to the unmeshed one of the step's own gathered gradients
+    (`feedback_exact`) and held to the one-card gradient `g0` compressed
+    on the card (`feedback_errors`), its loss to `loss0`; on a mesh with
+    `pod`, `cross_pod`."""
+    cfg = model.cfg
+    tcfg = T.TrainConfig(opt=AdamWConfig(**S.TRAIN_OPT),
+                         grad_compression=True)
+    pb = placed(mesh, batch)
+    reset_peak(dev)
+    state = T.new_train_state(drawn(model, dev, mesh), tcfg)
+
+    def step():
+        loss, grads = T.value_and_grad(model, state.params, pb)
+        sent, ef = C.apply_error_feedback(grads, state.ef)
+        params, _, _ = adamw_update(tcfg.opt, state.params, sent, state.opt)
+        return loss, {"grads": grads, "ef_in": state.ef, "sent": sent,
+                      "ef": ef}, params
+
+    ops.reset_launch_counts()
+    with ctx.use_mesh(mesh):
+        (loss, trees, params), wall = timed(dev, step)
+    n_launch = launches()
+    top = peak(dev)
+    loss = float(whole(loss))
+    placements = {k: p.placements for k, p in flatten(state.params).items()}
+    updated = all(p.placements == placements[k]
+                  for k, p in flatten(params).items())
+    del state, params   # the one-card gradient `g0` is held beside them
+    errs = feedback_errors(trees, placements, g0, mesh)
+    exact = feedback_exact(trees, mesh)
+    pods = cross_pod(trees["grads"], g0, mesh) \
+        if "pod" in ctx.axis_names(mesh) else None
+    del trees
+    every = gathered(errs)
+    worst = {f: max(max(e[k][f] for e in every) for k in errs)
+             for f in ("excess", "raw", "identity_miss")}
+    differ = sorted({k for e in gathered(exact) for k, v in e.items()
+                     if not v})
+    line = {"part": "compressed_step", "model": cfg.name, "mesh": name,
+            "n_layers": cfg.n_layers, "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype, "batch": S.SERVE_BATCH,
+            "positions": batch["tokens"].shape[1], "loss": loss,
+            "one_card_loss": loss0,
+            "loss_rel_err": abs(loss - loss0) / abs(loss0),
+            "unmeshed_bit_equal": not differ, "unmeshed_differ": differ,
+            "max_excess_over_block_scale": worst["excess"],
+            "max_uncompressed_err": worst["raw"],
+            "max_identity_miss": worst["identity_miss"],
+            "n_leaves": len(errs),
+            "laid_out_as_params": all(e[k]["laid_out"] for e in every
+                                      for k in errs) and updated,
+            "cross_pod": pods, "launches": n_launch, "step_s": wall,
+            "max_memory_allocated": top}
+    line["ok"] = (line["loss_rel_err"] <= LOSS_RTOL and not differ
+                  and worst["excess"] <= GRAD_RTOL
+                  and worst["identity_miss"] <= 0
+                  and line["laid_out_as_params"] and n_launch == 0
+                  and (pods is None or (pods["bit_equal"]
+                                        and pods["laid_out"]
+                                        and pods["split_over_model"] > 0)))
+    return line
+
+
+def compression_walls(mesh, dev, cpu: bool) -> dict:
+    """Part (d)'s walls: qwen2-1.5b as configured at full depth (part (c)'s
+    model and ELASTIC_BATCH x DEEP_SEQ batch) on DEEP_MESH, the plain and
+    the compressed `make_train_step` in turns on the state they leave, one
+    warm-up turn and COMPRESSION_TURNS timed ones: each step's wall (the
+    largest over the ranks) and peak a card (the largest), and the paired
+    differences (compressed less plain, turn by turn); then
+    `apply_error_feedback` alone on one step's gradients and the
+    residuals, FEEDBACK_CALLS times (the largest wall over the ranks)."""
+    cfg = cpu_config(COMPRESSION_ARCH) if cpu else get_config(
+        COMPRESSION_ARCH)
+    seq = 32 if cpu else DEEP_SEQ
+    model = get_model(cfg)
+    opt = AdamWConfig(**S.TRAIN_OPT)
+    steps = {kind: T.make_train_step(model, T.TrainConfig(
+        opt=opt, grad_compression=kind == "compressed"))
+        for kind in ("plain", "compressed")}
+    state = T.init_train_state(model, gen(dev), T.TrainConfig(
+        opt=opt, grad_compression=True), device=dev, mesh=mesh)
+    S.input_fan_in(state.params)
+    batch = placed(mesh, batch_of(cfg, ELASTIC_BATCH, seq, dev))
+    walls = {kind: [] for kind in steps}
+    peaks = {kind: [] for kind in steps}
+    ops.reset_launch_counts()
+    with ctx.use_mesh(mesh):
+        for turn in range(1 + COMPRESSION_TURNS):
+            for kind, step in steps.items():
+                ef = state.ef
+                given = state if kind == "compressed" else T.TrainState(
+                    state.params, state.opt, None)
+                reset_peak(dev)
+                (state, m), wall = timed(dev, lambda: step(given, batch))
+                if kind == "plain":
+                    state = T.TrainState(state.params, state.opt, ef)
+                if turn:
+                    walls[kind].append(max(gathered(wall)))
+                    top = gathered(peak(dev))
+                    peaks[kind].append(None if None in top else max(top))
+        loss = float(whole(m["loss"]))
+    n_launch = launches()
+    # the compression alone on a step's gradients and the residuals
+    with ctx.use_mesh(mesh):
+        _, grads = T.value_and_grad(model, state.params, batch)
+        feedback = [max(gathered(timed(dev, lambda: C.apply_error_feedback(
+            grads, state.ef))[1])) for _ in range(FEEDBACK_CALLS)]
+    del grads, state
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    diffs = [c - p for p, c in zip(walls["plain"], walls["compressed"])]
+    line = {"part": "compression_walls", "model": cfg.name,
+            "mesh": DEEP_MESH, "n_layers": cfg.n_layers,
+            "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype,
+            "global_batch": ELASTIC_BATCH, "seq": seq,
+            "turns": COMPRESSION_TURNS, "step_s": walls,
+            "median_step_s": med,
+            "paired_diff_s": diffs,
+            "median_paired_diff_s": sorted(diffs)[len(diffs) // 2],
+            "spread_s": {k: max(v) - min(v) for k, v in walls.items()},
+            "max_memory_allocated": peaks,
+            "feedback_s": feedback,
+            "median_feedback_s": sorted(feedback)[len(feedback) // 2],
+            "last_loss": loss,
+            "launches": n_launch}
+    line["ok"] = n_launch == 0 and math.isfinite(loss)
+    return line
+
+
+def compression(meshes: dict, dev, cpu: bool):
+    """Part (d): a line a mesh of COMPRESSION_MESHES, then the walls."""
+    arch = COMPRESSION_ARCH
+    cfg = S.contract_config(cpu_config(arch) if cpu else get_config(
+        arch).replace(param_dtype="float32"))
+    model = get_model(cfg)
+    batch = batch_of(cfg, S.SERVE_BATCH, 32 if cpu else S.CONTRACT_LEN, dev)
+    params = drawn(model, dev)
+    loss0, g0 = T.value_and_grad(model, params, batch)
+    loss0, g0 = float(loss0), flatten(g0)
+    del params
+    for name in COMPRESSION_MESHES:
+        yield compressed_step(model, meshes[name], name, batch, g0, loss0,
+                              dev)
+    del g0
+    yield compression_walls(meshes[DEEP_MESH], dev, cpu)
+
+
+def active_params(cfg) -> int:
+    """Parameters a token uses: every leaf of the model's tree but the
+    routed experts a token does not choose (n_experts - top_k of each MoE
+    layer).  `ArchConfig.n_active_params` counts every layer as an MoE
+    layer, a dense first layer too (deepseek-v2: 5.36e9 parameters at 2
+    layers, where it counts 8.99e9)."""
+    total = sum(t.numel() for t in flatten(
+        get_model(cfg).abstract_params()).values())
+    if cfg.family != "moe":
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    return total - (cfg.n_layers - m.first_dense) * (
+        m.n_experts - m.top_k) * per_expert
+
+
 def held_bytes(cfg, mesh, tcfg) -> int:
     """Bytes a card of `cfg`'s train state on `mesh` and what a step holds
-    beside it: the parameters, their f32 moments, the gradients and the
-    f32 microbatch accumulator (`bytes_per_device` of the spec trees), and
-    one more gradient-sized temporary of the largest stacked leaf (the
-    backward of a layer's slice of it)."""
+    beside it: the parameters (every leaf of the model's tree: a dense
+    first layer and MLA's projections included), their f32 moments, the
+    gradients, the f32 microbatch accumulator and, where compressing, the
+    f32 residuals (`bytes_per_device` of the spec trees), and one more
+    gradient-sized temporary of the largest stacked leaf (the backward of
+    a layer's slice of it)."""
     model = get_model(cfg)
     abstract = model.abstract_params()
     specs = model.param_specs()
@@ -295,14 +643,16 @@ def held_bytes(cfg, mesh, tcfg) -> int:
     largest = max(bytes_per_device({k: t}, mesh, {k: flatten(specs)[k]})
                   for k, t in flatten(abstract).items())
     acc = f32_bytes if tcfg.microbatches > 1 else 0
-    return 2 * pbytes + 2 * f32_bytes + acc + largest
+    ef = f32_bytes if tcfg.grad_compression else 0
+    return 2 * pbytes + 2 * f32_bytes + acc + ef + largest
 
 
 def pick_depth(cfg, mesh, tcfg, working: int) -> tuple[int, int]:
     """(depth, held bytes a card): the most layers, at most the configured
-    count, whose `held_bytes` plus `working` and HEADROOM stay under
-    PEAK_CAP."""
-    for n in range(cfg.n_layers, 0, -1):
+    count and at least one past an MoE model's dense first layers, whose
+    `held_bytes` plus `working` and HEADROOM stay under PEAK_CAP."""
+    first = cfg.moe.first_dense if cfg.family == "moe" else 0
+    for n in range(cfg.n_layers, first, -1):
         b = held_bytes(cfg.replace(n_layers=n), mesh, tcfg)
         if b + working + HEADROOM <= PEAK_CAP:
             return n, b
@@ -339,17 +689,17 @@ def eval_loss(model, params, batch: dict, mb: int) -> float:
     return total / mb
 
 
-def deep(mesh, dev, cpu: bool) -> dict:
-    """Part (b)."""
-    cfg = cpu_config(DEEP_ARCH).replace(n_layers=4) if cpu \
-        else get_config(DEEP_ARCH)
+def deep(arch: str, mesh, dev, cpu: bool) -> dict:
+    """Part (b) for one model."""
+    cfg = cpu_config(arch).replace(n_layers=4) if cpu \
+        else get_config(arch)
     seq = 32 if cpu else DEEP_SEQ
     # the reference's AdamW defaults (100 warm-up steps): at chip_smoke.py's
     # TRAIN_OPT (2 warm-up steps) the random-init MoE's loss rose on 4
     # cards, 12.0 to 25.2 in three steps (PERF.md, section 6)
     tcfg = T.TrainConfig(opt=AdamWConfig(), microbatches=DEEP_MICRO)
     batch = placed(mesh, batch_of(cfg, DEEP_BATCH, seq, dev))
-    line = {"part": "deep", "model": DEEP_ARCH, "mesh": DEEP_MESH}
+    line = {"part": "deep", "model": arch, "mesh": DEEP_MESH}
     if cpu:
         n, held = cfg.n_layers, held_bytes(cfg, mesh, tcfg)
     else:
@@ -361,7 +711,7 @@ def deep(mesh, dev, cpu: bool) -> dict:
     reset_peak(dev)
     t0 = time.perf_counter()
     state = T.init_train_state(model, gen(dev), tcfg, device=dev, mesh=mesh)
-    S.input_fan_in(state.params)
+    fan_in(state.params)
     sync(dev)
     init_s = time.perf_counter() - t0
     step = T.make_train_step(model, tcfg)
@@ -380,13 +730,14 @@ def deep(mesh, dev, cpu: bool) -> dict:
     top = peak(dev)
     step_s = sum(walls) / len(walls)
     tokens = DEEP_BATCH * seq
-    flops = 6.0 * cut.n_active_params() * tokens
+    flops = 6.0 * active_params(cut) * tokens
     line.update({
-        "n_layers": n, "n_layers_configured": get_config(DEEP_ARCH).n_layers,
+        "n_layers": n, "n_layers_configured": get_config(arch).n_layers,
         "d_model": cut.d_model, "param_dtype": cut.param_dtype,
         "compute_dtype": cut.compute_dtype, "remat": cut.remat,
         "global_batch": DEEP_BATCH, "seq": seq, "microbatches": DEEP_MICRO,
-        "reduced_from": {"global_batch": 256, "n_layers": 94},
+        "reduced_from": {"global_batch": 256,
+                         "n_layers": get_config(arch).n_layers},
         "predicted_held_bytes_a_card": held,
         "local_state_bytes": sum(local(t).numel() * t.element_size()
                                  for t in tree_leaves(state)
@@ -395,12 +746,14 @@ def deep(mesh, dev, cpu: bool) -> dict:
         "losses": losses, "grad_norms": norms, "lrs": lrs,
         "loss_after_on_first_batch": after, "step_wall_s": walls, "step_ms": step_s * 1e3,
         "tokens_per_s": tokens / step_s,
-        "n_active_params": cut.n_active_params(),
+        "n_active_params": active_params(cut),
+        "n_active_params_analytic": cut.n_active_params(),
         "model_flops_per_step": flops,
         "mfu": flops / step_s / (dist.get_world_size() * PEAK_BF16),
         "launches": n_launch, "max_memory_allocated": top,
         "max_memory_allocated_every_rank": gathered(top)})
-    line["profile"] = None if cpu else profile_step(step, state, batch, mesh)
+    line["profile"] = None if cpu else profile_step(step, state, batch, mesh,
+                                                    arch)
     line["ok"] = (n_launch == 0 and all(math.isfinite(x) for x in losses)
                   and after < losses[0]
                   and (cpu or max(line["max_memory_allocated_every_rank"])
@@ -426,7 +779,7 @@ def _busy_ms(intervals: list) -> float:
     return total / 1e3
 
 
-def profile_step(step, state, batch, mesh) -> dict:
+def profile_step(step, state, batch, mesh, arch: str) -> dict:
     """One more step under the profiler, in a telemetry session (so
     `attention`, `moe` and `optimizer` are profiler ranges), on rank 0's
     card: wall; the device's busy time as the union of its kernels'
@@ -440,7 +793,8 @@ def profile_step(step, state, batch, mesh) -> dict:
     from torch.profiler import ProfilerActivity, profile
     dist.barrier()
     with telemetry.session(out_dir=os.path.join(
-            ROOT, "results", "mesh_train", f"telemetry_{dist.get_rank()}")):
+            ROOT, "results", "mesh_train",
+            f"telemetry_{arch}_{dist.get_rank()}")):
         with ctx.use_mesh(mesh), profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -561,6 +915,10 @@ def elastic(meshes: dict, dev, cpu: bool) -> dict:
 def main() -> int:
     cpu = "--device" in sys.argv and sys.argv[sys.argv.index(
         "--device") + 1] == "cpu"
+    parts = sys.argv[sys.argv.index("--parts") + 1].split(",") \
+        if "--parts" in sys.argv else PARTS
+    if not set(parts) <= set(PARTS):
+        raise SystemExit(f"--parts: a comma-separated subset of {PARTS}")
     if not cpu and not (torch.cuda.is_available()
                         and torch.cuda.device_count() >= 4
                         and dist.is_nccl_available()):
@@ -581,8 +939,9 @@ def main() -> int:
             check=True, timeout=60).stdout.strip().splitlines()
         print(json.dumps({"nvidia_smi": smi, "world": world,
                           "torch": torch.__version__}), flush=True)
-    meshes = {name: M.make_test_mesh(*shape, device_type=dev.type)
-              for name, shape in MESHES.items()}
+    meshes = {name: M.make_test_mesh(data, model, pod,
+                                     device_type=dev.type)
+              for name, (pod, data, model) in MESHES.items()}
     ok = True
 
     def emit(line: dict) -> None:
@@ -594,11 +953,18 @@ def main() -> int:
                               "elapsed_s": time.perf_counter() - t_start}),
                   flush=True)
 
-    for arch in CONTRACT_ARCHS:
-        for line in contract(arch, meshes, dev, cpu):
+    if "contract" in parts:
+        for arch in CONTRACT_ARCHS:
+            for line in contract(arch, meshes, dev, cpu):
+                emit(line)
+    if "deep" in parts:
+        for arch in DEEP_ARCHS:
+            emit(deep(arch, meshes[DEEP_MESH], dev, cpu))
+    if "elastic" in parts:
+        emit(elastic(meshes, dev, cpu))
+    if "compression" in parts:
+        for line in compression(meshes, dev, cpu):
             emit(line)
-    emit(deep(meshes[DEEP_MESH], dev, cpu))
-    emit(elastic(meshes, dev, cpu))
     M.shutdown()
     if rank == 0:
         print(json.dumps({"ok": bool(ok), "device": None if cpu else {

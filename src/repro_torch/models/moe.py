@@ -101,14 +101,23 @@ def routes_agree(got: list, want: list, k: int, margin: float) -> dict:
     """The expert choices of two runs' `record_routes` lists (whole
     tensors), compared for the tokens whose k-th and (k+1)-th router
     probabilities in `want` are more than `margin` apart: the tokens
-    compared, those left out, and those whose choices differ."""
-    n = left = bad = 0
+    compared, those left out, and those whose sets of k experts differ.
+    A choice is a set: the order of a token's k experts among themselves
+    changes no expert a token reaches (the dispatch and the combine follow
+    expert order), and two of them nearly tied inside the top k swap
+    places under rounding that the margin does not guard; the tokens
+    whose sets agree in another order are counted as `reordered`."""
+    n = left = bad = reordered = 0
     for (_, gi), (top, wi) in zip(got, want, strict=True):
         decided = (top[..., k - 1] - top[..., k]) > margin
+        same = (torch.sort(gi, dim=-1).values
+                == torch.sort(wi, dim=-1).values).all(-1)
         n += int(decided.sum())
         left += int((~decided).sum())
-        bad += int(((gi != wi).any(-1) & decided).sum())
-    return {"compared": n, "left_out": left, "differ": bad}
+        bad += int((~same & decided).sum())
+        reordered += int((same & (gi != wi).any(-1)).sum())
+    return {"compared": n, "left_out": left, "differ": bad,
+            "reordered": reordered}
 
 
 def _route(cfg: ArchConfig, p: dict, x):
