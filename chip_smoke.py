@@ -64,7 +64,7 @@ Phases, each printing one JSON line:
                  acted (interrupts, lost work, derated and throttled hours),
                  the executors equal (`compare_resilience`), the grid's cell
                  the single run, its healthy cells free of failures; after
-                 the grid phase, a 16-step profile of each executor; after
+                 the grid phase, an 8-step profile of each executor; after
                  the small phase, the same at a small scale on the card and
                  on the CPU.
   4b. experiments -- the experiment tooling at full scale, each part a
@@ -98,17 +98,17 @@ Phases, each printing one JSON line:
                  full width under phase 4a's failures and loop with the
                  cross-region spill (seeds 1-8, stage pipeline) and without
                  it (counts, interrupts and spills the reference's).  After
-                 the grid phase, 16-step profiles of (c) (megakernel) and
+                 the grid phase, 8-step profiles of (c) (megakernel) and
                  (d); after the small phase, a small greedy fleet, spill
                  fleet and fleet grid on the card and on the CPU.
   4c. grid   -- the scenario grid of paper Fig 12 at the main phase's
                  configuration: 8 carbon regions x battery capacities, as
                  B = 1, 16 and 64 cells in one step loop, through both
                  executors: wall time, aggregate simulated years a second,
-                 peak memory, a 16-step profile (host ms a step, device
+                 peak memory, an 8-step profile (host ms a step, device
                  idle share), launch counts equal to one run's; cell 0
                  equal to the main run, every cell of an 8 x 2
-                 megakernel grid over the first 120 steps equal to its own
+                 megakernel grid over the first 60 steps equal to its own
                  run, B = 64's repeated
                  cells equal to B = 16's, the backends equal cell by cell;
                  then a small 16-cell grid on the card and on the CPU.
@@ -232,6 +232,22 @@ Phases, each printing one JSON line:
                  tokens; then the reduced config on the card and on the CPU
                  (6 flash launches).  Each part of 7d / 7e prints its wall
                  time and peak memory.
+  7f. long context -- the reference's long-context cells on one card
+                 (lines `"phase": "long_context"`): the rotary table of
+                 every (rope_theta, rotary dim) of the ten configs over
+                 long_500k's 524288 positions made on the card and on the
+                 CPU, frequencies and angles bit-equal (the cos / sin ulps
+                 reported); qwen2-1.5b at full depth, a warm-up and a timed
+                 prefill of 2 x 32768 tokens with exactly 28 flash
+                 launches; mamba2-2.7b at full depth, 1 x 32768 with
+                 exactly 64 SSD launches of 128 chunks, then its long_500k
+                 decode at position 524287 (4 steps, each bit-equal to the
+                 same step at position 1: the recurrent state holds no
+                 position); a profile of qwen2's prefill; both
+                 kernels at those shapes against their plain versions (flash
+                 over blocks of query rows that carry the causal offset, SSD
+                 over blocks of chunks) and timed beside SDPA; the
+                 4-card cells are scripts/long_context_cards.py's.
   8. timing   -- each kernel beside its plain version (CUDA events) at the
                  main paths' shapes, its device time (profiler), its bound,
                  and for flash attention (zamba2's, qwen2's, paligemma's,
@@ -250,7 +266,8 @@ Phases, each printing one JSON line:
 
 Then the `kernels` summary line (kernel 3's derate route as its own row,
 `fused_facility_totals_derate`, and its series route,
-`fused_facility_series`), the nvidia-smi line, and as the last line
+`fused_facility_series`; flash's and SSD's rows carry phase 7f's shapes
+under `long_shapes`), the nvidia-smi line, and as the last line
 `{"ok": true, "device": {...}}`.  Any failure raises: no phase is caught,
 and the script exits non-zero without the last line.  Without `--device
 cpu` it needs a card and fails without one.
@@ -278,7 +295,8 @@ import torch  # noqa: E402
 
 from repro_torch.carbontraces import (make_region_traces,  # noqa: E402
                                       trace_stats)
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, SHAPES,  # noqa: E402
+                                  get_config, reduced)
 from repro_torch.core import config as C  # noqa: E402
 from repro_torch.core import (STORES, EnergyFlow, FleetSpec,  # noqa: E402
                               ScenarioGrid, battery, dyn_axis,
@@ -305,7 +323,8 @@ from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import simulate as cli  # noqa: E402
 from repro_torch.models import get_model, whisper  # noqa: E402
 from repro_torch.models.layers import (dtype_of, flatten,  # noqa: E402
-                                       layer, layer_window, tree_map)
+                                       layer, layer_window, rope_angles,
+                                       rope_table, tree_map)
 from repro_torch.tasktraces import make_arrival_sets  # noqa: E402
 from repro_torch.data.pipeline import (DataConfig,  # noqa: E402
                                        TokenPipeline, to_device)
@@ -348,14 +367,14 @@ DT_H = 0.25
 MAIN_STEPS = 2880            # 30 days at 15 minutes
 # the window of the phases' profiles (the first steps of the full-scale
 # run); the profiler's own host time grows with it, and the smoke runs
-# within its time limit
-PROFILE_STEPS = 16
+# within its time limit (32 until phase 4f joined, 16 until phase 7f)
+PROFILE_STEPS = 8
 # the horizon of the grid phase's check of each cell against its own run
 # (the full-scale workload): sixteen single runs of the whole 2880 steps
 # took two of the smoke's twenty minutes; 720 steps took 28.4 s of a ~970 s
 # smoke on a slow host once phases 7d / 7e joined; 360 (3.75 days) until
-# phase 4f joined, now 120 (30 hours)
-SINGLES_STEPS = 120
+# phase 4f joined, 120 until phase 7f, now 60 (15 hours)
+SINGLES_STEPS = 60
 MARCONI_ACTIVE = 750         # the published Marconi optimum (of 972 hosts)
 KWH_PER_HOST = 9.0           # Marconi battery sizing (benchmarks/common.py)
 CURVES = ("linear", "sqrt", "square", "cubic")
@@ -485,9 +504,18 @@ def _err(a, b) -> float:
 
 
 def _close(got, want, rtol, atol, what) -> float:
-    ok = torch.allclose(got.double(), want.double(), rtol=rtol, atol=atol)
-    check(ok, f"{what}: max abs err {_err(got, want):.3e}")
-    return _err(got, want)
+    """The max abs error of `got` against `want` (broadcast together),
+    checked elementwise within rtol of the value plus atol (in f64), 2^26
+    elements at a time (so the f64 copies of a 32768-row output fit beside
+    it)."""
+    g, w = (t.reshape(-1) for t in torch.broadcast_tensors(got, want))
+    ok, err, block = True, 0.0, 1 << 26
+    for i in range(0, g.numel(), block):
+        gi, wi = g[i:i + block], w[i:i + block]
+        ok &= torch.allclose(gi.double(), wi.double(), rtol=rtol, atol=atol)
+        err = max(err, _err(gi, wi))
+    check(ok, f"{what}: max abs err {err:.3e}")
+    return err
 
 
 def check_power_kernels(dev, results: dict) -> None:
@@ -903,16 +931,67 @@ FLASH_NEW_SHAPES = {
                              2.0 ** -7, 1e-4)}
 
 
-def _flash_plain(q, k, v, scale: float, causal: bool, max_heads: int = 32):
+def _flash_plain(q, k, v, scale: float, causal: bool, max_heads: int = 32,
+                 max_scores: int = 1 << 30):
     """Flash's plain version over at most `max_heads` query heads at a time
     (with their KV heads; every head's attention is its own), so the f32
-    scores of the 64- and 128-head shapes fit beside the inputs."""
+    scores of the 64- and 128-head shapes fit beside the inputs; where a
+    group's f32 scores [B, KV, G, Sq, Sk] would pass `max_scores` elements
+    (the 32768-long rows), over blocks of query rows (`_flash_plain_rows`)."""
     kvh, g = k.shape[2], q.shape[2] // k.shape[2]
     step = max(max_heads // g, 1)
-    return torch.cat([ref.flash_attention(
+    return torch.cat([_flash_plain_rows(
         q[:, :, i * g:(i + step) * g], k[:, :, i:i + step],
-        v[:, :, i:i + step], scale=scale, causal=causal)
+        v[:, :, i:i + step], scale, causal, max_scores)
         for i in range(0, kvh, step)], dim=2)
+
+
+def _flash_plain_rows(q, k, v, scale: float, causal: bool,
+                      max_scores: int):
+    """`ref.flash_attention` over blocks of query rows whose f32 scores hold
+    at most `max_scores` elements; the whole rows at once where they fit.
+    A causal block of rows r0 .. r1 reads the keys 0 .. r1 (the mask drops
+    the later ones: -1e30, whose exp is 0 in f32) and carries r0 into its
+    mask (column <= r0 + its own row); otherwise the arithmetic is
+    `ref.flash_attention`'s, row by row."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rows = max(1, max_scores // (b * h * sk))
+    if rows >= sq:
+        return ref.flash_attention(q, k, v, scale=scale, causal=causal)
+    out = torch.empty((b, sq, h, v.shape[-1]), dtype=q.dtype,
+                      device=q.device)
+    for r0 in range(0, sq, rows):
+        r1 = min(r0 + rows, sq)
+        n = min(r1, sk) if causal else sk
+        qg = q[:, r0:r1].to(torch.float32).reshape(b, r1 - r0, kvh,
+                                                   h // kvh, d)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                              k[:, :n].to(torch.float32)) * scale
+        if causal:
+            rr = torch.arange(r0, r1, device=q.device)[:, None]
+            mask = torch.arange(n, device=q.device)[None, :] <= rr
+            logits = torch.where(mask, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        del logits
+        o = torch.einsum("bhgqk,bkhd->bqhgd", probs,
+                         v[:, :n].to(torch.float32))
+        out[:, r0:r1] = o.reshape(b, r1 - r0, h, v.shape[-1]).to(q.dtype)
+        del probs, o
+    return out
+
+
+def _ssd_plain(xdt, da, b, c, max_chunks: int = 64):
+    """`ref.ssd_intra_chunk` over blocks of at most `max_chunks` of the
+    B x C chunks (each chunk's form is its own), so its f32 [.., H, Q, Q]
+    temporaries of 2048 chunks fit."""
+    bt, nc = xdt.shape[:2]
+    flat = [t.reshape(1, bt * nc, *t.shape[2:]) for t in (xdt, da, b, c)]
+    out = torch.empty(flat[0].shape, dtype=torch.float32, device=xdt.device)
+    for i in range(0, bt * nc, max_chunks):
+        out[:, i:i + max_chunks] = ref.ssd_intra_chunk(
+            *(t[:, i:i + max_chunks] for t in flat))
+    return out.reshape(xdt.shape)
 
 
 def check_flash_kernel(dev, results: dict) -> None:
@@ -1389,6 +1468,25 @@ def profiled(fn, top_n: int = 8, watch: tuple = (),
             "watched_kernels": [{"name": k[:80], "device_ms": t / 1e3,
                                  "count": n} for k, t, n in top
                                 if any(w in k for w in watch)]}
+
+
+# the kinds of NCCL kernels the 4-card scripts' profiles sort NCCL's time by
+NCCL_KINDS = ("AllReduce", "AllGather", "ReduceScatter", "SendRecv",
+              "Broadcast", "AllToAll")
+
+
+def busy_ms(intervals: list) -> float:
+    """Milliseconds of the union of (start, end) intervals in µs (a
+    device's busy time where kernels of several streams overlap)."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
 
 
 def profile_window(tasks, hosts, cfg, dyn, ci, n_steps: int, dev) -> list:
@@ -4014,6 +4112,237 @@ def whisper_phase(dev, cfg, batch: int, dec_len: int, greedy: int):
 
 
 # --------------------------------------------------------------------------
+# phase 7f: the long-context serving cells on one card
+# --------------------------------------------------------------------------
+
+# the reference's long-context cells (models/config.py SHAPES): prefill_32k
+# and decode_32k's 32768 positions, long_500k's 524288.  One card serves a
+# prefill of qwen2-1.5b at batch 2 and of mamba2-2.7b at batch 1 at full
+# depth; the cells' own batches (32 sequences, a cache of 128) take the four
+# cards of scripts/long_context_cards.py
+LONG_LEN = SHAPES["prefill_32k"].seq_len
+LONG_500K = SHAPES["long_500k"].seq_len
+LONG_BATCH = {"qwen2-1.5b": 2, "mamba2-2.7b": 1}
+LONG_DECODE_STEPS = 4
+
+
+def rope_pairs() -> list:
+    """(rope_theta, rotary dim) of every config with rotary embeddings:
+    MLA's rope head dim, the head dim elsewhere (whisper and mamba2 have
+    none)."""
+    out = set()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        if cfg.mla is not None:
+            out.add((cfg.rope_theta, cfg.mla.rope_head_dim))
+        elif cfg.family in ("dense", "vlm", "hybrid", "moe"):
+            out.add((cfg.rope_theta, cfg.hd))
+    return sorted(out)
+
+
+def ulps(a, b) -> int:
+    """The largest distance between f32 tensors a and b in units in the
+    last place (their bits as integers in the order of the values)."""
+    def key(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((key(a) - key(b)).abs().max())
+
+
+def rope_table_card_vs_cpu(dev, n_pos: int) -> dict:
+    """The rotary table of every `rope_pairs` entry over the positions 0 ..
+    n_pos - 1, made on `dev` and on the CPU (`layers.rope_table`): the
+    frequencies and the angles bit-equal (a gate), and the largest ulp
+    distance of the cos and sin made from them at every 8th position (the
+    device's cos / sin against the CPU's; reported)."""
+    pos, stride = torch.arange(n_pos), 8
+    out = {}
+    for theta, dim in rope_pairs():
+        ang = rope_table(pos, dim, theta)
+        got = rope_table(pos.to(dev), dim, theta).cpu()
+        check(torch.equal(got, ang),
+              f"rope table ({theta:g}, {dim}): card and CPU differ")
+        some = ang[::stride]
+        cos, sin = (t.cpu() for t in rope_angles(pos[::stride].to(dev), dim,
+                                                 theta))
+        out[f"{theta:g}, {dim}"] = {
+            "positions": n_pos, "angles_bit_equal": True,
+            "ulp_stride": stride, "cos_ulps": ulps(cos, torch.cos(some)),
+            "sin_ulps": ulps(sin, torch.sin(some))}
+    return out
+
+
+def check_flash_shapes(dev, shapes: dict, seed: int = 9) -> dict:
+    """Flash against its plain version at `shapes` (name: (b, sq, sk, h, kv,
+    d, causal, dtype, rtol, atol); MLA's v of 128 zero-padded to q's 192):
+    the max abs error a shape, within rtol of the value plus atol."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, (b, sq, sk, h, kv, d, causal, dt, rtol, atol) in \
+            shapes.items():
+        q, k, v = (torch.randn(sh, generator=g, device=dev).to(dt)
+                   for sh in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+        if d == MLA_QK:
+            v[..., MLA_V:] = 0
+        scale = 1.0 / math.sqrt(d)
+        got = ops.flash_attention(q, k, v, scale=scale, causal=causal)
+        out[name] = _close(got, _flash_plain(q, k, v, scale, causal),
+                           rtol, atol, f"flash {name}")
+        del q, k, v, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_shapes_vs_plain(dev, shapes: dict, seed: int = 11) -> dict:
+    """Kernel 5 at `shapes` (name: (B, C, Q, H, P, G, N)) against its plain
+    version (`_ssd_plain`, rtol / atol 1e-4 as `check_ssd_kernel`), and
+    timed: ms, plain ms, device ms, and the bound of `time_model_kernels`
+    (f32 operations, and at the TF32 rate)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, shape in shapes.items():
+        bt, nc, q, h, p, g, n = shape
+        args = _ssd_inputs(gen, shape, dev, 0.05)
+        err = _close(ssd_k.ssd_intra_chunk(*args), _ssd_plain(*args), 1e-4,
+                     1e-4, f"ssd_intra_chunk {name}")
+        pairs = bt * nc * q * (q + 1) // 2
+        nbytes = 4 * sum(t.numel() for t in args) + 4 * args[0].numel()
+        products = pairs * (h * 2 * p + g * 2 * n)
+        b_ms, b_by = bound(nbytes, products + pairs * h * 3)
+        tc_ms, _ = bound(nbytes, 3 * products, PEAK_TF32_OPS_S)
+        out[name] = {
+            "shape": {"xdt": list(args[0].shape), "b": list(args[2].shape)},
+            "chunks": bt * nc, "max_abs_err": err,
+            "ms": time_ms(lambda: ssd_k.ssd_intra_chunk(*args)),  # noqa: B023
+            "plain_ms": time_ms(lambda: _ssd_plain(*args)),  # noqa: B023
+            "device_ms": device_ms(lambda: ssd_k.ssd_intra_chunk(  # noqa: B023
+                *args), "ssd_intra_kernel", reps=20),  # noqa: B023
+            "bound_ms": b_ms, "bound_by": b_by, "bound_tf32_ms": tc_ms,
+            "library_ms": None}
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_kernel_shapes(dev, flash: dict, ssd: dict) -> dict:
+    """Kernels 5 and 6 at long-context shapes: flash (`flash`: name: (b, s,
+    h, kv, d), causal bf16) held to its plain version over row blocks
+    within one bf16 ulp of the value plus 1e-4 (the S = 1024 rule of
+    `check_flash_kernel`) and timed beside SDPA (`time_flash_shapes`);
+    SSD (`ssd`) by `ssd_shapes_vs_plain`."""
+    shapes = {name: (b, s, s, h, kv, d, True, torch.bfloat16, 2.0 ** -7,
+                     1e-4) for name, (b, s, h, kv, d) in flash.items()}
+    errs = check_flash_shapes(dev, shapes, seed=12)
+    times = time_flash_shapes(dev, shapes, seed=13)
+    return {"flash_attention": {k: {**times[k], "max_abs_err": errs[k]}
+                                for k in shapes},
+            "ssd_intra_chunk": ssd_shapes_vs_plain(dev, ssd)}
+
+
+def long_context_phase(dev, cfgs: dict, seq: int, long_pos: int,
+                       decode_steps: int):
+    """Phase 7f's (line, prefill launches) pairs, each yielded when its part
+    ends: the rotary table card against CPU over `long_pos` positions; then
+    each of `cfgs` (arch: config) at full depth, its parameters made once
+    in the compute type, a warm-up and a timed prefill of LONG_BATCH[arch]
+    x `seq` tokens with exact launch counts, finite last logits and peak
+    memory; for the dense model a profile of one more (flash / GEMM / the
+    rest; the SSM prefill's ~10^5 launches take the profiler many seconds
+    to sort, and scripts/long_context_cards.py profiles it); for the SSM
+    model after it, long_500k's decode: `decode_steps` steps at the
+    position `long_pos` - 1 from a state that one step at position 0
+    filled, each step's logits and state bit-equal to the same step at
+    position 1 (the recurrent state holds no position), no launch; on the
+    card last both kernels at the prefills' shapes against their plain
+    versions, timed (`long_kernel_shapes`)."""
+    t0 = time.perf_counter()
+    yield ({"phase": "long_context", "part": "rope_table",
+            "tables": rope_table_card_vs_cpu(dev, long_pos),
+            "part_s": time.perf_counter() - t0}, {})
+    flash, ssd = {}, {}
+    for arch, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        b = LONG_BATCH[arch]
+        model = get_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        _reset_peak(dev)
+        params = model.compute_params(model.init(gen, device=dev))
+        batch = {"tokens": _tokens(gen, cfg, b, seq, dev)}
+        timed_prefill(model, params, batch, dev)              # warm-up
+        logits, wall, counts = timed_prefill(model, params, batch, dev)
+        check_launches(counts, cfg, dev, f"{arch} prefill of {seq}")
+        check(tuple(logits.shape) == (b, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+              f"{arch} long prefill logits")
+        line = {"phase": "long_context", "part": "prefill", "model": arch,
+                "n_layers": cfg.n_layers, "batch": b, "seq": seq,
+                "wall_s": wall, "tokens_per_s": b * seq / wall,
+                "launches": counts, "max_memory_allocated": _peak(dev)}
+        if cfg.family == "ssm":
+            s_cfg = cfg.ssm
+            line["ssd_chunks_a_launch"] = b * seq // s_cfg.chunk
+            h = s_cfg.expand * cfg.d_model // s_cfg.head_dim
+            ssd[f"{arch}, {b} x {seq}"] = (
+                b, seq // s_cfg.chunk, s_cfg.chunk, h, s_cfg.head_dim,
+                s_cfg.n_groups, s_cfg.d_state)
+            line["long_500k_decode"] = long_decode(model, params, b,
+                                                   long_pos, decode_steps,
+                                                   batch["tokens"], dev)
+        else:
+            flash[f"{arch}, {b} x {seq}"] = (b, seq, cfg.n_heads,
+                                              cfg.n_kv_heads, cfg.hd)
+        if dev.type == "cuda" and cfg.family != "ssm":
+            line["prefill_profile"] = profiled(
+                lambda: model.prefill(params, batch),  # noqa: B023
+                top_n=6, watch=("flash",),
+                classes=(("flash", ("flash",)),
+                         ("gemm", ("gemm", "cutlass", "xmma", "nvjet"))))
+        line["part_s"] = time.perf_counter() - t0
+        del params, batch, logits
+        yield line, counts
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        _reset_peak(dev)
+        yield ({"phase": "long_context", "part": "kernels_vs_plain",
+                **long_kernel_shapes(dev, flash, ssd),
+                "max_memory_allocated": _peak(dev),
+                "part_s": time.perf_counter() - t0}, {})
+
+
+def long_decode(model, params, b: int, long_pos: int, steps: int, tokens,
+                dev) -> dict:
+    """long_500k's decode of an SSM model (`long_context_phase`): its cache
+    of `long_pos` positions is the O(1) recurrent state, filled by one step
+    at position 0; then `steps` steps at position long_pos - 1 and the same
+    steps at position 1 on a copy, logits and state bit-equal."""
+    cache = model.init_cache(b, long_pos, device=dev)
+    ops.reset_launch_counts()
+    model.decode_step(params, cache, tokens[:, :1], 0)
+    copy = {k: v.clone() for k, v in cache.items()}
+    _sync(dev)
+    t0 = time.perf_counter()
+    for t in range(steps):
+        late, cache = model.decode_step(params, cache,
+                                        tokens[:, t + 1:t + 2], long_pos - 1)
+        early, copy = model.decode_step(params, copy, tokens[:, t + 1:t + 2],
+                                        1)
+        check(torch.equal(late, early),
+              "long_500k decode: the logits depend on the position")
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    check(all(torch.equal(cache[k], copy[k]) for k in cache),
+          "long_500k decode: the state depends on the position")
+    check(not any(ops.launch_counts().values()), "decode launched a kernel")
+    check(bool(torch.isfinite(late[..., :model.cfg.vocab]).all()),
+          "long_500k decode logits")
+    return {"position": long_pos - 1, "steps": steps,
+            "cache_bytes": sum(v.numel() * v.element_size()
+                               for v in cache.values()),
+            "bit_equal_at_position_1": True,
+            "ms_per_token": wall / (2 * steps) * 1e3}
+
+
+# --------------------------------------------------------------------------
 # phase 7c: training and carbon-aware training
 # --------------------------------------------------------------------------
 
@@ -4582,6 +4911,9 @@ def main() -> int:
             emit({"rehearsal": True, **line})
         for line, _ in whisper_phase(cpu, reduced("whisper-base"), 2, 64, 4):
             emit({"rehearsal": True, **line})
+        for line, _ in long_context_phase(
+                cpu, {a: reduced(a) for a in LONG_BATCH}, 256, 4096, 2):
+            emit({"rehearsal": True, **line})
         for line in train_phase(cpu, reduced("qwen2-1.5b").replace(
                 remat=True), 64, TRAIN_TIMED_STEPS, 2,
                 dict(TRAIN_OPT, lr=1e-3)):
@@ -4851,6 +5183,22 @@ def main() -> int:
     emit({"phase": "moe_whisper_summary", "moe_phase_s": moe_s,
           "whisper_phase_s": time.perf_counter() - t0 - moe_s})
 
+    # the long-context cells on one card: the rotary table card against
+    # CPU, prefills of 32768 positions of qwen2-1.5b and mamba2-2.7b at full
+    # depth, mamba2's long_500k decode, both kernels at those shapes
+    t0 = time.perf_counter()
+    long_kernels = {}
+    for line, counts in long_context_phase(
+            dev, {a: get_config(a) for a in LONG_BATCH}, LONG_LEN, LONG_500K,
+            LONG_DECODE_STEPS):
+        emit({"nvidia_smi": smi, **line})
+        for k, n in counts.items():
+            launches[k] += n
+        if line["part"] == "kernels_vs_plain":
+            long_kernels = line
+    emit({"phase": "long_context_summary",
+          "seconds": time.perf_counter() - t0})
+
     # training: qwen2-1.5b as configured (no kernel launches), its gradient
     # card against CPU, the reduced configs, carbon-aware training and the
     # CLI (each part's wall time in its line)
@@ -4909,7 +5257,8 @@ def main() -> int:
                      "device_ms": r["device_ms"], "kernel_ms": r["ms"],
                      "bound_us": r["bound_ms"] * 1e3,
                      "launch_floor_ms": r.get("launch_floor_ms"),
-                     "device_ms_b64": r.get("device_ms_b64")})
+                     "device_ms_b64": r.get("device_ms_b64"),
+                     "long_shapes": long_kernels.get(name)})
         check(all(math.isfinite(v) for v in (r["ms"], r["plain_ms"],
                                               r["bound_ms"])),
               f"{name}: timing not finite")

@@ -46,7 +46,6 @@ JSON line a part, and last `{"ok": ..., "device": ...}`; the exit code is
 from __future__ import annotations
 
 import json
-import math
 import os
 import subprocess
 import sys
@@ -362,26 +361,6 @@ def rank_flash_shapes() -> dict:
                 rt, at)}
 
 
-def check_flash_shapes(dev, shapes: dict) -> dict:
-    """Flash against its plain version at `shapes` (chip_smoke.py's rule:
-    within one bf16 ulp of the value plus 1e-4), max abs error a shape."""
-    g = gen(dev, 9)
-    out = {}
-    for name, (b, sq, sk, h, kv, d, causal, dt, rtol, atol) in \
-            shapes.items():
-        q, k, v = (torch.randn(sh, generator=g, device=dev).to(dt)
-                   for sh in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
-        if d == S.MLA_QK:
-            v[..., S.MLA_V:] = 0
-        scale = 1.0 / math.sqrt(d)
-        got = ops.flash_attention(q, k, v, scale=scale, causal=causal)
-        out[name] = S._close(got, S._flash_plain(q, k, v, scale, causal),
-                             rtol, atol, f"flash {name}")
-        del q, k, v, got
-    torch.cuda.empty_cache()
-    return out
-
-
 def main() -> int:
     cpu = "--device" in sys.argv and sys.argv[sys.argv.index(
         "--device") + 1] == "cpu"
@@ -416,7 +395,7 @@ def main() -> int:
 
     if not cpu and rank == 0:
         shapes = rank_flash_shapes()
-        errs = check_flash_shapes(dev, shapes)
+        errs = S.check_flash_shapes(dev, shapes)
         times = S.time_flash_shapes(dev, shapes, seed=10)
         print(json.dumps({"part": "flash_rank_shapes",
                           **{k: {**times[k], "max_abs_err": errs[k]}

@@ -762,23 +762,6 @@ def deep(arch: str, mesh, dev, cpu: bool) -> dict:
     return line
 
 
-NCCL_KINDS = ("AllReduce", "AllGather", "ReduceScatter", "SendRecv",
-              "Broadcast", "AllToAll")
-
-
-def _busy_ms(intervals: list) -> float:
-    """Milliseconds of the union of (start, end) intervals in µs."""
-    total, end = 0.0, None
-    for a, b in sorted(intervals):
-        if end is None or a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total / 1e3
-
-
 def profile_step(step, state, batch, mesh, arch: str) -> dict:
     """One more step under the profiler, in a telemetry session (so
     `attention`, `moe` and `optimizer` are profiler ranges), on rank 0's
@@ -812,15 +795,15 @@ def profile_step(step, state, batch, mesh, arch: str) -> dict:
     for e in kernels:
         if "nccl" not in e.name.lower():
             continue
-        kind = next((k for k in NCCL_KINDS if k.lower() in e.name.lower()),
+        kind = next((k for k in S.NCCL_KINDS if k.lower() in e.name.lower()),
                     "other")
         d = nccl.setdefault(kind, {"device_ms": 0.0, "count": 0})
         d["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
         d["count"] += 1
-    busy = _busy_ms([(e.time_range.start, e.time_range.end)
-                     for e in kernels])
-    compute = _busy_ms([(e.time_range.start, e.time_range.end)
-                        for e in kernels if "nccl" not in e.name.lower()])
+    busy = S.busy_ms([(e.time_range.start, e.time_range.end)
+                      for e in kernels])
+    compute = S.busy_ms([(e.time_range.start, e.time_range.end)
+                         for e in kernels if "nccl" not in e.name.lower()])
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall_ms,
             "compute_busy_ms": compute,

@@ -354,11 +354,30 @@ def apply_norm(cfg: ArchConfig, p: dict, x):
 # rotary position embeddings
 # --------------------------------------------------------------------------
 
+def rope_freqs(dim: int, theta: float) -> torch.Tensor:
+    """The frequencies theta ** (-arange(0, dim, 2) / dim), f32[dim // 2],
+    made on the host: the exponent in f32 and theta in f32, as the
+    reference computes them, the power taken in f64 and rounded once to
+    f32.  That is the correctly rounded f32 power, which XLA gives; torch's
+    f32 `pow` is not correctly rounded (one ulp off at 4 of qwen2's 64
+    frequencies), and the angles position * freq carry that error up with
+    the position.  The same bits whatever device the angles are made on."""
+    ex = -torch.arange(0, dim, 2, dtype=F32) / dim
+    base = torch.tensor(theta, dtype=F32).to(torch.float64)
+    return (base ** ex.to(torch.float64)).to(F32)
+
+
+def rope_table(positions, dim: int, theta: float):
+    """The angles f32[..., dim//2] of int positions[...]: the f32 product
+    of each position with `rope_freqs`, as the reference computes it."""
+    return positions.to(F32)[..., None] * rope_freqs(dim, theta).to(
+        positions.device)
+
+
 def rope_angles(positions, dim: int, theta: float):
-    """positions int[...]; returns (cos, sin) f32[..., dim//2]."""
-    freqs = theta ** (-torch.arange(0, dim, 2, dtype=F32,
-                                    device=positions.device) / dim)
-    ang = positions.to(F32)[..., None] * freqs
+    """positions int[...]; returns (cos, sin) f32[..., dim//2] of
+    `rope_table`."""
+    ang = rope_table(positions, dim, theta)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..distributed.ctx import P, constrain, on_shards
+from ..distributed.ctx import (P, constrain, from_local, local_of,
+                               shard_box, split_dims, to_layout)
 from ..kernels import ops
 from . import layers as L
 from .config import ArchConfig
@@ -56,8 +57,55 @@ def ssm_block_defs(cfg: ArchConfig) -> dict:
     }
 
 
+# On a mesh the block's convolutions and its SSD scan (and step) run on
+# each rank's shards: a rank's batch rows and channels (heads) need no
+# other rank's, so no collective runs inside them and DTensor's rules for
+# padding, einsums and views, which differ between PyTorch releases, are
+# not needed.  `_kept` gives the layout a rank computes in.
+
+def _kept(x, dims) -> list:
+    """x's placements with its splits of the tensor dimensions `dims` kept
+    and any other split (or partial sum) made whole."""
+    from torch.distributed.tensor import Replicate
+    return [p if p.is_shard() and p.dim in dims else Replicate()
+            for p in x.placements]
+
+
+def _moved(pl, moves: dict) -> list:
+    """Placements `pl` with Shard(d) made Shard(moves[d]) for d in
+    `moves`, and every other split replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(moves[p.dim]) if p.is_shard() and p.dim in moves
+            else Replicate() for p in pl]
+
+
+def _locals(mesh, pairs, used) -> list:
+    """Each (tensor, placements) of `pairs` laid out so, this rank's
+    shard."""
+    return [local_of(to_layout(t, mesh, pl), used) for t, pl in pairs]
+
+
+def _groups_of(h: int, g: int, h0: int, hl: int) -> slice:
+    """The groups that heads h0 .. h0 + hl of H = h heads in g groups
+    read (head i reads group i // (h // g)): whole groups, or one."""
+    r = h // g
+    if hl % r == 0 and h0 % r == 0:
+        return slice(h0 // r, (h0 + hl) // r)
+    if r % hl == 0:
+        return slice(h0 // r, h0 // r + 1)
+    raise ValueError(f"a rank's heads {h0}..{h0 + hl} split a group of "
+                     f"{r} heads")
+
+
 def causal_conv(x, w):
     """Depthwise causal conv: x [B,S,C], w [K,C] -> [B,S,C]."""
+    if type(x).__name__ == "DTensor":
+        mesh = x.device_mesh
+        xp = _kept(x, (0, 2))
+        used = split_dims(xp)
+        out = causal_conv(*_locals(mesh, ((x, xp), (w, _moved(xp, {2: 1}))),
+                                   used))
+        return from_local(out, mesh, xp, x.shape)
     k = w.shape[0]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = torch.zeros_like(x)
@@ -68,6 +116,15 @@ def causal_conv(x, w):
 
 def conv_step(state, xt, w):
     """Decode-time conv: state [B,K-1,C] holds the last K-1 inputs."""
+    if type(xt).__name__ == "DTensor":
+        mesh = xt.device_mesh
+        xp = _kept(xt, (0, 1))
+        sp = _moved(xp, {0: 0, 1: 2})
+        used = split_dims(xp)
+        new, out = conv_step(*_locals(mesh, ((state, sp), (xt, xp),
+                                             (w, _moved(xp, {1: 1}))), used))
+        return (from_local(new, mesh, sp, state.shape),
+                from_local(out, mesh, xp, xt.shape))
     window = torch.cat([state, xt[:, None, :]], dim=1)          # [B,K,C]
     out = torch.einsum("bkc,kc->bc", window, L._c(w, xt.dtype))
     return window[:, 1:], out
@@ -104,8 +161,14 @@ def ssd_scan(x, dt, a, b, c, chunk: int, use_kernels: bool = True):
     Returns (y [B,S,H,P], final_state [B,H,N,P]) in x's type; the math is
     f32.  B and C stay in their G groups (head h reads group h // (H // G))
     and are never repeated per head, except on the plain intra-chunk path
-    (use_kernels=False), which is the reference's.
+    (use_kernels=False), which is the reference's.  DTensors (a model on
+    a mesh) run the whole scan on each rank's batch rows and heads
+    (`_ssd_scan_on_shards`).  Each chunk's inter-chunk term is added into
+    the intra-chunk output in place (the reference's sum of the two,
+    element by element), so no [B,S,H,P] f32 stack of them is held.
     """
+    if type(x).__name__ == "DTensor":
+        return _ssd_scan_on_shards(x, dt, a, b, c, chunk, use_kernels)
     bt, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     q = min(chunk, s)
@@ -113,7 +176,6 @@ def ssd_scan(x, dt, a, b, c, chunk: int, use_kernels: bool = True):
         raise ValueError(f"seq {s} not divisible by chunk {q}")
     nc, r = s // q, h // g
 
-    xf = x.to(F32).reshape(bt, nc, q, h, p)
     dtf = dt.to(F32).reshape(bt, nc, q, h)
     bg = b.to(F32).reshape(bt, nc, q, g, n)
     cg = c.to(F32).reshape(bt, nc, q, g, n)
@@ -121,36 +183,75 @@ def ssd_scan(x, dt, a, b, c, chunk: int, use_kernels: bool = True):
     da_h = (dtf * a).permute(0, 1, 3, 2)          # [b,c,h,q], a < 0
     cum = torch.cumsum(da_h, dim=-1)              # [b,c,h,q]
     total = cum[..., -1]                          # [b,c,h]
-    xdt = xf * dtf[..., None]                     # [b,c,q,h,p]
+    xdt = x.to(F32).reshape(bt, nc, q, h, p) * dtf[..., None]  # [b,c,q,h,p]
 
     if use_kernels:
-        y_intra = ops.ssd_intra_chunk(xdt, da_h, bg, cg)
+        y = ops.ssd_intra_chunk(xdt, da_h, bg, cg)
     else:
-        y_intra = _intra_chunk_plain(xdt, da_h, bg, cg, r)
+        y = _intra_chunk_plain(xdt, da_h, bg, cg, r)
 
     # per-chunk input->state summaries
     decay_out = torch.exp(total[..., None] - cum)                # [b,c,h,q]
     xw = (xdt * decay_out.permute(0, 1, 3, 2)[..., None]).reshape(
         bt, nc, q, g, r, p)
+    del xdt
     z_states = torch.einsum("bcqgs,bcqgrp->bcgrsp", bg, xw).reshape(
         bt, nc, h, n, p)
+    del xw
 
     # inter-chunk recurrence + state broadcast back into each chunk
+    if torch.is_grad_enabled():
+        y = y.clone()   # selective checkpointing may keep the product
     hstate = torch.zeros((bt, h, n, p), dtype=F32, device=x.device)
-    y_inter = []
     for i in range(nc):
         yc = torch.einsum("bqgs,bgrsp->bqgrp", cg[:, i],
                           hstate.reshape(bt, g, r, n, p)).reshape(bt, q, h, p)
-        y_inter.append(yc * torch.exp(cum[:, i]).permute(0, 2, 1)[..., None])
+        y[:, i] += yc * torch.exp(cum[:, i]).permute(0, 2, 1)[..., None]
         hstate = (hstate * torch.exp(total[:, i])[..., None, None]
                   + z_states[:, i])
-    y = y_intra + torch.stack(y_inter, dim=1)
     return y.reshape(bt, s, h, p).to(x.dtype), hstate.to(x.dtype)
+
+
+def _ssd_scan_on_shards(x, dt, a, b, c, chunk: int, use_kernels: bool):
+    """`ssd_scan` of DTensors on each rank's shards: x's batch and head
+    splits kept (any other split gathered), dt and a split alike, B and C
+    split with the batch and whole over the groups, of which a rank reads
+    the ones its heads read (`_groups_of`).  Its chunk loop runs on plain
+    tensors (and the kernel on the card) rather than through DTensor's
+    dispatch.  y is laid out as x's kept splits, the final state
+    [B,H,N,P] alike."""
+    mesh = x.device_mesh
+    xp = _kept(x, (0, 2))
+    used = split_dims(xp)
+    h0, hl = shard_box(x.shape, xp, mesh)[2]
+    grp = _groups_of(x.shape[2], b.shape[2], h0, hl)
+    bp = _moved(xp, {0: 0})
+    xl, dtl, al, bl, cl = _locals(mesh, (
+        (x, xp), (dt, xp), (a, _moved(xp, {2: 0})), (b, bp), (c, bp)), used)
+    y, st = ssd_scan(xl, dtl, al, bl[:, :, grp], cl[:, :, grp], chunk,
+                     use_kernels)
+    return (from_local(y, mesh, xp, x.shape),
+            from_local(st, mesh, _moved(xp, {0: 0, 2: 1}),
+                       (x.shape[0], x.shape[2], b.shape[3], x.shape[3])))
 
 
 def ssd_step(hstate, xt, dtt, a, bt_, ct):
     """O(1) decode recurrence.  hstate:[B,H,N,P] xt:[B,H,P] dtt:[B,H]
-    bt_/ct:[B,G,N] -> (new_state, y [B,H,P])."""
+    bt_/ct:[B,G,N] -> (new_state, y [B,H,P]).  DTensors run on each
+    rank's batch rows and heads, as `_ssd_scan_on_shards`."""
+    if type(xt).__name__ == "DTensor":
+        mesh = xt.device_mesh
+        xp = _kept(xt, (0, 1))
+        used = split_dims(xp)
+        h0, hl = shard_box(xt.shape, xp, mesh)[1]
+        grp = _groups_of(xt.shape[1], bt_.shape[1], h0, hl)
+        bp = _moved(xp, {0: 0})
+        hs, xl, dl, al, bl, cl = _locals(mesh, (
+            (hstate, xp), (xt, xp), (dtt, xp), (a, _moved(xp, {1: 0})),
+            (bt_, bp), (ct, bp)), used)
+        new, y = ssd_step(hs, xl, dl, al, bl[:, grp], cl[:, grp])
+        return (from_local(new, mesh, xp, hstate.shape),
+                from_local(y, mesh, xp, xt.shape))
     b, h, g, n = xt.shape[0], xt.shape[1], bt_.shape[1], bt_.shape[2]
     # each group's row repeated for its h // g heads (repeat_interleave)
     bh = bt_[:, :, None].expand(b, g, h // g, n).reshape(b, h, n).to(F32)
@@ -159,11 +260,7 @@ def ssd_step(hstate, xt, dtt, a, bt_, ct):
     decay = torch.exp(dtf * a)[..., None, None]                   # [B,H,1,1]
     upd = (dtf[..., None] * bh)[..., None] * xt.to(F32)[:, :, None, :]
     hstate = hstate.to(F32) * decay + upd
-    # (on a mesh each rank's batch rows and heads)
-    y = on_shards(lambda c_, s_: torch.einsum("bhs,bhsp->bhp", c_, s_),
-                  (chh, hstate), (P(BATCH, "model", None),
-                                  P(BATCH, "model", None, None)),
-                  P(BATCH, "model", None), (b, h, hstate.shape[-1]))
+    y = torch.einsum("bhs,bhsp->bhp", chh, hstate)
     return hstate.to(xt.dtype), y.to(xt.dtype)
 
 
@@ -235,7 +332,13 @@ def mamba_layer_decode(cfg: ArchConfig, lp: dict, x, cache: dict, i: int):
     out, st = mamba2_block_decode(cfg, lp["mix"], h,
                                   {k: cache[k][i] for k in STATE_KEYS})
     for k in STATE_KEYS:
-        cache[k][i].copy_(st[k])
+        dst = cache[k][i]
+        if type(dst).__name__ == "DTensor":
+            # each rank writes its own shard (as `layers.cache_update`)
+            dst.to_local().copy_(to_layout(st[k], dst.device_mesh,
+                                           dst.placements).to_local())
+        else:
+            dst.copy_(st[k])
     return x + out
 
 
