@@ -55,11 +55,37 @@ prints instead the reference's carbon-aware training reports that
 
 The schedule does not depend on the model's numbers, so the port's
 reports must equal these whatever weights it trains.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python3 scripts/reference_experiments.py --workloads
+
+writes instead `tests/data/torch_paper_workloads_reference.json`: the
+reference's answers for the paper's other two workloads at full scale
+(`make_workload("surf" | "borg", scale=1.0, seed=0)`, each over its whole
+horizon in steps of 0.25 h, `slots_per_step` 256 / 4096: the smallest power
+of two at or above the most arrivals in any step), in the configurations of
+the Fig 11 study (`benchmarks/bench_combinations.py`; carbon region 0 of
+`make_region_traces(S, 0.25, 24, seed=0)`, every other subsystem at its
+default):
+
+  * `search`: `find_min_scale` at the SLA target 0.01 (lo 1, hi the host
+    count) over the base configuration's first SEARCH_STEPS steps
+    (megakernel), with every scale it evaluated;
+  * `base_stage-pipeline`, `base_megakernel` (R1): the base configuration
+    through both step executors;
+  * `hs_b_ts_megakernel` (R2): the battery (KWH_PER_HOST kWh a host),
+    temporal shifting and the search's host count (megakernel);
+
+each run's SimResult fields, `n_tasks`, `n_hosts`, `n_steps`, the slots and
+its CPU seconds.  `--workloads surf` (or `borg`) runs one workload and
+keeps the other's records.  A full run takes about 40 minutes on 8 CPU
+cores (Borg's search alone 13): `chip_smoke.py`'s phase 4g and
+`scripts/paper_workloads_card.py` hold the port to it.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 import sys
 import time
 
@@ -71,7 +97,7 @@ from repro.core import (FleetSpec, SimConfig, find_min_scale, simulate,
 from repro.core import config as C
 from repro.core.fleet import fleet_place
 from repro.weathertraces.synthetic import make_weather_traces
-from repro.workloads.synthetic import make_workload
+from repro.workloads.synthetic import SPECS, make_workload
 
 DT_H = 0.25
 STEPS = 2880
@@ -276,7 +302,106 @@ def train_main() -> None:
           **json.loads(out.getvalue().strip().splitlines()[-1])})
 
 
+# the Fig 11 study's workloads (benchmarks/bench_combinations.py): slots a
+# step (the smallest power of two at or above the most arrivals in any step
+# of 0.25 h at full scale), battery kWh a host (benchmarks/common.py)
+PAPER_WORKLOADS = ("surf", "borg")
+PAPER_SLOTS = {"surf": 256, "borg": 4096}
+KWH_PER_HOST = {"surf": 1.1, "borg": 2.2}
+STUDY_REGIONS = 24
+SEARCH_STEPS = SCALING_STEPS
+SLA_TARGET = 0.01
+WORKLOADS_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "..", "tests", "data",
+                                 "torch_paper_workloads_reference.json")
+
+
+def result_fields(res) -> dict:
+    """Every field of a SimResult as floats (the per-class ones as lists)."""
+    out = {}
+    for k, v in res._asdict().items():
+        if v is None:
+            continue
+        a = np.asarray(v)
+        out[k] = a.tolist() if a.ndim else float(a)
+    return out
+
+
+def workloads_main(argv: list) -> None:
+    """The `--workloads` records (see the module docstring)."""
+    import jax
+    names = argv[argv.index("--workloads") + 1:][:1]
+    names = (names[0].split(",") if names and not names[0].startswith("--")
+             else list(PAPER_WORKLOADS))
+    try:
+        with open(WORKLOADS_FIXTURE) as f:
+            record = json.load(f)
+    except FileNotFoundError:
+        record = {}
+    record.update({
+        "command": "PYTHONPATH=src JAX_PLATFORMS=cpu python3 "
+                   "scripts/reference_experiments.py --workloads",
+        "jax": jax.__version__, "scale": 1.0, "seed": 0, "dt_h": DT_H,
+        "regions": STUDY_REGIONS, "region": 0, "search_steps": SEARCH_STEPS,
+        "sla_target": SLA_TARGET})
+    record.setdefault("workloads", {})
+    for name in names:
+        tasks, hosts, _, meta = make_workload(name, scale=1.0, seed=0,
+                                              dt_h=DT_H)
+        steps = int(round(SPECS[name].horizon_days * 24 / DT_H))
+        ci = make_region_traces(steps, DT_H, STUDY_REGIONS, seed=0)[0]
+        slots = PAPER_SLOTS[name]
+        kwh = KWH_PER_HOST[name] * meta["n_hosts"]
+        base = SimConfig(dt_h=DT_H, n_steps=steps, embodied=meta["embodied"],
+                         scheduler=C.SchedulerConfig(slots_per_step=slots))
+        rec = {"n_tasks": int(meta["n_tasks"]),
+               "n_hosts": int(meta["n_hosts"]), "n_steps": steps,
+               "slots_per_step": slots, "battery_kwh": kwh, "runs": {}}
+        search_cfg = base.replace(n_steps=SEARCH_STEPS, backend="megakernel")
+
+        def sla(n: int) -> float:
+            final, _ = simulate(tasks, with_scale(hosts, n),
+                                ci[:SEARCH_STEPS], search_cfg)
+            return float(summarize(final, search_cfg).sla_violation_frac)
+        t0, w0 = time.process_time(), time.perf_counter()
+        best, evaluated = find_min_scale(sla, 1, meta["n_hosts"], SLA_TARGET)
+        rec["search"] = {"best": best, "n_hs": min(best, meta["n_hosts"]),
+                         "evaluated": {str(k): v
+                                       for k, v in evaluated.items()},
+                         "cpu_seconds": time.process_time() - t0,
+                         "seconds": time.perf_counter() - w0}
+        emit({"workload": name, "search": rec["search"]})
+        runs = (("base_megakernel", base.replace(backend="megakernel"), {}),
+                ("base_stage-pipeline", base.replace(
+                    backend="stage-pipeline"), {}),
+                ("hs_b_ts_megakernel", base.replace(
+                    backend="megakernel",
+                    battery=C.BatteryConfig(enabled=True, capacity_kwh=kwh),
+                    shifting=C.ShiftingConfig(enabled=True)),
+                 {"n_active_hosts": rec["search"]["n_hs"]}))
+        for key, cfg, dyn in runs:
+            t0, w0 = time.process_time(), time.perf_counter()
+            res = summarize(simulate(tasks, hosts, ci, cfg, dyn=dyn)[0], cfg)
+            rec["runs"][key] = {"backend": cfg.backend, "dyn": dyn,
+                                "techniques": C.techniques(
+                                    cfg, horizontal_scaling=bool(dyn)),
+                                "cpu_seconds": time.process_time() - t0,
+                                "seconds": time.perf_counter() - w0,
+                                **result_fields(res)}
+            emit({"workload": name, "run": key,
+                  "cpu_seconds": rec["runs"][key]["cpu_seconds"],
+                  "n_done": rec["runs"][key]["n_done"],
+                  "total_carbon_kg": rec["runs"][key]["total_carbon_kg"]})
+        record["workloads"][name] = rec
+        with open(WORKLOADS_FIXTURE, "w") as f:
+            json.dump(record, f, indent=1, sort_keys=True)
+            f.write("\n")
+
+
 def main() -> None:
+    if "--workloads" in sys.argv[1:]:
+        workloads_main(sys.argv[1:])
+        return
     if "--train" in sys.argv[1:]:
         train_main()
         return
