@@ -161,6 +161,26 @@ Phases, each printing one JSON line:
                  their plain versions; the timing phase times kernels 1-4
                  and the per-host sum at these shapes (`paper_shapes` in
                  the `kernels` line).
+  4h. paper studies -- the paper's scaling, trade-off and analytical-gap
+                 studies (scripts/paper_studies_card.py runs them at full
+                 scale) on SURF and Borg over 2 days at full width, each
+                 part through the megakernel with its launch counts exact:
+                 with pricing on (a demand charge of 12 a kW) the battery
+                 and B+TS grids over the study's two tariffs and the
+                 cost-carbon front (the blended policy over lambda 0 /
+                 0.5 / 1 x the tariffs), every row of B+TS and of the
+                 front equal to its own single run (counts exact, totals
+                 rtol 1e-5), the front's lambda = 1 rows bit for bit the
+                 carbon policy's; Fig 5's run at half the hosts with host
+                 failures and checkpointing (MTBF 400 h, repair 4 h); the
+                 §III oracle on regions 0-3; the named runs and the oracle
+                 equal to the reference's records
+                 (tests/data/torch_paper_studies_reference.json, `smoke`;
+                 scripts/reference_experiments.py --studies).  Phase 3
+                 holds kernel 3 with the study's pricing and the blended
+                 battery at lambda 0.5 over SURF's 11,904 steps, on [2, S]
+                 rows of the two tariffs, to its plain chain (168-h billing
+                 windows across the tiles' seams).
   5. small    -- the same configuration at a small scale on the card and on
                  the CPU (the plain versions, which the CPU tests hold to the
                  reference package): counts exact, the rest within 1e-4.
@@ -319,8 +339,9 @@ from repro_torch.core import config as C  # noqa: E402
 from repro_torch.core import (STORES, EnergyFlow, FleetSpec,  # noqa: E402
                               ScenarioGrid, battery, dyn_axis,
                               facility_failure_series,
-                              failures, find_min_scale, fleet_axis, pricing,
-                              region_axis, result_to_numpy, seed_axis,
+                              failures, find_min_scale, fleet_axis,
+                              price_axis, pricing, region_axis,
+                              result_to_numpy, seed_axis,
                               simulate, simulate_fleet, split_by_region,
                               summarize, sweep_grid, tasktrace_axis,
                               threefry, trace_axis, with_scale)
@@ -343,6 +364,7 @@ from repro_torch.models import get_model, whisper  # noqa: E402
 from repro_torch.models.layers import (dtype_of, flatten,  # noqa: E402
                                        layer, layer_window, rope_angles,
                                        rope_table, tree_map)
+from repro_torch.pricetraces import make_price_traces  # noqa: E402
 from repro_torch.tasktraces import make_arrival_sets  # noqa: E402
 from repro_torch.data.pipeline import (DataConfig,  # noqa: E402
                                        TokenPipeline, to_device)
@@ -720,9 +742,10 @@ def _totals_close(got, want, rtol, atol, what) -> tuple[float, float]:
 # eager loop tens of seconds a row) and SURF's 124 days (11,904: 12 tiles,
 # the last partial; phase 4g)
 ROW_STEPS = (1, 255, MAIN_STEPS, 8760, 11904)
-# the facility kernel's combos of techniques x policies: half a tile of
-# steps (a whole tile, 1024, until the paper workloads' phase joined)
-COMBO_STEPS = 512
+# the facility kernel's combos of techniques x policies: a quarter of a
+# tile of steps (a whole tile, 1024, until the paper workloads' phase
+# joined, then 512 until the studies' phase 4h joined)
+COMBO_STEPS = 256
 # per scenario row: battery capacity (kWh), rate (kW), initial SoC, dispatch
 # lambda (blended policy: 0 is the price policy, 1 the carbon one) and PV
 # capacity (kW).  Row 0's battery fills or empties in one 15-minute step,
@@ -769,6 +792,41 @@ def facility_rows_case(dev, gen, s: int, errs: list) -> dict:
         check(full and empty, f"[{b}, {s}]: no battery reached both its "
               f"capacity ({full}) and 0 ({empty})")
     return {"rows": b, "reached_capacity": full, "reached_zero": empty}
+
+
+def facility_study_case(dev, errs: list) -> dict:
+    """Kernel 3 as the trade-off study's front runs it over SURF's 11,904
+    steps (12 tiles of 1024, the last partial): pricing with a demand
+    charge of 12 a kW over 168-h billing windows (672 steps: windows cross
+    the tiles' seams, so the running peak and the charge carry across
+    them), the blended battery (SURF's 304.7 kWh) at lambda 0.5 with its
+    48-h price window, on [2, S] rows of the study's two tariffs, against
+    the plain chain on the CPU (rtol 1e-4, atol 1e-3)."""
+    from repro_torch.core.engine import facility_totals_from_flows
+    s, h = PAPER_SHAPES["surf"]["s"], PAPER_SHAPES["surf"]["h"]
+    base = paper_config("surf", s, C.EmbodiedConfig())
+    cfg = study_configs(base, STUDY_KWH_PER_HOST["surf"] * h)["front"]
+    ci, prices = study_tariff_traces(s, dev)
+    it_kw = 40.0 + 20.0 * torch.rand(
+        (2, s), generator=torch.Generator(device=dev).manual_seed(24),
+        device=dev)
+    wb = torch.full_like(ci, cfg.cooling.setpoint_c)
+    args = facility_args(cfg, it_kw, (ci, wb, prices, torch.zeros_like(ci)))
+    lam = torch.full((2,), STUDY_LAMBDAS[1], device=dev)
+    got = fs_k.fused_facility_totals(*args, cfg, dispatch_lambda=lam)
+    cpu = [a.cpu() for a in args]
+    flows = ref.fused_facility_chain(cpu[0], *cpu[1:], cfg.dt_h, cfg,
+                                     dispatch_lambda=lam.cpu())
+    want = facility_totals_from_flows(flows, cpu[1], cpu[3], cfg)
+    for r in range(2):
+        errs.append(_totals_close({k: v[r].cpu() for k, v in got.items()},
+                                  _row_of(want, r), 1e-4, 1e-3,
+                                  f"fused_facility_totals study row {r}"))
+    soc = flows["soc"]
+    check(bool((got["demand_cost"] > 0).all()) and bool((soc > 0).any()),
+          "study case: no demand charge or the battery never charged")
+    return {"rows": 2, "steps": s, "demand_cost": got["demand_cost"].tolist(),
+            "window_steps": int(round(cfg.pricing.billing_window_h / DT_H))}
 
 
 # rows at the edges of kernel 3's SoC chain (capacity kWh, rate kW, initial
@@ -871,6 +929,7 @@ def check_facility_kernel(dev, results: dict) -> None:
                         f"fused_facility_totals {cool}/{price}/{renew}/"
                         f"{policy}"))
     rows = {n: facility_rows_case(dev, gen, n, errs) for n in ROW_STEPS}
+    study = facility_study_case(dev, errs)
     routes = {f"dt_{dt:g}": facility_routes_case(dev, dt, errs)
               for dt in (0.1, 2.0 ** -21)}
     cfg = main_config(s, C.EmbodiedConfig()).replace(
@@ -895,7 +954,7 @@ def check_facility_kernel(dev, results: dict) -> None:
         "max_abs_err": max(e for e, _ in errs),
         "max_rel_err": max(r for _, r in errs), "cases": len(errs),
         "store_rel_err": envelope, "rows": rows,
-        "soc_final_by_route_row": routes}
+        "soc_final_by_route_row": routes, "study_case": study}
 
 
 def _ssd_inputs(gen, shape, dev, decay=0.2):
@@ -1180,6 +1239,26 @@ def host_sum_tables(gen, b: int, tasks, hosts, dev):
     return tasks._replace(status=status, host=host), hosts
 
 
+def host_sum_yardstick(status, host, cores, gpus, cu, gu, h: int) -> dict:
+    """One `index_add_` of both channels of the per-host sums ([B, T] or
+    [T] status and host; the bins, spare ones past h, and the products made
+    beforehand, into a preallocated buffer): the library yardstick, which
+    the port never calls.  Its ms a call (CUDA events) and device ms."""
+    t = status.shape[-1]
+    status, host = status.reshape(-1, t), host.reshape(-1, t)
+    b, dev = status.shape[0], status.device
+    run = (status == RUNNING) & (host >= 0)
+    seg = (torch.where(run, host.long().clamp(0, h - 1),
+                       torch.arange(h, h + t, device=dev))
+           + torch.arange(b, device=dev)[:, None] * (h + t)).reshape(-1)
+    stacked = torch.stack([torch.where(run, cores * cu, 0.0),
+                           torch.where(run, gpus * gu, 0.0)]).reshape(2, -1)
+    buf = torch.zeros((2, b * (h + t)), device=dev)
+    return {"library_ms": time_ms(lambda: buf.index_add_(1, seg, stacked)),
+            "library_device_ms": call_device_ms(
+                lambda: buf.index_add_(1, seg, stacked), reps=10)}
+
+
 def time_host_sum(dev, results: dict) -> None:
     """The per-host sum kernel at Marconi's shapes as `host_utilization`
     calls it (status and host [B, T], cores, GPUs and utilizations [1, T],
@@ -1206,16 +1285,6 @@ def time_host_sum(dev, results: dict) -> None:
         n_run = int(((status == RUNNING) & (host >= 0)).sum())
         b_ms, b_by = bound(host_sum_bytes(status, host, args[2:4] + args[5:],
                                           h), 4 * n_run)
-        # the yardstick's inputs: bins (spare ones past h) and both
-        # channels' products, one row after another
-        run = (status == RUNNING) & (host >= 0)
-        seg = (torch.where(run, host.long().clamp(0, h - 1),
-                           torch.arange(h, h + t, device=dev))
-               + torch.arange(b, device=dev)[:, None] * (h + t)).reshape(-1)
-        stacked = torch.stack([torch.where(run, cores * cu, 0.0),
-                               torch.where(run, gpus * gu, 0.0)]).reshape(
-            2, -1)
-        buf = torch.zeros((2, b * (h + t)), device=dev)
         tasks, hosts = host_sum_tables(gen, b, *marconi, dev)
         call = lambda: scheduler.host_utilization(  # noqa: E731
             tasks, hosts)
@@ -1223,16 +1292,14 @@ def time_host_sum(dev, results: dict) -> None:
                    "plain_ms": time_ms(lambda: ref.per_host_sum(*args)),
                    "device_ms": device_ms(lambda: hs_k.per_host_sum(*args),
                                           "host_sum_kernel", reps=10),
-                   "library_ms": time_ms(
-                       lambda: buf.index_add_(1, seg, stacked)),
-                   "library_device_ms": call_device_ms(
-                       lambda: buf.index_add_(1, seg, stacked), reps=10),
+                   **host_sum_yardstick(status, host, cores, gpus, cu, gu,
+                                        h),
                    "bound_ms": b_ms, "bound_by": b_by, "running": n_run,
                    "workspace_bytes": hs_k.workspace_bytes(b, t),
                    "host_utilization_ms": time_ms(call),
                    "host_utilization_device_ms": call_device_ms(call,
                                                                 reps=10)}
-        del seg, stacked, buf, tasks, hosts
+        del tasks, hosts
     results["per_host_sum"].update(
         {**{k: rows[1][k] for k in ("ms", "plain_ms", "device_ms",
                                     "bound_ms", "bound_by", "library_ms")},
@@ -1418,20 +1485,21 @@ def run_launches(backend: str, n_steps: int, cooling: bool = False,
                  runs: int = 1, n_chunks: int = 1,
                  series: bool = False) -> dict:
     """The launches of `runs` first-fit runs (or grid runs of `n_chunks`
-    chunks): first-fit every step; the per-host sums twice a step (the
-    scheduler's free capacity, the power stage's utilizations); the stage
-    pipeline's power kernel every step (kernel 2 with the cooling tail,
-    else kernel 1); the megakernel's kernel 1 every step and kernel 3 once
-    a chunk (its series route where the run keeps series or probes)."""
+    chunks, each chunk a step loop of its own): first-fit every step; the
+    per-host sums twice a step (the scheduler's free capacity, the power
+    stage's utilizations); the stage pipeline's power kernel every step
+    (kernel 2 with the cooling tail, else kernel 1); the megakernel's
+    kernel 1 every step and kernel 3 once a step loop (its series route
+    where the run keeps series or probes)."""
     want = {"first_fit_place": n_steps, "per_host_sum": 2 * n_steps}
     if backend == "megakernel":
         want["fused_power_carbon"] = n_steps
         want["fused_facility_series" if series
-             else "fused_facility_totals"] = n_chunks
+             else "fused_facility_totals"] = 1
     else:
         want["fused_facility_power" if cooling
              else "fused_power_carbon"] = n_steps
-    return {k: v * runs for k, v in want.items()}
+    return {k: v * runs * n_chunks for k, v in want.items()}
 
 
 def expect_launches(info: dict, want: dict, what: str) -> None:
@@ -1864,8 +1932,8 @@ def cell(res: dict, idx) -> dict:
 
 
 def check_grid_launches(info: dict, n_steps: int, n_chunks: int) -> None:
-    """A grid run launches each kernel as often as one run does: once a
-    step (the facility kernel once a chunk), whatever the number of cells."""
+    """A grid run launches each kernel as often as one run does a chunk:
+    once a step (the facility kernel once), whatever the number of cells."""
     expect_launches(info, run_launches(info["backend"], n_steps, True,
                                        n_chunks=n_chunks),
                     f"grid {info['shape']} {info['backend']}")
@@ -3194,6 +3262,202 @@ def paper_workloads_phase(dev, scale: float, days: dict | None) -> tuple:
     return lines, total
 
 
+# --------------------------------------------------------------------------
+# phase 4h: the paper's scaling, trade-off and analytical-gap studies at the
+# smoke's size (scripts/paper_studies_card.py runs them at full scale)
+# --------------------------------------------------------------------------
+
+# the reference package's records of the studies' named single runs
+# (scripts/reference_experiments.py --studies, on the CPU): `full` (the
+# whole horizon) and `smoke` (STUDY_DAYS days at full width)
+STUDY_RECORDS = os.path.join(ROOT, "tests", "data",
+                             "torch_paper_studies_reference.json")
+STUDY_DAYS = 2.0
+# battery kWh a host (benchmarks/common.py KWH_PER_HOST)
+STUDY_KWH_PER_HOST = {"surf": 1.1, "marconi": 9.0, "borg": 2.2}
+# Fig 5's failure model (benchmarks/bench_scaling.py:34-36); the trade-off
+# study's demand charge, the front's lambdas and price window
+# (bench_tradeoffs.py:463-504); the §III regions the records hold
+STUDY_FAILURES = {"mtbf_h": 400.0, "repair_h": 4.0, "checkpointing": True}
+STUDY_DEMAND_CHARGE_PER_KW = 12.0
+STUDY_LAMBDAS = (0.0, 0.5, 1.0)
+STUDY_PRICE_WINDOW_H = 48.0
+STUDY_ORACLE_REGIONS = 4
+# the fields of the front's lambda = 1 rows held bit for bit to the carbon
+# policy's B rows (not the mean delays: on the card a row's [B, T] delay
+# sums depend on the grid's row count)
+STUDY_EXACT = ("total_carbon_kg", "op_carbon_kg", "emb_carbon_kg",
+               "grid_energy_kwh", "dc_energy_kwh", "it_energy_kwh",
+               "energy_cost", "demand_cost", "total_cost", "peak_power_kw",
+               "batt_discharged_kwh", "sla_violation_frac", "done_frac",
+               *COUNTS)
+
+
+def study_configs(base: C.SimConfig, kwh: float) -> dict:
+    """The trade-off study's configurations (bench_tradeoffs.py:470-500):
+    pricing on; none, B (`kwh` of battery), TS, B+TS; and the front's B
+    with the blended policy and its 48-h price window."""
+    priced = base.replace(pricing=C.PricingConfig(
+        enabled=True, demand_charge_per_kw=STUDY_DEMAND_CHARGE_PER_KW))
+    bat = C.BatteryConfig(enabled=True, capacity_kwh=kwh)
+    ts = C.ShiftingConfig(enabled=True)
+    return {"none": priced, "B": priced.replace(battery=bat),
+            "TS": priced.replace(shifting=ts),
+            "B+TS": priced.replace(battery=bat, shifting=ts),
+            "front": priced.replace(battery=dataclasses.replace(
+                bat, policy="blended", price_window_h=STUDY_PRICE_WINDOW_H))}
+
+
+def study_failures(cfg: C.SimConfig, enabled: bool = True) -> C.SimConfig:
+    """Fig 5's host failures with checkpointing (or none)."""
+    return cfg.replace(failures=C.FailureConfig(enabled=enabled,
+                                                **STUDY_FAILURES))
+
+
+def study_tariff_traces(steps: int, dev) -> tuple:
+    """The trade-off study's carbon trace (`make_region_traces(S, 0.25, 2,
+    seed=7)[1]`) and its two tariffs (`make_price_traces(S, 0.25, 2,
+    seed=7)`), on `dev`."""
+    return (torch.as_tensor(make_region_traces(steps, DT_H, 2, seed=7)[1],
+                            device=dev),
+            torch.as_tensor(make_price_traces(steps, DT_H, 2, seed=7),
+                            device=dev))
+
+
+def flat_row(out: dict, i: int) -> dict:
+    """Row i of a grid's numpy result, its leading axes flattened."""
+    nd = np.ndim(out["total_carbon_kg"])
+    return {k: np.reshape(v, (-1, *np.shape(v)[nd:]))[i]
+            for k, v in out.items()}
+
+
+def paper_studies_phase(dev, scale: float, days: float) -> tuple:
+    """Phase 4h: SURF and Borg (`make_workload(name, scale, seed=0)` over
+    `days`) in the studies' configurations through the megakernel: the
+    trade-off study's B and B+TS grids over its two tariffs and the
+    lambda x tariff front, each row against its own single run (counts
+    exact, totals rtol 1e-5), the front's lambda = 1 rows bit for bit the
+    B rows; Fig 5's run at half the hosts with failures and checkpointing;
+    the §III oracle on regions 0-3.  Launch counts exact on the card; at
+    full width over STUDY_DAYS the named runs equal the reference's
+    `smoke` records (counts exact, totals rtol 1e-4, the oracle within
+    ANALYTICAL_RTOL / _ATOL).  Returns (a line a workload, launch counts
+    summed over the phase)."""
+    on = dev.type == "cuda"
+    records = None
+    if scale == 1.0 and days == STUDY_DAYS:
+        with open(STUDY_RECORDS) as f:
+            records = json.load(f)["workloads"]
+    lines, total = [], dict.fromkeys(build.KERNELS, 0)
+
+    def count(info, want, what):
+        if on:
+            expect_launches(info, want, what)
+        for k, n in info["launches"].items():
+            total[k] += n
+
+    for name in ("surf", "borg"):
+        t0 = time.perf_counter()
+        tasks, hosts, _, meta = make_workload(name, scale=scale, seed=0,
+                                              dt_h=DT_H, horizon_days=days,
+                                              device=dev)
+        steps = int(round(days * 24 / DT_H))
+        rec = None if records is None else records[name]["smoke"]["runs"]
+        held = {}
+        base = paper_config(name, steps, meta["embodied"]).replace(
+            backend="megakernel")
+        cfgs = study_configs(base, STUDY_KWH_PER_HOST[name]
+                             * meta["n_hosts"])
+        ci, prices = study_tariff_traces(steps, dev)
+        lam = np.asarray(STUDY_LAMBDAS, np.float32)
+
+        def one(cfg, dyn, what, ci=ci, hosts=hosts):
+            out, info = run_backend(tasks, hosts, ci, cfg, dyn, "megakernel",
+                                    dev)
+            count(info, run_launches("megakernel", steps), what)
+            for k in PAPER_TOTALS:
+                check(bool(np.isfinite(out[k])), f"{what}: {k} not finite")
+            return out
+
+        grids, rel, walls = {}, 0.0, {}
+        for key, axes in (("B", [price_axis(prices)]),
+                          ("B+TS", [price_axis(prices)]),
+                          ("front", [dyn_axis(dispatch_lambda=lam),
+                                     price_axis(prices)])):
+            what = f"{name} {key} grid"
+            res, info = measured(lambda: sweep_grid(
+                tasks, hosts, cfgs[key], axes, ci, device=dev), dev)
+            count(info, run_launches("megakernel", steps), what)
+            walls[key] = info["wall_s"]
+            out = grids[key] = result_to_numpy(res)
+            if key == "B":
+                continue
+            for i in range(np.size(out["total_carbon_kg"])):
+                dyn = {"price_trace": prices[i % 2]}
+                if key == "front":
+                    dyn["dispatch_lambda"] = lam[i // 2]
+                single = one(cfgs[key], dyn, f"{what} row {i} single run")
+                rel = max(rel, *paper_same(flat_row(out, i), single, 1e-5,
+                                           f"{what} row {i} vs its single "
+                                           "run").values())
+                if rec is not None and (key, i) == ("B+TS", 1):
+                    held["tradeoffs_bts_tariff1"] = paper_same(
+                        single, rec["tradeoffs_bts_tariff1"], 1e-4,
+                        f"{what} tariff 1 vs the records")
+                if rec is not None and (key, i) == ("front", 2):
+                    held["front_blended_lambda0.5_tariff0"] = paper_same(
+                        single, rec["front_blended_lambda0.5_tariff0"], 1e-4,
+                        f"{what} lambda 0.5 tariff 0 vs the records")
+        for p in (0, 1):
+            for k in STUDY_EXACT:
+                a, b = grids["front"][k][-1, p], grids["B"][k][p]
+                check(np.array_equal(a, b), f"{name} front lambda 1 tariff "
+                      f"{p}: {k} {a} != the carbon policy's {b}")
+        # Fig 5: half the hosts with failures and checkpointing
+        half = max(int(meta["n_hosts"] * 0.5), 1)
+        out = one(study_failures(base), None, f"{name} failures at {half}",
+                  ci=torch.as_tensor(make_region_traces(steps, DT_H, 1,
+                                                        seed=1)[0],
+                                     device=dev),
+                  hosts=with_scale(hosts, half))
+        if rec is not None:
+            held["scaling_failures_half"] = paper_same(
+                out, rec["scaling_failures_half"], 1e-4,
+                f"{name} failures at {half} hosts vs the records")
+        # §III: the oracle on the first regions
+        traces = torch.as_tensor(make_region_traces(steps, DT_H, 32,
+                                                    seed=11), device=dev)
+        valid = torch.isfinite(tasks.arrival)
+        oracle = torch.stack([analytical.analytical_shifting_savings(
+            tasks.arrival[valid], tasks.duration[valid], traces[r], DT_H,
+            oracle=True, device=dev)[0]
+            for r in range(STUDY_ORACLE_REGIONS)]).double().cpu()
+        check(bool(torch.isfinite(oracle).all()), f"{name} oracle {oracle}")
+        if rec is not None:
+            want = torch.tensor(records[name]["smoke"]["oracle_mean_pct"],
+                                dtype=torch.float64)
+            held["oracle_max_abs_err"] = _close(
+                oracle, want, ANALYTICAL_RTOL, ANALYTICAL_ATOL,
+                f"{name} oracle vs the records")
+        lines.append({"phase": "paper_studies", "workload": name,
+                      "n_tasks": meta["n_tasks"], "n_hosts": meta["n_hosts"],
+                      "n_steps": steps, "held_to_records": rec is not None,
+                      "rows_max_rel_diff_to_single_runs": rel,
+                      "rel_diff_to_reference": held,
+                      "front_lambda1_is_carbon_policy": True,
+                      "total_cost_by_lambda": grids["front"][
+                          "total_cost"][:, 0].tolist(),
+                      "half_hosts_failures": {
+                          "n_active_hosts": half,
+                          "sla_violation_frac": float(
+                              out["sla_violation_frac"])},
+                      "oracle_mean_pct": oracle.tolist(),
+                      "grid_wall_s": walls,
+                      "seconds": time.perf_counter() - t0})
+        del tasks, hosts
+    return lines, total
+
+
 def _ff_workload_rows(gen, b: int, shape: dict, dev):
     """First-fit's inputs as a step of the workload hands them over: [b, K]
     candidates, the first `live` of a row live (the workload's core needs,
@@ -3274,14 +3538,21 @@ def check_host_sum_paper(dev, results: dict) -> None:
     results["per_host_sum"]["paper_cases"] = [[1, t, h], [24, t, h]]
 
 
-def time_paper_shapes(dev, results: dict) -> None:
-    """Kernels 1-4 and the per-host sums at the study's shapes, B 1 and 24
-    rows: device ms a launch (profiler), ms a call (CUDA events), the
-    bound (bytes or operations) and, for first-fit and kernel 3, the
-    latency bound of their dependent chains (first-fit: the live slots'
-    placements, each at least the levels `time_kernels` counts for H
-    hosts; kernel 3: S steps of SOC_CHAIN_LEVELS); first-fit's plain
-    version at B 1.  Stored as `paper_shapes` under each kernel."""
+def time_paper_shapes(dev, results: dict, rows: tuple = PAPER_ROWS[1:],
+                      plain: bool = False) -> None:
+    """Kernels 1-4 and the per-host sums at the study's shapes, B in `rows`
+    (the smoke: 24, and 1 until the studies' phase joined): device ms a
+    launch (profiler), ms a call (CUDA events), the bound (bytes or
+    operations) and, for first-fit and kernel 3, the latency bound of their
+    dependent chains (first-fit: the live slots' placements, each at least
+    the levels `time_kernels` counts for H hosts; kernel 3: S steps of
+    SOC_CHAIN_LEVELS); first-fit's plain version at B 1.  With `plain`
+    (scripts/paper_studies_card.py, B 1 to 158), also each kernel's ms a
+    call beside its plain version's at every B (kernel
+    3's and first-fit's plain versions one timed call, their loops over S
+    steps and K slots take seconds) and the per-host sums' `index_add_`
+    yardstick (`time_host_sum`'s).  Stored as `paper_shapes` under each
+    kernel."""
     gen = torch.Generator(device=dev).manual_seed(23)
     defaults = C.SimConfig()
     cpu_p, gpu_p = defaults.cpu_power, defaults.gpu_power
@@ -3291,7 +3562,7 @@ def time_paper_shapes(dev, results: dict) -> None:
                            "per_host_sum")}
     for name, shape in PAPER_SHAPES.items():
         h, k, s, t, live = (shape[x] for x in ("h", "k", "s", "t", "live"))
-        for b in PAPER_ROWS:
+        for b in rows:
             key = f"{name}_b{b}"
             cu, gu, ng, on = _host_inputs(gen, b, h, dev)
             ng.zero_()
@@ -3310,6 +3581,18 @@ def time_paper_shapes(dev, results: dict) -> None:
                                                       cpu_p, gpu_p, cool),
                     "facility_power_kernel"),
                 "bound_ms": b_ms, "bound_by": b_by}
+            if plain:
+                for kname, fn, pfn in (
+                        ("fused_power_carbon", pc_k.fused_power_carbon,
+                         ref.fused_power_carbon),
+                        ("fused_facility_power", pc_k.fused_facility_power,
+                         ref.fused_facility_power)):
+                    a_ = ((cu, gu, ng, on, None, 0.0, cpu_p, gpu_p)
+                          if kname == "fused_power_carbon"
+                          else (cu, gu, ng, on, wb, sp, cpu_p, gpu_p, cool))
+                    out[kname][key].update(
+                        ms=time_ms(lambda: fn(*a_)),
+                        plain_ms=time_ms(lambda: pfn(*a_)))
             cc, cg, fc, fg = _ff_workload_rows(gen, b, shape, dev)
             ff_name = ("first_fit_warp_kernel" if ff_k.variant(h) == "warp"
                        else "first_fit_kernel")
@@ -3325,17 +3608,18 @@ def time_paper_shapes(dev, results: dict) -> None:
                   "latency_levels": live * levels,
                   "latency_bound_ms": live * levels * DEP_CYCLES
                   / MAX_SM_HZ * 1e3}
-            if b == 1:
+            if b == 1 or plain:
                 ff["plain_ms"] = time_ms(
-                    lambda: ref.first_fit_place(cc, cg, fc, fg), budget_s=1.0)
+                    lambda: ref.first_fit_place(cc, cg, fc, fg),
+                    budget_s=1.0 if b == 1 else 0.0)
             out["first_fit_place"][key] = ff
             cfg = paper_config(name, s, C.EmbodiedConfig()).replace(
                 battery=C.BatteryConfig(enabled=True, capacity_kwh=2.2 * h),
                 shifting=C.ShiftingConfig(enabled=True))
             it_kw = 100.0 + 50.0 * torch.rand((b, s), generator=gen,
                                               device=dev)
-            prepared = fs_k.prepare(*facility_args(
-                cfg, it_kw, facility_traces(s, dev)), cfg)
+            f_args = facility_args(cfg, it_kw, facility_traces(s, dev))
+            prepared = fs_k.prepare(*f_args, cfg)
             t_ms, t_by = bound(b * (33 * s + 8 * 8 + 18 * 4), b * 100 * s)
             out["fused_facility_totals"][key] = {
                 "s": s, "device_ms": device_ms(lambda: fs_k.launch(*prepared),
@@ -3344,6 +3628,12 @@ def time_paper_shapes(dev, results: dict) -> None:
                 "bound_ms": t_ms, "bound_by": t_by,
                 "latency_bound_ms": s * SOC_CHAIN_LEVELS * DEP_CYCLES
                 / MAX_SM_HZ * 1e3, "launch_plan": fs_k.launch_plan(s)}
+            if plain:
+                out["fused_facility_totals"][key].update(
+                    ms=time_ms(lambda: fs_k.fused_facility_totals(*f_args,
+                                                                  cfg)),
+                    plain_ms=time_ms(lambda: ref.fused_facility_totals(
+                        *f_args, cfg), budget_s=0.0))
             status, host, cores, gpus, cu_t, gu_t = _host_sum_inputs(
                 gen, b if b > 1 else 0, t, h, dev,
                 0.004 if name == "borg" else 0.03, h, shared=b > 1)
@@ -3359,6 +3649,11 @@ def time_paper_shapes(dev, results: dict) -> None:
                                        "host_sum_kernel", reps=10),
                 "bound_ms": s_ms, "bound_by": s_by,
                 "workspace_bytes": hs_k.workspace_bytes(max(b, 1), t)}
+            if plain:
+                out["per_host_sum"][key].update(
+                    plain_ms=time_ms(lambda: ref.per_host_sum(*args)),
+                    **host_sum_yardstick(status, host, cores, gpus, cu_t,
+                                         gu_t, h))
             del status, host, cores, gpus, cu_t, gu_t, args, prepared
     torch.cuda.synchronize()
     for n, rows in out.items():
@@ -5238,6 +5533,8 @@ def main() -> int:
         for line in paper_workloads_phase(cpu, 0.01, {"surf": 2.0,
                                                       "borg": 1.0})[0]:
             emit({"rehearsal": True, **line})
+        for line in paper_studies_phase(cpu, 0.01, 1.0)[0]:
+            emit({"rehearsal": True, **line})
         for line in fleet_phase(cpu, results, 0.02, 192, 15, False)[0]:
             emit({"rehearsal": True, **line})
         emit({"phase": "small_fleet_card_vs_cpu", "rehearsal": True,
@@ -5396,6 +5693,14 @@ def main() -> int:
         emit(line)
     emit({"phase": "paper_workloads_summary",
           "seconds": time.perf_counter() - t0, "launches": paper_launches})
+    # the paper's other studies at the smoke's size: the trade-off grids and
+    # front, Fig 5's failure run, the §III oracle, held to the records
+    t0 = time.perf_counter()
+    study_lines, study_launches = paper_studies_phase(dev, 1.0, STUDY_DAYS)
+    for line in study_lines:
+        emit({"nvidia_smi": smi, **line})
+    emit({"phase": "paper_studies_summary",
+          "seconds": time.perf_counter() - t0, "launches": study_launches})
 
     # the multi-datacenter fleet: greedy, round-robin and online placement,
     # a 64-row fleet grid and the cross-region spill under failures (timed
@@ -5491,7 +5796,8 @@ def main() -> int:
     # after
     launches = {k: sum(i["launches"][k] for i in infos) + grid_launches[k]
                 + resil["launches"][k] + exp_launches[k] + fleet_launches[k]
-                + tel_launches[k] + paper_launches[k] for k in build.KERNELS}
+                + tel_launches[k] + paper_launches[k] + study_launches[k]
+                for k in build.KERNELS}
     # kernel 3's derate route: its launches on the resilience path
     launches["fused_facility_totals_derate"] = resil["launches"][
         "fused_facility_totals"]

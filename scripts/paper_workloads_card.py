@@ -204,6 +204,9 @@ def run_workload(name: str, size: dict, dev, records: dict, emit) -> None:
     # the grids: base, then the 7 combinations over the regions, chunked
     # from the card's free memory (the default budget, 4 GiB, would cut
     # Borg's 24 rows into chunks: a step loop each)
+    if on:
+        # the caching allocator's free blocks are free for the grid too
+        torch.cuda.empty_cache()
     budget = 0.8 * torch.cuda.mem_get_info(dev)[0] if on else None
     years = regions * steps * DT_H / C.HOURS_PER_YEAR
     grids = {}

@@ -80,6 +80,34 @@ its CPU seconds.  `--workloads surf` (or `borg`) runs one workload and
 keeps the other's records.  A full run takes about 40 minutes on 8 CPU
 cores (Borg's search alone 13): `chip_smoke.py`'s phase 4g and
 `scripts/paper_workloads_card.py` hold the port to it.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python3 scripts/reference_experiments.py --studies surf
+
+writes instead `tests/data/torch_paper_studies_reference.json`: the
+reference's answers for the named single runs of the paper's scaling,
+trade-off and analytical-gap studies (`benchmarks/bench_scaling.py`,
+`bench_tradeoffs.py`, `bench_analytical_gap.py`, composed as they compose
+them) on SURF or Borg (`make_workload(name, scale=1.0, seed=0)` at the
+Fig 11 study's slots a step, megakernel), at two sizes: the whole horizon
+(`full`) and STUDIES_SMOKE_DAYS days at full width (`smoke`):
+
+  * `scaling_failures_half`: Fig 5's run at half the hosts (`max(int(H *
+    0.5), 1)` active) with host failures and checkpointing (`mtbf_h` 400,
+    `repair_h` 4) on carbon `make_region_traces(S, 0.25, 1, seed=1)[0]`;
+  * `tradeoffs_bts_tariff1`: Fig 9's B+TS with pricing on (a demand
+    charge of 12 a kW) on carbon `make_region_traces(S, 0.25, 2,
+    seed=7)[1]` and tariff 1 of `make_price_traces(S, 0.25, 2, seed=7)`;
+  * `front_blended_lambda0.5_tariff0`: the cost-carbon front's battery
+    (the `blended` policy, `price_window_h` 48) at `dispatch_lambda` 0.5
+    on tariff 0;
+  * `oracle_mean_pct`: the §III analytical oracle's mean savings over
+    every task on regions 0-3 of `make_region_traces(S, 0.25, 32,
+    seed=11)`;
+
+each run's SimResult fields and its CPU seconds.  One workload a call
+(SURF ~12 minutes, Borg ~30 on 8 CPU cores); the other's records are kept.
+`scripts/paper_studies_card.py` and `chip_smoke.py`'s phase 4h hold the
+port to them.
 """
 from __future__ import annotations
 
@@ -398,7 +426,123 @@ def workloads_main(argv: list) -> None:
             f.write("\n")
 
 
+# the studies' records (scripts/paper_studies_card.py): the smoke's size in
+# days (full width), the half-scale failure run's share of hosts and its
+# failure model (bench_scaling.py:34-36), the trade-off study's demand
+# charge, the front's lambda and price window (bench_tradeoffs.py:470-504),
+# the analytical gap's regions (bench_analytical_gap.py:63) and those
+# recorded
+STUDIES_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "..", "tests", "data",
+                               "torch_paper_studies_reference.json")
+STUDIES_SMOKE_DAYS = 2.0
+STUDY_FAILURES = {"mtbf_h": 400.0, "repair_h": 4.0, "checkpointing": True}
+DEMAND_CHARGE_PER_KW = 12.0
+FRONT_LAMBDA = 0.5
+FRONT_PRICE_WINDOW_H = 48.0
+GAP_REGIONS = 32
+ORACLE_REGIONS = 4
+
+
+def study_runs(name: str, days) -> dict:
+    """The records of one workload at one size (`days` None: the whole
+    horizon)."""
+    from repro.core.analytical import analytical_shifting_savings
+    from repro.pricetraces.synthetic import make_price_traces
+    tasks, hosts, _, meta = make_workload(name, scale=1.0, seed=0, dt_h=DT_H,
+                                          horizon_days=days)
+    days = days or SPECS[name].horizon_days
+    steps = int(round(days * 24 / DT_H))
+    kwh = KWH_PER_HOST[name] * meta["n_hosts"]
+    base = SimConfig(dt_h=DT_H, n_steps=steps, embodied=meta["embodied"],
+                     backend="megakernel",
+                     scheduler=C.SchedulerConfig(
+                         slots_per_step=PAPER_SLOTS[name]))
+    rec = {"days": days, "n_tasks": int(meta["n_tasks"]),
+           "n_hosts": int(meta["n_hosts"]), "n_steps": steps,
+           "slots_per_step": PAPER_SLOTS[name], "battery_kwh": kwh,
+           "runs": {}}
+    half = max(int(meta["n_hosts"] * 0.5), 1)
+    priced = base.replace(pricing=C.PricingConfig(
+        enabled=True, demand_charge_per_kw=DEMAND_CHARGE_PER_KW))
+    ci7 = make_region_traces(steps, DT_H, 2, seed=7)[1]
+    prices = make_price_traces(steps, DT_H, 2, seed=7)
+    runs = (("scaling_failures_half",
+             base.replace(failures=C.FailureConfig(enabled=True,
+                                                   **STUDY_FAILURES)),
+             with_scale(hosts, half),
+             make_region_traces(steps, DT_H, 1, seed=1)[0], None,
+             {"n_active_hosts": half}),
+            ("tradeoffs_bts_tariff1",
+             priced.replace(battery=C.BatteryConfig(enabled=True,
+                                                    capacity_kwh=kwh),
+                            shifting=C.ShiftingConfig(enabled=True)),
+             hosts, ci7, {"price_trace": prices[1]}, {"tariff": 1}),
+            ("front_blended_lambda0.5_tariff0",
+             priced.replace(battery=C.BatteryConfig(
+                 enabled=True, capacity_kwh=kwh, policy="blended",
+                 price_window_h=FRONT_PRICE_WINDOW_H)),
+             hosts, ci7, {"dispatch_lambda": np.float32(FRONT_LAMBDA),
+                          "price_trace": prices[0]},
+             {"dispatch_lambda": FRONT_LAMBDA, "tariff": 0}))
+    for key, cfg, h, ci, dyn, what in runs:
+        t0, w0 = time.process_time(), time.perf_counter()
+        res = summarize(simulate(tasks, h, ci, cfg, dyn=dyn)[0], cfg)
+        rec["runs"][key] = {**what, "cpu_seconds": time.process_time() - t0,
+                            "seconds": time.perf_counter() - w0,
+                            **result_fields(res)}
+        emit({"workload": name, "days": days, "run": key,
+              "cpu_seconds": rec["runs"][key]["cpu_seconds"],
+              "n_done": rec["runs"][key]["n_done"],
+              "total_carbon_kg": rec["runs"][key]["total_carbon_kg"]})
+    arr, dur = np.asarray(tasks.arrival), np.asarray(tasks.duration)
+    valid = np.isfinite(arr)
+    traces = make_region_traces(steps, DT_H, GAP_REGIONS, seed=11)
+    t0 = time.process_time()
+    rec["oracle_mean_pct"] = [
+        float(analytical_shifting_savings(arr[valid], dur[valid], traces[r],
+                                          DT_H, oracle=True)[0])
+        for r in range(ORACLE_REGIONS)]
+    rec["oracle_cpu_seconds"] = time.process_time() - t0
+    emit({"workload": name, "days": days,
+          "oracle_mean_pct": rec["oracle_mean_pct"]})
+    return rec
+
+
+def studies_main(argv: list) -> None:
+    """The `--studies` records (see the module docstring)."""
+    import jax
+    names = argv[argv.index("--studies") + 1:][:1]
+    names = (names[0].split(",") if names and not names[0].startswith("--")
+             else list(PAPER_WORKLOADS))
+    try:
+        with open(STUDIES_FIXTURE) as f:
+            record = json.load(f)
+    except FileNotFoundError:
+        record = {}
+    record.update({
+        "command": "PYTHONPATH=src JAX_PLATFORMS=cpu python3 "
+                   "scripts/reference_experiments.py --studies <workload>",
+        "jax": jax.__version__, "scale": 1.0, "seed": 0, "dt_h": DT_H,
+        "smoke_days": STUDIES_SMOKE_DAYS, "failures": STUDY_FAILURES,
+        "demand_charge_per_kw": DEMAND_CHARGE_PER_KW,
+        "front_lambda": FRONT_LAMBDA,
+        "front_price_window_h": FRONT_PRICE_WINDOW_H,
+        "gap_regions": GAP_REGIONS, "oracle_regions": ORACLE_REGIONS})
+    record.setdefault("workloads", {})
+    for name in names:
+        record["workloads"][name] = {}
+        for size, days in (("smoke", STUDIES_SMOKE_DAYS), ("full", None)):
+            record["workloads"][name][size] = study_runs(name, days)
+            with open(STUDIES_FIXTURE, "w") as f:
+                json.dump(record, f, indent=1, sort_keys=True)
+                f.write("\n")
+
+
 def main() -> None:
+    if "--studies" in sys.argv[1:]:
+        studies_main(sys.argv[1:])
+        return
     if "--workloads" in sys.argv[1:]:
         workloads_main(sys.argv[1:])
         return

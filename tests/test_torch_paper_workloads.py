@@ -214,7 +214,8 @@ def _imports(path: str) -> set:
 
 
 @pytest.mark.parametrize("path", ("chip_smoke.py",
-                                  "scripts/paper_workloads_card.py"))
+                                  "scripts/paper_workloads_card.py",
+                                  "scripts/paper_studies_card.py"))
 def test_card_scripts_import_neither_jax_nor_reference(path):
     names = _imports(os.path.join(ROOT, path))
     assert "repro_torch" in names
